@@ -9,6 +9,7 @@ import json
 import os
 import sys
 from contextlib import ExitStack
+from typing import Optional
 
 from seaweedfs_tpu_torch.command import Command, register
 from seaweedfs_tpu_torch.ec import stripe
@@ -18,7 +19,7 @@ from seaweedfs_tpu_torch.ec.constants import (
     ERASURE_CODING_SMALL_BLOCK_SIZE,
     TOTAL_SHARDS_COUNT,
 )
-from seaweedfs_tpu_torch.ops.rs_codec import new_encoder
+from seaweedfs_tpu_torch.ops.rs_codec import Encoder, new_encoder
 
 #: shard bytes per verify dispatch
 VERIFY_CHUNK = 4 * 1024 * 1024
@@ -36,11 +37,14 @@ def _add_geometry(p: argparse.ArgumentParser) -> None:
 
 
 def encode(base: str, device=None, large_block: int = ERASURE_CODING_LARGE_BLOCK_SIZE,
-           small_block: int = ERASURE_CODING_SMALL_BLOCK_SIZE) -> dict:
-    """<base>.dat [+ .idx] -> .ec00..13 + .eci [+ .ecx]."""
+           small_block: int = ERASURE_CODING_SMALL_BLOCK_SIZE,
+           encoder: Optional[Encoder] = None) -> dict:
+    """<base>.dat [+ .idx] -> .ec00..13 + .eci [+ .ecx]. `encoder` (default:
+    `new_encoder(device=device)`) fixes the device and kernel variant, as in
+    the other commands."""
     stripe.write_ec_files(
         base, large_block_size=large_block, small_block_size=small_block,
-        encoder=new_encoder(device=device),
+        encoder=encoder or new_encoder(device=device),
     )
     if os.path.exists(base + ".idx"):
         stripe.write_sorted_file_from_idx(base)
@@ -54,9 +58,9 @@ def encode(base: str, device=None, large_block: int = ERASURE_CODING_LARGE_BLOCK
     }
 
 
-def rebuild(base: str, device=None) -> dict:
+def rebuild(base: str, device=None, encoder: Optional[Encoder] = None) -> dict:
     """Reconstruct missing .ecNN shards from the survivors."""
-    enc = stripe.encoder_for_base(base, new_encoder(device=device))
+    enc = stripe.encoder_for_base(base, encoder or new_encoder(device=device))
     return {"rebuilt_shards": stripe.rebuild_ec_files(base, encoder=enc)}
 
 
@@ -78,12 +82,12 @@ def decode(base: str, device=None, dat_size=None) -> dict:
     return {"decoded": base + ".dat", "bytes": os.path.getsize(base + ".dat")}
 
 
-def verify(base: str, device=None) -> dict:
+def verify(base: str, device=None, encoder: Optional[Encoder] = None) -> dict:
     """Re-encode the data shards chunkwise and compare the stored parity."""
     present = stripe.find_local_shards(base)
     if len(present) != TOTAL_SHARDS_COUNT:
         raise ValueError(f"verify needs all {TOTAL_SHARDS_COUNT} shards, found {sorted(present)}")
-    enc = new_encoder(device=device)
+    enc = encoder or new_encoder(device=device)
     shard_size = os.path.getsize(stripe.shard_file_name(base, 0))
     with ExitStack() as stack:
         files = [

@@ -6,13 +6,14 @@
 // GF(2^8) as (lift @ bits(data)) mod 2, where lift is the (8R, 8C) binary
 // lift of the (R, C) matrix and bits() unpacks each byte into 8 planes.
 //
-// What bounds it on this card: the (C + R) * N bytes it moves. Arithmetic
-// is 8R * 8C bit products per byte column, a few hundred integer
-// instructions per column, while HBM (3.35 TB/s on an H100 SXM) delivers
-// one column of C + R = 14 bytes in ~4 ps. What the design does about it:
-// each input byte is read once with 16-byte loads and each output byte is
-// written once with 16-byte stores; the bit vectors, the lift and the
-// accumulators never touch device memory.
+// What bounds it on this card: the integer pipe. Per byte column it issues
+// ~288 integer operations for C = 10, R = 4 (for each of the 32 output
+// bits: AND, XOR, popc, AND, shift, OR over ceil(C/4) words), ~0.1 ms for
+// a 64 MiB encode batch, while its C + R bytes per column need ~0.03 ms at
+// the H100's 3.35 TB/s. What the design does about it: each input byte is
+// read once with 16-byte loads and each output byte is written once with
+// 16-byte stores; the bit vectors, the lift and the accumulators never
+// touch device memory, so the memory side stays far below its bound.
 //
 // Design (the TPU kernel's formulation, kept on the CUDA cores):
 //   * each thread owns 16 byte columns: one 16-byte load per input row;
@@ -25,104 +26,60 @@
 //   * output bit (r, i) = parity(popc(XOR_w mask[w] & bits[w]));
 //   * 8 bits pack into each output byte, 16 bytes per row per store.
 // The ragged edge is masked in the kernel, so any N >= 1 works with no pad.
+// An explicit tile makes each block walk `tile` columns in a loop, the
+// counterpart of the reference's `pallas_tile`.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gf_common.cuh"
+
 namespace {
 
-constexpr int kCols = 16;      // byte columns per thread
-constexpr int kThreads = 128;  // threads per block
-constexpr int kMaxRows = 32;   // R and C limits
-constexpr int kMaxCols = 32;
+using gf::kCols;
+using gf::kSpan;
+using gf::kThreads;
 
-__device__ __forceinline__ uint32_t lane(const uint4& v, int s) {
-  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ uint4 load16(const uint8_t* row, long long col0,
-                                        long long n, bool vec) {
-  if (vec && col0 + kCols <= n) {
-    return __ldcs(reinterpret_cast<const uint4*>(row + col0));
-  }
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    if (col0 + k < n) w[k >> 2] |= uint32_t(row[col0 + k]) << ((k & 3) * 8);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void store16(uint8_t* row, long long col0,
-                                        long long n, bool vec,
-                                        const uint32_t o[4]) {
-  if (vec && col0 + kCols <= n) {
-    __stcs(reinterpret_cast<uint4*>(row + col0),
-           make_uint4(o[0], o[1], o[2], o[3]));
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    if (col0 + k < n) row[col0 + k] = uint8_t(o[k >> 2] >> ((k & 3) * 8));
-  }
-}
-
-// NW = ceil(C / 4): uint32 words of one column's 8C-bit vector.
+// NW = ceil(C / 4): uint32 words of one column's 8C-bit vector. A block
+// covers the columns [blockIdx.x * tile, + tile), kSpan per trip of its
+// loop; tile == kSpan is one trip, the launch of one block per 2048 columns.
 template <int NW>
 __global__ void __launch_bounds__(kThreads)
 gf_bitplane_kernel(const uint8_t* __restrict__ data, long long in_batch,
                    long long in_row, uint8_t* __restrict__ out,
                    long long out_batch, long long out_row,
                    const uint32_t* __restrict__ masks, int c, int r_rows,
-                   long long n, bool vec_in, bool vec_out) {
+                   long long n, long long tile, bool vec_in, bool vec_out) {
   extern __shared__ uint32_t s_masks[];  // [r_rows * 8][NW]
   for (int k = threadIdx.x; k < r_rows * 8 * NW; k += blockDim.x) {
     s_masks[k] = masks[k];
   }
   __syncthreads();
 
-  const long long col0 =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kCols;
-  if (col0 >= n) return;
+  const long long start = static_cast<long long>(blockIdx.x) * tile;
+  const long long lim = min(n, start + tile);
   const uint8_t* src = data + blockIdx.y * in_batch;
   uint8_t* dst = out + blockIdx.y * out_batch;
 
-  // Column bit vectors: bits[t][w] holds rows 4w..4w+3 of column col0 + t.
-  uint32_t bits[kCols][NW];
+  for (long long col0 = start + threadIdx.x * kCols; col0 < lim; col0 += kSpan) {
+    // Column bit vectors: bits[t][w] holds rows 4w..4w+3 of column col0 + t.
+    uint32_t bits[kCols][NW];
 #pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    uint4 v[4];
+    for (int w = 0; w < NW; ++w) {
+      uint4 v[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ci = 4 * w + q;
-      v[q] = ci < c ? load16(src + ci * in_row, col0, n, vec_in)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) {
-      const uint32_t sel = (t & 3) | (((t & 3) + 4) << 4);
-      const uint32_t lo = __byte_perm(lane(v[0], t >> 2), lane(v[1], t >> 2), sel);
-      const uint32_t hi = __byte_perm(lane(v[2], t >> 2), lane(v[3], t >> 2), sel);
-      bits[t][w] = __byte_perm(lo, hi, 0x5410);
-    }
-  }
-
-  for (int r = 0; r < r_rows; ++r) {
-    uint32_t o[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      uint32_t m[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) m[w] = s_masks[(r * 8 + i) * NW + w];
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) {
-        uint32_t x = 0u;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) x ^= m[w] & bits[t][w];
-        o[t >> 2] |= (uint32_t(__popc(x)) & 1u) << ((t & 3) * 8 + i);
+      for (int q = 0; q < 4; ++q) {
+        const int ci = 4 * w + q;
+        v[q] = ci < c ? gf::load16(src + ci * in_row, col0, lim, vec_in)
+                      : make_uint4(0u, 0u, 0u, 0u);
       }
+      uint32_t words[kCols];
+      gf::column_words(v, words);
+#pragma unroll
+      for (int t = 0; t < kCols; ++t) bits[t][w] = words[t];
     }
-    store16(dst + r * out_row, col0, n, vec_out, o);
+
+    gf::parity_rows<NW>(bits, s_masks, r_rows, dst, out_row, col0, lim, vec_out);
   }
 }
 
@@ -130,51 +87,45 @@ template <int NW>
 void launch(const uint8_t* data, long long in_batch, long long in_row,
             uint8_t* out, long long out_batch, long long out_row,
             const uint32_t* masks, int batch, int c, int r, long long n,
-            bool vec_in, bool vec_out, cudaStream_t stream) {
-  const long long threads = (n + kCols - 1) / kCols;
-  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(batch));
+            long long tile, bool vec_in, bool vec_out, cudaStream_t stream) {
+  const dim3 grid(gf::column_blocks(n, tile), static_cast<unsigned>(batch));
   const size_t smem = sizeof(uint32_t) * r * 8 * NW;
   gf_bitplane_kernel<NW><<<grid, kThreads, smem, stream>>>(
-      data, in_batch, in_row, out, out_batch, out_row, masks, c, r, n, vec_in,
-      vec_out);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+      data, in_batch, in_row, out, out_batch, out_row, masks, c, r, n, tile,
+      vec_in, vec_out);
 }
 
 }  // namespace
 
 // out[b, r, :] for b < batch, r < r_rows, from data[b, c, :]; strides are in
 // bytes, the last axis contiguous. masks: device uint32[r_rows * 8][ceil(C/4)].
-// Returns 0 or the cudaError_t of the launch.
+// tile: columns per block, a positive multiple of 16, or 0 for 2048 (one
+// trip per block). Returns 0 or the cudaError_t of the launch.
 extern "C" int gf_bitplane_apply(const void* data, long long in_batch,
                                  long long in_row, void* out,
                                  long long out_batch, long long out_row,
                                  const void* masks, int batch, int c,
-                                 int r_rows, long long n, void* stream) {
-  if (c < 1 || c > kMaxCols || r_rows < 1 || r_rows > kMaxRows || n < 1 ||
-      batch < 1 || batch > 65535) {
+                                 int r_rows, long long n, long long tile,
+                                 void* stream) {
+  if (tile == 0) tile = kSpan;
+  if (!gf::shape_ok(batch, c, r_rows, n) || tile < 0 || tile % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec_in = aligned16(data) && in_row % 16 == 0 &&
-                      (batch == 1 || in_batch % 16 == 0);
-  const bool vec_out = aligned16(out) && out_row % 16 == 0 &&
-                       (batch == 1 || out_batch % 16 == 0);
+  const bool vec_in = gf::vectorizable(data, in_batch, in_row, batch);
+  const bool vec_out = gf::vectorizable(out, out_batch, out_row, batch);
   const auto* d = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);
   const auto* m = static_cast<const uint32_t*>(masks);
   auto s = static_cast<cudaStream_t>(stream);
   switch ((c + 3) / 4) {
-    case 1: launch<1>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
-    case 2: launch<2>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
-    case 3: launch<3>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
-    case 4: launch<4>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
-    case 5: launch<5>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
-    case 6: launch<6>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
-    case 7: launch<7>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
-    default: launch<8>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, vec_in, vec_out, s); break;
+    case 1: launch<1>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    case 2: launch<2>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    case 3: launch<3>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    case 4: launch<4>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    case 5: launch<5>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    case 6: launch<6>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    case 7: launch<7>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    default: launch<8>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -313,7 +313,9 @@ def geometry_from_info(info: Optional[dict]) -> CodeGeometry:
 
 def encoder_for_info(info: Optional[dict], default: Optional[Encoder] = None) -> Encoder:
     """An encoder for the .eci-recorded geometry: `default` when it matches,
-    else a sibling on the same device (hence the same backend)."""
+    else a sibling on the same device (hence the same backend) running the
+    same kernel variant and tile, so every geometry rides the kernel the
+    factory chose."""
     geom = geometry_from_info(info)
     if default is None:
         return new_encoder(geom.data_shards, geom.parity_shards, geom.matrix_kind)
@@ -323,7 +325,7 @@ def encoder_for_info(info: Optional[dict], default: Optional[Encoder] = None) ->
         return default
     enc = Encoder(
         geom.data_shards, geom.parity_shards, matrix_kind=geom.matrix_kind,
-        device=default.device,
+        device=default.device, variant=default.variant, tile=default.tile,
     )
     enc.selection = dict(default.selection, geometry=geom.family, source="geometry-sibling")
     return enc

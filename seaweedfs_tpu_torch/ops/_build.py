@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `_build/lib<name>-<hash>.so` at first use, then loaded with ctypes.
-The hash covers the source and the flags, so an edited source is rebuilt
-rather than a stale library loaded. Nothing here runs at import time.
+The hash covers the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source is rebuilt rather than a stale library loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: kernel sources by library name
-SOURCES = {"gf_bitplane": "gf_bitplane.cu"}
+SOURCES = {"gf_bitplane": "gf_bitplane.cu", "gf_dma": "gf_dma.cu", "gf_mma": "gf_mma.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,8 +40,12 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            h.update(src.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 
 

@@ -1,0 +1,97 @@
+"""Scan-chain throughput on the card: the slope method of the reference's
+`ops/measure.py`, with CUDA-event timing.
+
+Time one chain of K=1 and one of K=8 chained, data-dependent applies
+(`acc ^= apply(d ^ i)[:, :out_rows]`); the slope (t8 - t1) / 7 is the
+device time of one apply with the fixed per-chain cost cancelled. The
+xor-chain keeps every apply dependent on its index, so none can be
+skipped. Each apply's input `d ^ i` is a fresh tensor, as in the
+reference, so the slope includes that elementwise pass (one read and one
+write of the data) besides the kernel.
+
+The chains are captured as CUDA graphs when capture of the ctypes launch
+works (the operand caches are warmed first, so nothing uploads inside the
+capture), which takes Python and launch overhead out of the chain;
+otherwise they run eagerly. `last_method` says which.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+#: "graph" or "eager": how the last `scan_chain_gbps` ran its chains
+last_method = None
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them: every time kept beside
+    it, since a card set below its maximum power runs slower under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _chain(encode_fn, data: torch.Tensor, k: int, out_rows: int) -> torch.Tensor:
+    b, _c, n = data.shape
+    acc = torch.zeros((b, out_rows, n), dtype=torch.uint8, device=data.device)
+    for i in range(k):
+        acc ^= encode_fn(data ^ i)[:, :out_rows]
+    return acc
+
+
+def _graph(encode_fn, data: torch.Tensor, k: int, out_rows: int):
+    side = torch.cuda.Stream(device=data.device)
+    side.wait_stream(torch.cuda.current_stream(data.device))
+    with torch.cuda.stream(side):  # warm-up outside the capture, as torch asks
+        _chain(encode_fn, data, k, out_rows)
+    torch.cuda.current_stream(data.device).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        _chain(encode_fn, data, k, out_rows)
+    return g.replay
+
+
+def _best_seconds(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return best
+
+
+def scan_chain_gbps(
+    encode_fn, data: torch.Tensor, data_bytes: int, iters: int = 3, out_rows: int = 4
+) -> float:
+    """Steady-state GB/s of `encode_fn` ((B, C, N) uint8 -> (B, R >= out_rows,
+    N)) on `data`, a CUDA tensor. Raises ValueError when the slope is not
+    positive: timing noise swamped it, and that is no throughput."""
+    global last_method
+    if not data.is_cuda:
+        raise ValueError("scan_chain_gbps times the card: give it a CUDA tensor")
+    encode_fn(data)  # load the library and upload the operand outside any capture
+    torch.cuda.synchronize()
+    try:
+        runs = {k: _graph(encode_fn, data, k, out_rows) for k in (1, 8)}
+        last_method = "graph"
+    except RuntimeError:  # capture refused: time the chains eagerly
+        torch.cuda.synchronize()
+        runs = {k: (lambda k=k: _chain(encode_fn, data, k, out_rows)) for k in (1, 8)}
+        last_method = "eager"
+    t1 = _best_seconds(runs[1], iters)
+    t8 = _best_seconds(runs[8], iters)
+    per = (t8 - t1) / 7
+    if per <= 0:
+        raise ValueError(f"slope not measurable: t(1)={t1:.6f}s t(8)={t8:.6f}s")
+    return data_bytes / per / 1e9

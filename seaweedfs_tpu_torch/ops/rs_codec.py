@@ -2,10 +2,15 @@
 
 Two backends, fixed by the device the encoder lives on:
 
-  * "cuda":  the hand-written kernel (`rs_cuda`); the only backend of an
+  * "cuda":  the hand-written kernels (`rs_cuda`); the only backend of an
     encoder on a CUDA device, and the default (`new_encoder()` runs on the
     card and raises when there is none).
-  * "torch": the plain PyTorch version (`rs_torch`), only with device="cpu".
+  * "torch": the plain PyTorch versions (`rs_torch`), only with device="cpu".
+
+Either way an encoder carries a kernel variant (`FUSED_VARIANTS`) and a
+tile, the counterparts of the reference's `pallas_mxu`/`pallas_tile`;
+`new_encoder` on a card picks them from committed on-chip evidence
+(`pick_device_backend`), int8 with its own tile when there is none.
 
 Per-loss-pattern decode matrices are built on the host by GF Gaussian
 elimination and kept in an LRU cache, the role of klauspost's inversion
@@ -15,7 +20,10 @@ tree.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import functools
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -23,6 +31,19 @@ import torch
 
 from seaweedfs_tpu_torch.ops import gf8, rs_cuda
 from seaweedfs_tpu_torch.utils import config
+
+#: committed on-chip measurement evidence older than this many days no
+#: longer moves the kernel choice away from int8: the kernels under
+#: measurement keep changing, so an old number says little of today's
+EVIDENCE_MAX_AGE_DAYS = config.env("WEEDTPU_EVIDENCE_MAX_AGE_DAYS")
+
+#: the kernel variants, the reference's `pallas_mxu` values in its order;
+#: `rs_cuda.KERNELS` must match
+FUSED_VARIANTS = ("int8", "bf16", "u8", "mplane", "dma")
+
+assert tuple(rs_cuda.KERNELS) == FUSED_VARIANTS, (
+    f"kernel table {tuple(rs_cuda.KERNELS)} drifted from FUSED_VARIANTS {FUSED_VARIANTS}"
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +148,9 @@ def _host_tensor(a) -> torch.Tensor:
 class Encoder:
     """RS(d+p) encoder/reconstructor over GF(2^8) on one torch device.
 
+    `variant` and `tile` choose the kernel every dispatch runs
+    (`rs_cuda.apply_matrix`): the reference's `pallas_mxu` and
+    `pallas_tile`. On the CPU they choose the variant's plain version.
     All shards in one call share a length; striping and padding live a
     layer up in `ec.stripe`."""
 
@@ -140,6 +164,8 @@ class Encoder:
         matrix_kind: str = "vandermonde",
         backend: Optional[str] = None,
         device="cuda",
+        variant: str = "int8",
+        tile: Optional[int] = None,
     ):
         if data_shards <= 0 or parity_shards <= 0:
             raise ValueError("shard counts must be positive")
@@ -153,13 +179,21 @@ class Encoder:
             raise ValueError(
                 f"backend {backend!r} does not run on {self.device} (want {want!r})"
             )
+        if variant not in FUSED_VARIANTS:
+            raise ValueError(f"unknown variant {variant!r} (want one of {FUSED_VARIANTS})")
+        rs_cuda.resolve_tile(variant, tile, data_shards, parity_shards)  # raises on a bad tile
         self.backend = want
+        self.variant = variant
+        self.tile = tile
         self.data_shards = data_shards
         self.parity_shards = parity_shards
         self.total_shards = data_shards + parity_shards
         self.matrix_kind = matrix_kind
         self.family = family_of(data_shards, parity_shards, matrix_kind)
-        self.selection: dict = {"backend": want, "device": str(self.device), "source": "explicit"}
+        self.selection: dict = {
+            "backend": want, "device": str(self.device), "variant": variant,
+            "tile": tile, "source": "explicit",
+        }
         self.gen_matrix = gf8.generator_matrix(matrix_kind, data_shards, self.total_shards)
         self.parity_matrix = np.ascontiguousarray(self.gen_matrix[data_shards:])
 
@@ -174,10 +208,10 @@ class Encoder:
         no effect: the device copy is freed with the result."""
         src = _host_tensor(shards)
         if self.device.type == "cpu":
-            return LazyResult(rs_cuda.apply_matrix(m, src))
+            return LazyResult(rs_cuda.apply_matrix(m, src, self.tile, self.variant))
         dev = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
         dev.copy_(src, non_blocking=True)
-        return LazyResult(rs_cuda.apply_matrix(m, dev), source=src)
+        return LazyResult(rs_cuda.apply_matrix(m, dev, self.tile, self.variant), source=src)
 
     def _apply(self, m: np.ndarray, shards) -> np.ndarray:
         return np.asarray(self._apply_lazy(m, shards))
@@ -323,6 +357,146 @@ class Encoder:
         ).tobytes()[:out_size]
 
 
+# -- on-chip measurement evidence (the kernel-choice input) -------------------
+
+
+def _artifacts_dir() -> str:
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "artifacts",
+    )
+
+
+def load_device_evidence(art_dir: Optional[str] = None) -> Optional[dict]:
+    """Newest `GPU_MEASUREMENT_r*.json` (lexically latest round), with
+    `_file` recording its provenance. None when no readable measurement
+    exists; an unreadable newest file does not hide older ones."""
+    art_dir = art_dir or _artifacts_dir()
+    try:
+        names = sorted(
+            f for f in os.listdir(art_dir)
+            if f.startswith("GPU_MEASUREMENT_") and f.endswith(".json")
+        )
+    except OSError:
+        return None
+    for name in reversed(names):
+        try:
+            with open(os.path.join(art_dir, name), encoding="utf-8") as f:
+                ev = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if isinstance(ev, dict):
+            ev["_file"] = name
+            return ev
+    return None
+
+
+def _evidence_age_days(ev: dict) -> Optional[float]:
+    """Days since the measurement's `when` stamp; None when unparseable."""
+    when = str(ev.get("when", ""))
+    for fmt in ("%Y-%m-%dT%H:%M:%SZ", "%Y-%m-%dT%H:%MZ", "%Y-%m-%d"):
+        try:
+            t = datetime.datetime.strptime(when, fmt).replace(tzinfo=datetime.timezone.utc)
+        except ValueError:
+            continue
+        return (datetime.datetime.now(datetime.timezone.utc) - t).total_seconds() / 86400.0
+    return None
+
+
+def parse_fused_variant(label: str) -> tuple[str, Optional[int]]:
+    """Map a measurement key / sweep config name to (variant, tile), the
+    reference's grammar with `cuda` in the place of `pallas`:
+    'cuda-bf16-16384' -> ('bf16', 16384), 'cuda_tile8192_steady_gbps' ->
+    ('int8', 8192), 'cuda-auto' / 'cuda_steady_gbps' -> ('int8', None),
+    'rebuild-cuda-dma-65536' -> ('dma', 65536)."""
+    s = label.replace("_steady_gbps", "").replace("_", "-")
+    variant, tile = "int8", None
+    for tok in s.split("-"):
+        if not tok or tok in ("cuda", "rebuild", "auto"):
+            continue
+        if tok in FUSED_VARIANTS:
+            variant = tok
+        else:
+            digits = tok[4:] if tok.startswith("tile") else tok
+            if digits.isdigit():
+                tile = int(digits)
+    return variant, tile
+
+
+def _encode_numbers(ev: dict) -> dict:
+    """label -> steady GB/s of every encode-shape number in a measurement:
+    the `cuda*_steady_gbps` keys and the assembled sweep table
+    (`sweep.encode`). Rebuild-shape numbers never pick the encoder."""
+    out = {}
+    for k, v in ev.items():
+        if k.startswith("cuda") and k.endswith("_steady_gbps") and isinstance(v, (int, float)):
+            out[k] = float(v)
+    for k, v in ((ev.get("sweep") or {}).get("encode") or {}).items():
+        if str(k).startswith("cuda") and isinstance(v, (int, float)):
+            out[str(k)] = float(v)
+    return out
+
+
+def _best_fused(ev: dict) -> tuple[Optional[str], float]:
+    """Best encode number of any configuration other than the default
+    (int8 with its own tile), and its label."""
+    best_label, best = None, 0.0
+    for k, v in _encode_numbers(ev).items():
+        if parse_fused_variant(k) != ("int8", None) and v > best:
+            best_label, best = k, v
+    return best_label, best
+
+
+def _int8_anchor(ev: dict) -> float:
+    """The file's own number for the default configuration (int8, tile
+    None): what a variant has to beat."""
+    nums = [v for k, v in _encode_numbers(ev).items() if parse_fused_variant(k) == ("int8", None)]
+    return max(nums, default=0.0)
+
+
+def pick_device_backend(art_dir: Optional[str] = None) -> tuple[str, dict]:
+    """The kernel choice on a card: (variant, decision).
+
+    The reference flips from XLA to a fused Pallas variant when committed
+    on-chip evidence shows the variant beating XLA. The port has no XLA
+    path, and its plain version never serves on the card, so the anchor is
+    int8 with its own tile, the default: another configuration is chosen
+    only when its number in a fresh GPU measurement beats that file's own
+    int8 number. A file that is not a GPU measurement naming its card
+    (`platform` "gpu", `card` the nvidia-smi name and power limit), whose
+    `when` is unparseable or older than EVIDENCE_MAX_AGE_DAYS, or that
+    lacks an int8 number, keeps int8. The decision dict names the file,
+    both numbers and the reason."""
+    ev = load_device_evidence(art_dir)
+    if ev is None:
+        return "int8", {"variant": "int8", "tile": None,
+                        "reason": "no committed on-chip measurement evidence"}
+    anchor = _int8_anchor(ev)
+    label, fused = _best_fused(ev)
+    decision: dict = {
+        "evidence_file": ev.get("_file"), "variant": "int8", "tile": None,
+        "int8_steady_gbps": anchor or None, "fused_steady_gbps": fused or None,
+        "fused_variant": label, "card": ev.get("card"),
+    }
+    age = _evidence_age_days(ev)
+    if str(ev.get("platform", "")).lower() != "gpu" or not ev.get("card"):
+        decision["reason"] = "evidence is not an on-chip measurement naming its card"
+    elif age is None:
+        decision["reason"] = f"evidence age unparseable (when={ev.get('when')!r}): treated as stale"
+    elif age > EVIDENCE_MAX_AGE_DAYS:
+        decision["reason"] = f"evidence stale ({age:.0f}d > {EVIDENCE_MAX_AGE_DAYS:.0f}d)"
+    elif not anchor:
+        decision["reason"] = "evidence lacks an int8 number to beat"
+    elif label is not None and fused > anchor:
+        variant, tile = parse_fused_variant(label)
+        decision.update(variant=variant, tile=tile,
+                        reason=f"committed on-chip {label}={fused} beats int8={anchor}")
+        return variant, decision
+    else:
+        decision["reason"] = f"no variant beats int8={anchor}"
+    return "int8", decision
+
+
 def new_encoder(
     data_shards: int = 10,
     parity_shards: int = 4,
@@ -333,7 +507,9 @@ def new_encoder(
     """Encoder factory. `family` names a registered geometry and overrides
     the shard counts and matrix kind. `device` defaults to the card: with no
     CUDA device and no explicit device="cpu" this raises rather than carry
-    on on the CPU."""
+    on on the CPU. On a card the kernel variant and tile come from
+    `pick_device_backend`; with no evidence they stay int8 with its own
+    tile. The decision lands on `enc.selection`."""
     if family is not None:
         geom = geometry_for(family)
         data_shards, parity_shards = geom.data_shards, geom.parity_shards
@@ -344,12 +520,18 @@ def new_encoder(
             "no CUDA device: the port's encoder runs on the card; pass "
             "device='cpu' for the plain version"
         )
-    enc = Encoder(data_shards, parity_shards, matrix_kind=matrix_kind, device=dev)
-    enc.selection = {
-        "backend": enc.backend,
-        "device": str(dev),
-        "source": "default" if device is None else "explicit",
-    }
+    decision: dict = {}
+    variant, tile = "int8", None
+    if dev.type == "cuda":
+        variant, decision = pick_device_backend()
+        tile = decision.get("tile")
+    enc = Encoder(data_shards, parity_shards, matrix_kind=matrix_kind, device=dev,
+                  variant=variant, tile=tile)
+    source = "default" if device is None else "explicit"
+    if decision.get("evidence_file"):
+        source = "on-chip-evidence"
+    enc.selection = dict(decision, backend=enc.backend, device=str(dev), variant=variant,
+                         tile=tile, source=source)
     return enc
 
 

@@ -1,37 +1,101 @@
-"""GF(2^8) matrix application through the hand-written CUDA kernel
-`csrc/gf_bitplane.cu`, the port of the reference's fused Pallas kernel.
+"""GF(2^8) matrix application through the hand-written CUDA kernels in
+`csrc/`, one per variant of the reference's fused Pallas family
+(`rs_pallas.VARIANTS`):
 
-`apply_matrix(m, shards)` takes a CPU tensor to the plain version
-(`rs_torch.gf_apply`) and a CUDA tensor to the kernel; nothing else.
+  int8    `gf_bitplane.cu`  popc parity on the CUDA cores (`_kernel`)
+  bf16    `gf_mma.cu`       bf16 tensor-core MMA (`_kernel_bf16`)
+  u8      `gf_mma.cu`       int8 MMA over a mask-and-compare stack (`_kernel_u8`)
+  mplane  `gf_mma.cu`       8 per-plane int8 MMAs, one accumulator (`_kernel_mplane`)
+  dma     `gf_dma.cu`       int8 arithmetic fed by a cp.async ring (`_make_dma_kernel`)
+
+`apply_matrix(m, shards, tile, variant)` takes a CPU tensor to the
+variant's plain version (`rs_torch`) and a CUDA tensor to its kernel;
+nothing else. `tile` is the byte columns one block covers (the
+reference's `pallas_tile`), walked by a loop inside the block.
 
 Operand layout. The reference feeds its kernel the plane-major lift
 (`plane_major_matrix`): input bit j of byte-row ci at column j*C + ci,
-output bit i of row r at row i*R + r. The CUDA kernel reads each column's
-bits in byte order (bit 8*ci + j is bit j of row ci, the order in which
-the bytes of one column pack into uint32 words), so the wrapper re-packs
-the plane-major lift into per-output-bit masks over that order
-(`kernel_masks`), uploaded once per matrix and device.
+output bit i of row r at row i*R + r. The popc kernels (int8, dma) read
+each column's bits in byte order (bit 8*ci + j is bit j of row ci, the
+order in which the bytes of one column pack into uint32 words), so the
+wrapper re-packs the plane-major lift into per-output-bit masks
+(`kernel_masks`). The MMA kernels take the lift as an A image in MMA row
+order (`mma_operand`). Both are uploaded once per matrix and device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.ops import _build, gf8, rs_torch
 
-#: the kernel's limits on the matrix shape (R x C)
+#: the kernels' limits on the matrix shape (R x C)
 MAX_ROWS = 32
 MAX_COLS = 32
 #: most batch elements one launch covers (grid y)
 MAX_BATCH = 65535
 
-#: kernel launches made by `apply_matrix` in this process; a run sets it to
-#: 0 and reads it back to show which path its work went through
+#: byte columns one block of 128 threads covers per trip of its loop
+SPAN = 2048
+#: shared memory one block may use on an H100 (bytes)
+SMEM_PER_SM = 232448
+#: snap grid for tiles, the reference's (`rs_pallas._TILE_STEPS`)
+_TILE_STEPS = (65536, 49152, 32768, 24576, 16384, 8192, 4096, 2048, 1024, 512, 256, 128)
+#: most byte columns of one stage of the dma variant's ring
+DMA_CHUNK = 2048
+
+#: kernel launches made by `apply_matrix` in this process, in all and by
+#: variant; a run sets them to 0 and reads them back to show which path
+#: its work went through
 launches = 0
+launches_by_variant: dict[str, int] = {}
+
+
+def _dma_chunk(tile: int) -> int:
+    """Largest chunk <= DMA_CHUNK dividing the tile (tiles are multiples
+    of 128, so 128 is the floor), as the reference's `_dma_chunk`."""
+    for ch in (DMA_CHUNK, 1024, 512, 256, 128):
+        if ch <= tile and tile % ch == 0:
+            return ch
+    return 128
+
+
+def smem_bytes(variant: str, c: int, rows: int) -> int:
+    """Shared memory one block of `variant` uses for an (R x C) matrix."""
+    nw = -(-c // 4)
+    masks = 32 * rows * nw
+    if variant == "int8":
+        return masks
+    if variant == "dma":
+        return masks + 2 * c * DMA_CHUNK
+    k = 256 if variant == "mplane" else 32 * nw
+    return nw * (SPAN + 8) * 4 + 16 * ((rows + 1) // 2) * (k + 16) + rows * SPAN
+
+
+def auto_tile(c: int, rows: int, variant: str = "int8") -> int:
+    """The tile of `tile=None`, re-derived from the shared memory each
+    variant's block uses (the reference plans against its VMEM budget).
+
+    int8 keeps its state in registers and covers SPAN columns per block
+    (one trip). The others stage per-block state in shared memory (the
+    lift or masks, the ring, the column words): a block walks as many
+    SPAN (dma: DMA_CHUNK) trips as blocks of its size fit one SM, at least
+    two for the dma ring to overlap, so that staging is amortised; snapped
+    down to `_TILE_STEPS`."""
+    if variant == "int8":
+        return SPAN
+    unit = DMA_CHUNK if variant == "dma" else SPAN
+    per_sm = max(1, min(8, SMEM_PER_SM // smem_bytes(variant, c, rows)))
+    cap = unit * max(per_sm, 2 if variant == "dma" else 1)
+    for t in _TILE_STEPS:
+        if t <= cap and t % unit == 0:
+            return t
+    return unit
 
 
 def _plane_major_columns(b_bits: np.ndarray) -> np.ndarray:
@@ -89,20 +153,67 @@ def kernel_masks(pm: torch.Tensor) -> np.ndarray:
     return words.view("<u4").reshape(-1).astype(np.uint32)
 
 
+def mma_operand(pm: torch.Tensor, variant: str) -> np.ndarray:
+    """The A image of the MMA kernels (`gf_mma.cu`): uint8 rows of K + 16
+    bytes (16 bytes of bank padding), 16 per M tile, ceil(R/2) M tiles.
+
+    Row 16*mt + 8*h + i is output bit i of output row 2*mt + h (rows past R
+    are zero). Columns: mplane, plane j at [32j, 32j + 32) with column
+    32j + ci = input bit j of row ci (K = 256); u8/bf16, the stack of K =
+    32*NW columns (NW = ceil(C/4)), column 4q + k for stack word q = j*NW + w
+    = input bit j of row 4w + k. Columns for rows past C are zero, so the
+    padding adds nothing to any sum."""
+    p = pm.numpy().astype(np.uint8)
+    rows8, cols8 = p.shape
+    r_n, c_n = rows8 // 8, cols8 // 8
+    nw = -(-c_n // 4)
+    k = 256 if variant == "mplane" else 32 * nw
+    mt_n = (r_n + 1) // 2
+    j, ci = np.divmod(np.arange(8 * c_n), c_n)  # plane-major column -> (j, ci)
+    if variant == "mplane":
+        cols = 32 * j + ci
+    else:
+        cols = 4 * (j * nw + ci // 4) + ci % 4
+    a = np.zeros((16 * mt_n, k + 16), dtype=np.uint8)
+    for m in range(16 * mt_n):
+        r = 2 * (m // 16) + (m % 16) // 8
+        if r < r_n:
+            a[m, cols] = p[(m % 8) * r_n + r]
+    return a
+
+
+#: variant -> (library, C entry point, operand), in FUSED_VARIANTS order
+KERNELS = {
+    "int8": ("gf_bitplane", "gf_bitplane_apply", "masks"),
+    "bf16": ("gf_mma", "gf_bf16_apply", "mma"),
+    "u8": ("gf_mma", "gf_u8_apply", "mma"),
+    "mplane": ("gf_mma", "gf_mplane_apply", "mma"),
+    "dma": ("gf_dma", "gf_dma_apply", "masks"),
+}
+
+
 @functools.lru_cache(maxsize=256)
-def _device_masks(key: tuple, device: str) -> torch.Tensor:
-    return torch.from_numpy(kernel_masks(_plane_major(key))).to(device)
+def _device_operand(key: tuple, variant: str, device: str) -> torch.Tensor:
+    pm = _plane_major(key)
+    if KERNELS[variant][2] == "masks":
+        host = kernel_masks(pm)
+    else:
+        host = mma_operand(pm, variant)
+    return torch.from_numpy(np.ascontiguousarray(host)).to(device)
 
 
-@functools.lru_cache(maxsize=1)
-def _kernel_fn():
-    fn = _build.load("gf_bitplane").gf_bitplane_apply
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(variant: str):
+    lib, symbol, _ = KERNELS[variant]
+    fn = getattr(_build.load(lib), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # data, strides
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # out, strides
-        ctypes.c_void_p,  # masks
+        ctypes.c_void_p,  # masks or A image
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,  # B, C, R, N
+        ctypes.c_longlong,  # tile
+        *([ctypes.c_int] if variant == "dma" else []),  # chunk
         ctypes.c_void_p,  # stream
     ]
     return fn
@@ -117,23 +228,57 @@ def _check(m: np.ndarray, shards: torch.Tensor) -> None:
         raise ValueError(f"matrix {m.shape} does not apply to shards {tuple(shards.shape)}")
 
 
-def apply_matrix(m: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
+def resolve_tile(variant: str, tile: Optional[int], c: int, rows: int) -> int:
+    """The tile a call runs with: `auto_tile` for None, else the caller's,
+    which must be a positive multiple of 128 (of SPAN for the MMA kernels,
+    whose blocks cover SPAN columns per trip)."""
+    if variant not in KERNELS:
+        raise ValueError(f"unknown variant {variant!r} (want one of {tuple(KERNELS)})")
+    if tile is None:
+        return auto_tile(c, rows, variant)
+    unit = SPAN if KERNELS[variant][2] == "mma" else 128
+    if int(tile) <= 0 or int(tile) % unit:
+        raise ValueError(f"{variant} takes a tile that is a positive multiple of {unit}, got {tile}")
+    return int(tile)
+
+
+def plain_apply(
+    m: np.ndarray, shards: torch.Tensor, tile: Optional[int] = None, variant: str = "int8"
+) -> torch.Tensor:
+    """The variant's plain PyTorch version on the shards' device: the CPU
+    path, and what each kernel is held against on the card."""
+    m = np.asarray(m, dtype=np.uint8)
+    _check(m, shards)
+    t = resolve_tile(variant, tile, m.shape[1], m.shape[0])
+    if variant == "int8":
+        return rs_torch.gf_apply(rs_torch.lifted_matrix(m, shards.device), shards)
+    pm = plane_major_matrix(m)
+    if variant == "dma":
+        return rs_torch.gf_apply_dma(pm, shards, _dma_chunk(t))
+    return getattr(rs_torch, f"gf_apply_{variant}")(pm, shards)
+
+
+def apply_matrix(
+    m: np.ndarray, shards: torch.Tensor, tile: Optional[int] = None, variant: str = "int8"
+) -> torch.Tensor:
     """(R, C) GF(2^8) matrix applied to (C, N) or (B, C, N) uint8 shards ->
     (R, N) / (B, R, N) uint8 on the shards' device. A CUDA tensor goes to
-    the kernel, which launches on the current stream without synchronising;
-    a CPU tensor to the plain version."""
+    the variant's kernel, which launches on the current stream without
+    synchronising; a CPU tensor to its plain version. An unknown variant
+    or a tile the kernel does not take raises."""
     m = np.asarray(m, dtype=np.uint8)
     _check(m, shards)
     if shards.device.type == "cpu":
-        return rs_torch.gf_apply(rs_torch.lifted_matrix(m), shards)
+        return plain_apply(m, shards, tile, variant)
     if shards.device.type != "cuda":
         raise ValueError(f"no GF kernel for device {shards.device}")
-    return _launch(m, shards)
+    return _launch(m, shards, tile, variant)
 
 
-def _launch(m: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
+def _launch(m: np.ndarray, shards: torch.Tensor, tile: Optional[int], variant: str) -> torch.Tensor:
     global launches
     r_n, c_n = m.shape
+    t = resolve_tile(variant, tile, c_n, r_n)
     if not (1 <= r_n <= MAX_ROWS and 1 <= c_n <= MAX_COLS):
         raise ValueError(f"kernel takes R, C <= {MAX_ROWS}, got matrix {m.shape}")
     squeeze = shards.ndim == 2
@@ -145,15 +290,19 @@ def _launch(m: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
         raise ValueError("shards' last axis must be contiguous")
     out = torch.empty((batch, r_n, n), dtype=torch.uint8, device=data.device)
     if n and batch:
-        masks = _device_masks(_key(m), str(data.device))
+        operand = _device_operand(_key(m), variant, str(data.device))
+        # int8 with tile=None keeps the launch of one block per SPAN columns
+        kernel_tile = 0 if (variant == "int8" and tile is None) else t
+        extra = (_dma_chunk(t),) if variant == "dma" else ()
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
-            err = _kernel_fn()(
+            err = _kernel_fn(variant)(
                 data.data_ptr(), data.stride(0), data.stride(1),
                 out.data_ptr(), out.stride(0), out.stride(1),
-                masks.data_ptr(), batch, c_n, r_n, n, stream,
+                operand.data_ptr(), batch, c_n, r_n, n, kernel_tile, *extra, stream,
             )
         if err != 0:
-            raise RuntimeError(f"gf_bitplane launch failed: cudaError {err}")
+            raise RuntimeError(f"{KERNELS[variant][1]} launch failed: cudaError {err}")
         launches += 1
+        launches_by_variant[variant] = launches_by_variant.get(variant, 0) + 1
     return out[0] if squeeze else out

@@ -43,6 +43,12 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             _at_least(1),
         ),
         EnvVar(
+            "WEEDTPU_EVIDENCE_MAX_AGE_DAYS", 120.0,
+            "Committed on-chip measurement evidence older than this no longer "
+            "moves the kernel choice away from int8.",
+            float,
+        ),
+        EnvVar(
             "WEEDTPU_DECODE_MATRIX_CACHE", 512,
             "LRU cap on cached decode matrices.",
         ),

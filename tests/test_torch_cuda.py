@@ -1,7 +1,8 @@
-"""The CUDA kernel on a card: `gf_bitplane.cu` through `rs_cuda.apply_matrix`
-against its plain PyTorch version (`rs_torch.gf_apply`) on the same device,
-byte-exact (tolerance 0: GF arithmetic is exact), and the stripe engine on
-the card against the port's own CPU path. The kernel has no CPU mode, so
+"""The CUDA kernels on a card: each variant (`gf_bitplane.cu`, `gf_dma.cu`,
+`gf_mma.cu`) through `rs_cuda.apply_matrix` against its plain PyTorch
+version (`rs_cuda.plain_apply`) on the same device, byte-exact (tolerance
+0: GF arithmetic is exact), and the stripe engine on the card against the
+port's own CPU path. The kernel has no CPU mode, so
 every test here carries the `cuda` marker and takes the `card` fixture,
 which skips without a card. These
 tests import no JAX; on a machine with a card and no JAX, run them with
@@ -130,3 +131,95 @@ def test_new_encoder_defaults_to_the_card(card):
     assert enc.verify(shards)
     lost = [None if i in (2, 11) else s for i, s in enumerate(shards)]
     assert all(np.array_equal(a, b) for a, b in zip(enc.reconstruct(lost), shards))
+
+
+NEW_VARIANTS = ("dma", "mplane", "u8", "bf16")
+VARIANT_CASES = {
+    # case: (matrix name, data shape, tile)
+    "ragged1": ("rs_10_4", (1, 10, 1), None),
+    "ragged100": ("rs_10_4", (1, 10, 100), None),
+    "ragged8321": ("rs_10_4", (1, 10, 8321), None),
+    "batched": ("rs_10_4", (3, 10, 8321), None),
+    "cauchy_12_3": ("cauchy_12_3", (1, 12, 65543), None),
+    "merge_20_4": ("merge_20_4", (2, 20, 65543), None),
+    "decode_merge_20_4": ("decode_merge_20_4", (1, 20, 8321), None),
+    "decode_4_of_10": ("decode_4_of_10", (1, 10, 100000), None),
+    "decode_1_lost": ("decode_1_lost", (1, 10, 4097), None),
+    "tile8192": ("rs_10_4", (2, 10, 100003), 8192),
+    "tile16384_merge": ("merge_20_4", (1, 20, 70001), 16384),
+    "random_32x32": ("random_32x32", (1, 32, 5000), None),
+    "random_1x1": ("random_1x1", (1, 1, 3000), None),
+}
+
+
+@pytest.mark.parametrize("variant", NEW_VARIANTS)
+@pytest.mark.parametrize("case", sorted(VARIANT_CASES))
+def test_variant_kernel_equals_plain_version(card, variant, case):
+    name, shape, tile = VARIANT_CASES[case]
+    m = MATRICES[name]()
+    data = np.random.default_rng(len(case)).integers(0, 256, shape, np.uint8)
+    x = torch.from_numpy(data).to(card)
+    before = dict(rs_cuda.launches_by_variant)
+    got = rs_cuda.apply_matrix(m, x, tile=tile, variant=variant)
+    want = rs_cuda.plain_apply(m, x, tile=tile, variant=variant)
+    torch.cuda.synchronize()
+    assert rs_cuda.launches_by_variant[variant] == before.get(variant, 0) + 1
+    assert got.shape == (shape[0], m.shape[0], shape[-1])
+    assert torch.equal(got, want)
+    assert np.array_equal(got[0].cpu().numpy(), gf8.gf_mat_vec(m, data[0]))
+
+
+@pytest.mark.parametrize("variant", NEW_VARIANTS)
+def test_variant_kernel_strided_views(card, variant):
+    m = MATRICES["rs_10_4"]()
+    slot = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 256, (2, 10, 12288), np.uint8)).to(card)
+    for view in (slot[..., :10001], slot[..., 3:10001], slot[1, :, 5:9000]):
+        got = rs_cuda.apply_matrix(m, view, variant=variant)
+        want = rs_cuda.plain_apply(m, view.contiguous(), variant=variant)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", rs_cuda.KERNELS)
+def test_all_variants_agree_and_cpu_tensors_launch_nothing(card, variant):
+    m = MATRICES["rs_10_4"]()
+    data = np.random.default_rng(6).integers(0, 256, (10, 33333), np.uint8)
+    got = rs_cuda.apply_matrix(m, torch.from_numpy(data).to(card), variant=variant)
+    assert np.array_equal(got.cpu().numpy(), gf8.gf_mat_vec(m, data))
+    total, mine = rs_cuda.launches, rs_cuda.launches_by_variant.get(variant, 0)
+    cpu = rs_cuda.apply_matrix(m, torch.from_numpy(data), variant=variant)
+    assert rs_cuda.launches == total and rs_cuda.launches_by_variant.get(variant, 0) == mine
+    assert torch.equal(cpu, got.cpu())
+
+
+def test_variant_wrapper_rejects_on_card(card):
+    m = MATRICES["rs_10_4"]()
+    x = torch.zeros((10, 4096), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="unknown variant"):
+        rs_cuda.apply_matrix(m, x, variant="fp8")
+    with pytest.raises(ValueError, match="multiple of 2048"):
+        rs_cuda.apply_matrix(m, x, tile=1024, variant="u8")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        rs_cuda.apply_matrix(m, x, tile=100, variant="dma")
+
+
+@pytest.mark.parametrize("variant", NEW_VARIANTS)
+def test_variant_encoder_stripe_round_trip_on_card(card, variant, tmp_path):
+    size = 2 * 10 * 65536 + 999
+    data = np.random.default_rng(3).integers(0, 256, size, np.uint8).tobytes()
+    base = str(tmp_path / "7")
+    with open(base + ".dat", "wb") as f:
+        f.write(data)
+    enc = rs_codec.Encoder(10, 4, variant=variant, device=card)
+    n0 = rs_cuda.launches_by_variant.get(variant, 0)
+    stripe.write_ec_files(base, 65536, 16384, buffer_size=16384, encoder=enc,
+                          max_batch_bytes=10 * 3 * 16384)
+    n1 = rs_cuda.launches_by_variant.get(variant, 0)
+    for s in (0, 5, 10, 13):
+        os.unlink(stripe.shard_file_name(base, s))
+    assert stripe.rebuild_ec_files(base, encoder=enc) == [0, 5, 10, 13]
+    assert n1 > n0 and rs_cuda.launches_by_variant[variant] > n1
+    os.unlink(base + ".dat")
+    stripe.write_dat_file(base)
+    with open(base + ".dat", "rb") as f:
+        assert f.read() == data

@@ -42,9 +42,11 @@ def test_port_has_modules_for_every_layer():
     for want in ("ops/gf8.py", "ops/rs_torch.py", "ops/rs_cuda.py", "ops/rs_codec.py",
                  "ops/_build.py", "ec/stripe.py", "ec/constants.py", "storage/idx.py",
                  "storage/needle_map.py", "storage/types.py", "command/local.py",
-                 "utils/config.py", "obs/trace.py", "__main__.py"):
+                 "utils/config.py", "obs/trace.py", "__main__.py", "ops/measure.py",
+                 "scripts/kernel_sweep.py", "scripts/device_window.py"):
         assert want in rel, want
-    assert os.path.exists(os.path.join(PORT, "csrc", "gf_bitplane.cu"))
+    for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh"):
+        assert os.path.exists(os.path.join(PORT, "csrc", src)), src
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
