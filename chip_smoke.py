@@ -10,7 +10,9 @@ Phases, one JSON line each:
            against its own plain PyTorch version on the card, byte-exact
            (tolerance 0), at the main path's shapes and ragged/batched/
            strided/other family shapes, and all five against each other;
-           CUDA-event times at the three main-path shapes
+           at the three main-path shapes, kernel_ms (20 launches in a CUDA
+           graph, replayed between CUDA events, per launch) and call_ms
+           (one eager call of the wrapper, its host time included)
   sweep    the kernel sweep (`--quick`, full size) into JSONL under
            _smoke_tmp/, assembled into a GPU_MEASUREMENT file there; checks
            that `pick_device_backend` on it names the best configuration
@@ -35,7 +37,6 @@ import hashlib
 import json
 import os
 import shutil
-import statistics
 import sys
 import time
 import zlib
@@ -69,22 +70,6 @@ def bound(c: int, r: int, n: int, batch: int = 1) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def time_ms(fn, runs: int) -> float:
-    """Median of `runs` warm calls, each timed with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 #: variant -> (kernel name, source, the TPU kernel it replaces)
 KERNELS = {
     "int8": ("gf_bitplane", "seaweedfs_tpu_torch/csrc/gf_bitplane.cu",
@@ -101,7 +86,7 @@ KERNELS = {
 def check_kernels(seed: int) -> dict[str, list[dict]]:
     """{variant: [one row per case]}: each kernel against its own plain
     version, and against the int8 kernel (`agrees`)."""
-    from seaweedfs_tpu_torch.ops import gf8, rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.ops import gf8, measure, rs_codec, rs_cuda
 
     rng = np.random.default_rng(seed)
     par = gf8.parity_matrix(10, 4)
@@ -136,8 +121,12 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
             del want
             if timed:
                 c, r, n = m.shape[1], m.shape[0], data.shape[-1]
-                row["kernel_ms"] = time_ms(lambda: rs_cuda.apply_matrix(m, data, variant=v), 50)
-                row["plain_ms"] = time_ms(lambda: rs_cuda.plain_apply(m, data, variant=v), 3)
+                bufs = (data, data.clone())  # launches alternate: together > the 50 MB L2
+                row["kernel_ms"] = measure.graph_ms(
+                    lambda i: rs_cuda.apply_matrix(m, bufs[i % 2], variant=v))
+                del bufs
+                row["call_ms"] = measure.eager_ms(lambda: rs_cuda.apply_matrix(m, data, variant=v), 50)
+                row["plain_ms"] = measure.eager_ms(lambda: rs_cuda.plain_apply(m, data, variant=v), 3)
                 row["bound_ms"], row["bound_by"] = bound(c, r, n)
                 row["kernel_gbps"] = (c + r) * n / row["kernel_ms"] / 1e6
             outs[v] = got
@@ -390,6 +379,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(c["max_abs_err"] for c in rows),
             "ms": enc["kernel_ms"],
             "kernel_ms": enc["kernel_ms"],
+            "call_ms": enc["call_ms"],
             "plain_ms": enc["plain_ms"],
             "bound_ms": enc["bound_ms"],
             "bound_by": enc["bound_by"],

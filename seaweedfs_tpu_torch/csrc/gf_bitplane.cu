@@ -1,33 +1,56 @@
-// GF(2^8) matrix application over byte shards, bit-plane formulation, for
+// GF(2^8) matrix application over byte shards on the tensor cores
+// (mma.sync: a binary AND-popc product, then an int8 pack product), for
 // Hopper (sm_90a).
 //
 // Replaces seaweedfs_tpu/ops/rs_pallas.py:_kernel (the "int8" Pallas
 // kernel). Both compute out[b, r, n] = XOR_c m[r][c] * data[b, c, n] over
-// GF(2^8) as (lift @ bits(data)) mod 2, where lift is the (8R, 8C) binary
+// GF(2^8) as (lift . bits(data)) mod 2, where lift is the (8R, 8C) binary
 // lift of the (R, C) matrix and bits() unpacks each byte into 8 planes.
 //
-// What bounds it on this card: the integer pipe. Per byte column it issues
-// ~288 integer operations for C = 10, R = 4 (for each of the 32 output
-// bits: AND, XOR, popc, AND, shift, OR over ceil(C/4) words), ~0.1 ms for
-// a 64 MiB encode batch, while its C + R bytes per column need ~0.03 ms at
-// the H100's 3.35 TB/s. What the design does about it: each input byte is
-// read once with 16-byte loads and each output byte is written once with
-// 16-byte stores; the bit vectors, the lift and the accumulators never
-// touch device memory, so the memory side stays far below its bound.
-//
-// Design (the TPU kernel's formulation, kept on the CUDA cores):
-//   * each thread owns 16 byte columns: one 16-byte load per input row;
-//   * per column it builds the 8C-bit vector in ceil(C/4) uint32 words,
-//     byte ci of word ci/4 being the column's byte of row ci (bit position
-//     8*ci + j = bit j of row ci) with __byte_perm;
-//   * the lift arrives as bit masks over that bit order, one row of
-//     ceil(C/4) words per output bit (row (r*8 + i) = bit i of output row
-//     r), staged in shared memory once per block;
-//   * output bit (r, i) = parity(popc(XOR_w mask[w] & bits[w]));
-//   * 8 bits pack into each output byte, 16 bytes per row per store.
+// What bounds it on this card: HBM (C + R bytes per column: 0.027 ms for a
+// 64 MiB encode batch at 3.35 TB/s) and the integer work that turns bytes
+// into operands and sums back into bytes, not the tensor cores. What the
+// design does about it: the product is taken transposed, outT = bitsT .
+// liftT, on mma.m16n8k256 with 1-bit operands and AND + popc:
+//   * M = 16 byte columns, N = output bits (8 per n8 tile: tile r, column
+//     i = bit i of output row r; nothing padded), K = the 8C input bits in
+//     column-word order (word w = the bytes of rows 4w..4w+3, bit 8q + p =
+//     plane p of row 4w + q), up to 256: one product per n-tile for any
+//     C <= 32;
+//   * so the A fragment IS the column words: lane t's a0/a1 are word t of
+//     columns g and g + 8, a2/a3 word 4 + t. There is no unpack at all.
+//     (An int8 m16n8k32 product over 0/1 bytes instead, K = 32 per step,
+//     a shift and an AND per A register, 3 steps and 12 products per 16
+//     columns for C = 10, R = 4, timed 0.074 ms at that shape on an H100
+//     SXM at 700 W: no faster than the popc form; this one, 0.049.)
+//   * the lift is the B operand, constant for the launch: the popc masks
+//     of each output bit over the column words, which the wrapper hands
+//     over in fragment order (`rs_cuda.lift_fragments`). They are held in
+//     registers for R <= 4 (one kernel per R, so no product is predicated;
+//     8 registers), else read from shared memory, one 8-byte load per
+//     n-tile, in groups of 4 output rows;
+//   * each sum is popc(column bits & mask), and its parity (bit 0) is the
+//     output bit. The pack is one int8 m16n8k32: the sums' low bytes, with
+//     & 1, laid out as its A fragment with no shuffle (its K order follows
+//     the accumulators' C layout), times B = 2^i, sums the 8 bits of each
+//     output byte for 4 output rows at once;
+//   * input moves with 16-byte loads and is transposed into column words
+//     through shared memory; output goes through a shared tile and leaves
+//     with 16-byte stores.
+// Sums are exact: every accumulator is at most 8C <= 256 (int32).
+// Per block of 128 threads and trip of 2048 columns, each warp on its own
+// 512 columns (so warps meet at __syncwarp only):
+//   1. each thread issues the 16-byte loads of its 16 columns of every
+//      input row (masked edge), then stores their column words to shared
+//      W[w][col];
+//   2. the warp walks its columns, 16 per M tile: A from W, R products
+//      into int32 accumulators, the pack product, and lanes t < 2 write
+//      the bytes of output rows 2t, 2t + 1 to the shared tile;
+//   3. each thread stores its 16 columns of the output tile with 16-byte
+//      stores.
 // The ragged edge is masked in the kernel, so any N >= 1 works with no pad.
-// An explicit tile makes each block walk `tile` columns in a loop, the
-// counterpart of the reference's `pallas_tile`.
+// An explicit tile makes each block walk `tile` columns in trips of 2048,
+// the counterpart of the reference's `pallas_tile`.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,92 +63,272 @@ using gf::kCols;
 using gf::kSpan;
 using gf::kThreads;
 
-// NW = ceil(C / 4): uint32 words of one column's 8C-bit vector. A block
-// covers the columns [blockIdx.x * tile, + tile), kSpan per trip of its
-// loop; tile == kSpan is one trip, the launch of one block per 2048 columns.
-template <int NW>
+constexpr int kWStride = kSpan + 8;     // words per W row: +8 spreads the banks
+constexpr int kOutStride = kSpan + 16;  // bytes per output-tile row
+constexpr int kWarpCols = kSpan / (kThreads / 32);
+constexpr int kGroup = 4;               // output rows (n8 tiles) per pack product
+
+// d += popc(a & b) per output, m16n8k256 with 1-bit operands
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b, m16n8k32 with u8 operands
+__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the parities (bit 0) of x0..x3 as the 4 bytes of one A register of the
+// pack product
+__device__ __forceinline__ uint32_t parity_bytes(int x0, int x1, int x2, int x3) {
+  const uint32_t lo = __byte_perm(static_cast<uint32_t>(x0), static_cast<uint32_t>(x1), 0x40);
+  const uint32_t hi = __byte_perm(static_cast<uint32_t>(x2), static_cast<uint32_t>(x3), 0x40);
+  return __byte_perm(lo, hi, 0x5410) & 0x01010101u;
+}
+
+// One M tile against one group of up to 4 output rows: the NT products
+// into int32 accumulators (tiles past NT stay zero), the pack product, and
+// the bytes of rows 2t, 2t + 1 of the group (lanes t < 2) to `cell`, the
+// output tile at the group's first row and column g.
+template <int NT>
+__device__ __forceinline__ void group_product(const uint32_t (&a)[4], const uint2 (&b)[NT],
+                                              uint32_t pack0, uint32_t pack1,
+                                              uint8_t* cell, int rows, int t) {
+  int d[kGroup][4];
+#pragma unroll
+  for (int nt = 0; nt < kGroup; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[nt][e] = 0;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_and_popc(d[nt], a, b[nt].x, b[nt].y);
+  // the A fragment of the pack product is the accumulators' C layout:
+  // lane t holds bits 2t, 2t + 1 of each n-tile, for columns g and g + 8
+  const uint32_t e[4] = {
+      parity_bytes(d[0][0], d[0][1], d[1][0], d[1][1]),  // column g, tiles 0-1
+      parity_bytes(d[0][2], d[0][3], d[1][2], d[1][3]),  // column g + 8
+      parity_bytes(d[2][0], d[2][1], d[3][0], d[3][1]),  // column g, tiles 2-3
+      parity_bytes(d[2][2], d[2][3], d[3][2], d[3][3]),
+  };
+  int o[4] = {0, 0, 0, 0};
+  mma_u8(o, e, pack0, pack1);
+  // o: rows 2t, 2t + 1 of column g (o[0], o[1]) and of column g + 8
+  if (t < 2 && 2 * t < rows) {
+    cell[2 * t * kOutStride] = static_cast<uint8_t>(o[0]);
+    cell[2 * t * kOutStride + 8] = static_cast<uint8_t>(o[2]);
+  }
+  if (t < 2 && 2 * t + 1 < rows) {
+    cell[(2 * t + 1) * kOutStride] = static_cast<uint8_t>(o[1]);
+    cell[(2 * t + 1) * kOutStride + 8] = static_cast<uint8_t>(o[3]);
+  }
+}
+
+__host__ __device__ constexpr int padded_rows(int r) {
+  return (r + kGroup - 1) / kGroup * kGroup;
+}
+
+// shared memory of one block: W, the output tile, and the lift fragments
+// when they are not held in registers (NT == 0)
+__host__ __device__ constexpr int smem_bytes(int nw, int nt, int r) {
+  return nw * kWStride * 4 + r * kOutStride + (nt > 0 ? 0 : padded_rows(r) * 32 * 8);
+}
+
+// NW = ceil(C / 4): words per column. NT = 1..4: R = NT, the lift
+// fragments held in registers; NT = 0: any R, the fragments in shared
+// memory, zero-padded to whole groups of 4 rows. A block covers the
+// columns [blockIdx.x * tile, + tile), kSpan per trip of its loop.
+template <int NW, int NT>
 __global__ void __launch_bounds__(kThreads)
 gf_bitplane_kernel(const uint8_t* __restrict__ data, long long in_batch,
                    long long in_row, uint8_t* __restrict__ out,
                    long long out_batch, long long out_row,
-                   const uint32_t* __restrict__ masks, int c, int r_rows,
+                   const uint2* __restrict__ frags, int c, int r_rows,
                    long long n, long long tile, bool vec_in, bool vec_out) {
-  extern __shared__ uint32_t s_masks[];  // [r_rows * 8][NW]
-  for (int k = threadIdx.x; k < r_rows * 8 * NW; k += blockDim.x) {
-    s_masks[k] = masks[k];
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(smem);  // [NW][kWStride]
+  uint8_t* s_out = smem + NW * kWStride * 4;           // [r_rows][kOutStride]
+  uint2* s_b = reinterpret_cast<uint2*>(s_out + r_rows * kOutStride);  // [rt][32]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rt = padded_rows(r_rows);
+
+  uint2 b[NT > 0 ? NT : 1];
+  if constexpr (NT > 0) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) b[nt] = frags[nt * 32 + lane];
+  } else {
+    for (int k = threadIdx.x; k < rt * 32; k += kThreads) {
+      s_b[k] = k < r_rows * 32 ? frags[k] : make_uint2(0u, 0u);
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  // the pack product's B: row k = 4t' + e (a0 half) or 16 + 4t' + e (a2
+  // half) is bit 2t' + (e & 1) of n-tile (e >> 1) or 2 + (e >> 1); column
+  // g is output row g of the group; entries 2^bit
+  uint32_t pack0 = 0u, pack1 = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t v = (1u << (2 * t + (e & 1))) << (8 * e);
+    if (g == (e >> 1)) pack0 |= v;
+    if (g == 2 + (e >> 1)) pack1 |= v;
+  }
 
   const long long start = static_cast<long long>(blockIdx.x) * tile;
   const long long lim = min(n, start + tile);
   const uint8_t* src = data + blockIdx.y * in_batch;
   uint8_t* dst = out + blockIdx.y * out_batch;
+  const int off = threadIdx.x * kCols;
 
-  for (long long col0 = start + threadIdx.x * kCols; col0 < lim; col0 += kSpan) {
-    // Column bit vectors: bits[t][w] holds rows 4w..4w+3 of column col0 + t.
-    uint32_t bits[kCols][NW];
+  for (long long base = start; base < lim; base += kSpan) {
+    // 1. bytes -> column words in shared memory; all loads in flight first
+    const long long col0 = base + off;
+    uint4 v[NW][4];
+    if (vec_in && col0 + kCols <= lim) {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int ci = 4 * w + q;
+          v[w][q] = ci < c ? __ldcs(reinterpret_cast<const uint4*>(src + ci * in_row + col0))
+                           : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int ci = 4 * w + q;
+          v[w][q] = (ci < c && col0 < lim) ? gf::load16(src + ci * in_row, col0, lim, false)
+                                           : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      uint4 v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int ci = 4 * w + q;
-        v[q] = ci < c ? gf::load16(src + ci * in_row, col0, lim, vec_in)
-                      : make_uint4(0u, 0u, 0u, 0u);
-      }
       uint32_t words[kCols];
-      gf::column_words(v, words);
+      gf::column_words(v[w], words);
 #pragma unroll
-      for (int t = 0; t < kCols; ++t) bits[t][w] = words[t];
+      for (int s = 0; s < 4; ++s) {
+        *reinterpret_cast<uint4*>(s_w + w * kWStride + off + 4 * s) =
+            make_uint4(words[4 * s], words[4 * s + 1], words[4 * s + 2], words[4 * s + 3]);
+      }
     }
+    __syncwarp();
 
-    gf::parity_rows<NW>(bits, s_masks, r_rows, dst, out_row, col0, lim, vec_out);
+    // 2. the warp's M tiles of 16 columns, up to the edge
+    const long long left = lim - base - warp * kWarpCols;
+    const int m_tiles =
+        left <= 0 ? 0 : static_cast<int>(min((left + 15) / 16, static_cast<long long>(kWarpCols / 16)));
+    for (int mt = 0; mt < m_tiles; ++mt) {
+      const int nb = warp * kWarpCols + mt * 16;
+      uint32_t a[4];  // words t and 4 + t of columns g and g + 8
+      a[0] = t < NW ? s_w[t * kWStride + nb + g] : 0u;
+      a[1] = t < NW ? s_w[t * kWStride + nb + g + 8] : 0u;
+      a[2] = 4 + t < NW ? s_w[(4 + t) * kWStride + nb + g] : 0u;
+      a[3] = 4 + t < NW ? s_w[(4 + t) * kWStride + nb + g + 8] : 0u;
+      if constexpr (NT > 0) {
+        group_product<NT>(a, b, pack0, pack1, s_out + nb + g, r_rows, t);
+      } else {
+        for (int rg = 0; rg < r_rows; rg += kGroup) {
+          uint2 bg[kGroup];
+#pragma unroll
+          for (int nt = 0; nt < kGroup; ++nt) bg[nt] = s_b[(rg + nt) * 32 + lane];
+          group_product<kGroup>(a, bg, pack0, pack1, s_out + rg * kOutStride + nb + g,
+                                r_rows - rg, t);
+        }
+      }
+    }
+    __syncwarp();
+
+    // 3. output tile -> HBM, 16 bytes per row per thread
+    if (col0 < lim) {
+      for (int r = 0; r < r_rows; ++r) {
+        const uint4 o = *reinterpret_cast<const uint4*>(s_out + r * kOutStride + off);
+        const uint32_t ow[4] = {o.x, o.y, o.z, o.w};
+        gf::store16(dst + r * out_row, col0, lim, vec_out, ow);
+      }
+    }
+    __syncwarp();  // the next trip's products rewrite the output tile
   }
 }
 
-template <int NW>
-void launch(const uint8_t* data, long long in_batch, long long in_row,
-            uint8_t* out, long long out_batch, long long out_row,
-            const uint32_t* masks, int batch, int c, int r, long long n,
-            long long tile, bool vec_in, bool vec_out, cudaStream_t stream) {
+template <int NW, int NT>
+int launch(const uint8_t* data, long long in_batch, long long in_row,
+           uint8_t* out, long long out_batch, long long out_row,
+           const uint2* frags, int batch, int c, int r, long long n,
+           long long tile, bool vec_in, bool vec_out, cudaStream_t stream) {
+  const int smem = smem_bytes(NW, NT, r);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gf_bitplane_kernel<NW, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid(gf::column_blocks(n, tile), static_cast<unsigned>(batch));
-  const size_t smem = sizeof(uint32_t) * r * 8 * NW;
-  gf_bitplane_kernel<NW><<<grid, kThreads, smem, stream>>>(
-      data, in_batch, in_row, out, out_batch, out_row, masks, c, r, n, tile,
+  gf_bitplane_kernel<NW, NT><<<grid, kThreads, smem, stream>>>(
+      data, in_batch, in_row, out, out_batch, out_row, frags, c, r, n, tile,
       vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lift fragments in registers for R <= 4, else in shared memory.
+template <int NW>
+int dispatch(const uint8_t* data, long long in_batch, long long in_row,
+             uint8_t* out, long long out_batch, long long out_row,
+             const uint2* frags, int batch, int c, int r, long long n,
+             long long tile, bool vec_in, bool vec_out, cudaStream_t stream) {
+  switch (r) {
+    case 1: return launch<NW, 1>(data, in_batch, in_row, out, out_batch, out_row, frags, batch, c, r, n, tile, vec_in, vec_out, stream);
+    case 2: return launch<NW, 2>(data, in_batch, in_row, out, out_batch, out_row, frags, batch, c, r, n, tile, vec_in, vec_out, stream);
+    case 3: return launch<NW, 3>(data, in_batch, in_row, out, out_batch, out_row, frags, batch, c, r, n, tile, vec_in, vec_out, stream);
+    case 4: return launch<NW, 4>(data, in_batch, in_row, out, out_batch, out_row, frags, batch, c, r, n, tile, vec_in, vec_out, stream);
+    default: return launch<NW, 0>(data, in_batch, in_row, out, out_batch, out_row, frags, batch, c, r, n, tile, vec_in, vec_out, stream);
+  }
 }
 
 }  // namespace
 
 // out[b, r, :] for b < batch, r < r_rows, from data[b, c, :]; strides are in
-// bytes, the last axis contiguous. masks: device uint32[r_rows * 8][ceil(C/4)].
+// bytes, the last axis contiguous. frags: the lift in B fragment order,
+// device uint32[r_rows][32][2] (`rs_cuda.lift_fragments`), 8-byte aligned.
 // tile: columns per block, a positive multiple of 16, or 0 for 2048 (one
 // trip per block). Returns 0 or the cudaError_t of the launch.
 extern "C" int gf_bitplane_apply(const void* data, long long in_batch,
                                  long long in_row, void* out,
                                  long long out_batch, long long out_row,
-                                 const void* masks, int batch, int c,
+                                 const void* frags, int batch, int c,
                                  int r_rows, long long n, long long tile,
                                  void* stream) {
   if (tile == 0) tile = kSpan;
-  if (!gf::shape_ok(batch, c, r_rows, n) || tile < 0 || tile % 16) {
+  if (!gf::shape_ok(batch, c, r_rows, n) || tile < 0 || tile % 16 ||
+      (reinterpret_cast<uintptr_t>(frags) & 7u)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool vec_in = gf::vectorizable(data, in_batch, in_row, batch);
   const bool vec_out = gf::vectorizable(out, out_batch, out_row, batch);
   const auto* d = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);
-  const auto* m = static_cast<const uint32_t*>(masks);
+  const auto* f = static_cast<const uint2*>(frags);
   auto s = static_cast<cudaStream_t>(stream);
   switch ((c + 3) / 4) {
-    case 1: launch<1>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
-    case 2: launch<2>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
-    case 3: launch<3>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
-    case 4: launch<4>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
-    case 5: launch<5>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
-    case 6: launch<6>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
-    case 7: launch<7>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
-    default: launch<8>(d, in_batch, in_row, o, out_batch, out_row, m, batch, c, r_rows, n, tile, vec_in, vec_out, s); break;
+    case 1: return dispatch<1>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
+    case 2: return dispatch<2>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
+    case 3: return dispatch<3>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
+    case 4: return dispatch<4>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
+    case 5: return dispatch<5>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
+    case 6: return dispatch<6>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
+    case 7: return dispatch<7>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
+    default: return dispatch<8>(d, in_batch, in_row, o, out_batch, out_row, f, batch, c, r_rows, n, tile, vec_in, vec_out, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -13,10 +13,15 @@ The chains are captured as CUDA graphs when capture of the ctypes launch
 works (the operand caches are warmed first, so nothing uploads inside the
 capture), which takes Python and launch overhead out of the chain;
 otherwise they run eagerly. `last_method` says which.
+
+`graph_ms` times one kernel call with no host time in it: many launches
+captured in one CUDA graph, the graph replayed between two events.
+`eager_ms` times one eager call, the host time of the call included.
 """
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 
 import torch
@@ -34,6 +39,61 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def eager_ms(fn, runs: int) -> float:
+    """Median of `runs` warm eager calls of `fn()`, each between two CUDA
+    events: the host time of the call lies inside the window whenever the
+    card waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 7) -> float:
+    """Device milliseconds of one call `fn(i)` (i = 0 .. launches - 1),
+    without the wrapper's host time: warm `fn` so that libraries load and
+    operands upload outside the capture, capture `launches` calls in one
+    CUDA graph, replay it `replays` times between two CUDA events, and
+    return the median replay time over `launches`. Let `fn(i)` take its
+    input in turn from buffers that together exceed the 50 MB L2, so that
+    no launch finds its input there. Needs a card; raises without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_ms times the card: no CUDA device")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture, as torch asks
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(launches):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del g
+    torch.cuda.empty_cache()
+    return statistics.median(times)
 
 
 def _chain(encode_fn, data: torch.Tensor, k: int, out_rows: int) -> torch.Tensor:

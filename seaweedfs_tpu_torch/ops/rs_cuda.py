@@ -2,7 +2,7 @@
 `csrc/`, one per variant of the reference's fused Pallas family
 (`rs_pallas.VARIANTS`):
 
-  int8    `gf_bitplane.cu`  popc parity on the CUDA cores (`_kernel`)
+  int8    `gf_bitplane.cu`  AND-popc MMA, transposed: bits x lift (`_kernel`)
   bf16    `gf_mma.cu`       bf16 tensor-core MMA (`_kernel_bf16`)
   u8      `gf_mma.cu`       int8 MMA over a mask-and-compare stack (`_kernel_u8`)
   mplane  `gf_mma.cu`       8 per-plane int8 MMAs, one accumulator (`_kernel_mplane`)
@@ -15,12 +15,15 @@ reference's `pallas_tile`), walked by a loop inside the block.
 
 Operand layout. The reference feeds its kernel the plane-major lift
 (`plane_major_matrix`): input bit j of byte-row ci at column j*C + ci,
-output bit i of row r at row i*R + r. The popc kernels (int8, dma) read
-each column's bits in byte order (bit 8*ci + j is bit j of row ci, the
-order in which the bytes of one column pack into uint32 words), so the
-wrapper re-packs the plane-major lift into per-output-bit masks
-(`kernel_masks`). The MMA kernels take the lift as an A image in MMA row
-order (`mma_operand`). Both are uploaded once per matrix and device.
+output bit i of row r at row i*R + r. The popc kernel (dma) reads each
+column's bits in byte order (bit 8*ci + j is bit j of row ci, the order
+in which the bytes of one column pack into uint32 words), so the wrapper
+re-packs the plane-major lift into per-output-bit masks (`kernel_masks`).
+The int8 kernel takes the same masks as the 1-bit B operand of its
+transposed tensor-core product, in fragment order (`lift_fragments`); the
+other MMA kernels take
+it as an A image in MMA row order (`mma_operand`). Each is uploaded once
+per matrix and device.
 """
 
 from __future__ import annotations
@@ -69,8 +72,9 @@ def smem_bytes(variant: str, c: int, rows: int) -> int:
     """Shared memory one block of `variant` uses for an (R x C) matrix."""
     nw = -(-c // 4)
     masks = 32 * rows * nw
-    if variant == "int8":
-        return masks
+    if variant == "int8":  # column words, output tile, lift fragments unless in registers
+        frags = 0 if rows <= 4 else 256 * -(-rows // 4) * 4
+        return nw * (SPAN + 8) * 4 + rows * (SPAN + 16) + frags
     if variant == "dma":
         return masks + 2 * c * DMA_CHUNK
     k = 256 if variant == "mplane" else 32 * nw
@@ -81,9 +85,10 @@ def auto_tile(c: int, rows: int, variant: str = "int8") -> int:
     """The tile of `tile=None`, re-derived from the shared memory each
     variant's block uses (the reference plans against its VMEM budget).
 
-    int8 keeps its state in registers and covers SPAN columns per block
-    (one trip). The others stage per-block state in shared memory (the
-    lift or masks, the ring, the column words): a block walks as many
+    int8 covers SPAN columns per block (one trip): its only per-block
+    staging is the lift fragments, held in registers on the main path.
+    The others stage per-block state in shared memory (the lift or masks,
+    the ring, the column words): a block walks as many
     SPAN (dma: DMA_CHUNK) trips as blocks of its size fit one SM, at least
     two for the dma ring to overlap, so that staging is amortised; snapped
     down to `_TILE_STEPS`."""
@@ -153,6 +158,25 @@ def kernel_masks(pm: torch.Tensor) -> np.ndarray:
     return words.view("<u4").reshape(-1).astype(np.uint32)
 
 
+def lift_fragments(pm: torch.Tensor) -> np.ndarray:
+    """The int8 kernel's B operand (`gf_bitplane.cu`): the lift as popc
+    masks in the fragment order of mma.m16n8k256's 1-bit B, uint32 (R, 32,
+    2).
+
+    The kernel computes out^T = bits^T . lift^T with K = the column's
+    8C-bit vector in column-word order (word w, bit 8q + p = plane p of
+    input row 4w + q, as `kernel_masks`) and n8 tile r = output row r,
+    column i = its bit i. Entry [r, lane, h] is B register b_h of lane =
+    4g + t: K bits 128h + 32t .. + 31, that is mask word 4h + t of output
+    bit (r, i = g) (`kernel_masks`), 0 past NW = ceil(C/4)."""
+    r_n = pm.shape[0] // 8
+    nw = -(-(pm.shape[1] // 8) // 4)
+    words = np.zeros((r_n, 8, 8), dtype=np.uint32)  # [r, i, mask word]
+    words[..., :nw] = kernel_masks(pm).reshape(r_n, 8, nw)
+    # word 4h + t of bit g  ->  [r, g, t, h]
+    return np.ascontiguousarray(words.reshape(r_n, 8, 2, 4).transpose(0, 1, 3, 2)).reshape(r_n, 32, 2)
+
+
 def mma_operand(pm: torch.Tensor, variant: str) -> np.ndarray:
     """The A image of the MMA kernels (`gf_mma.cu`): uint8 rows of K + 16
     bytes (16 bytes of bank padding), 16 per M tile, ceil(R/2) M tiles.
@@ -184,7 +208,7 @@ def mma_operand(pm: torch.Tensor, variant: str) -> np.ndarray:
 
 #: variant -> (library, C entry point, operand), in FUSED_VARIANTS order
 KERNELS = {
-    "int8": ("gf_bitplane", "gf_bitplane_apply", "masks"),
+    "int8": ("gf_bitplane", "gf_bitplane_apply", "frags"),
     "bf16": ("gf_mma", "gf_bf16_apply", "mma"),
     "u8": ("gf_mma", "gf_u8_apply", "mma"),
     "mplane": ("gf_mma", "gf_mplane_apply", "mma"),
@@ -195,8 +219,11 @@ KERNELS = {
 @functools.lru_cache(maxsize=256)
 def _device_operand(key: tuple, variant: str, device: str) -> torch.Tensor:
     pm = _plane_major(key)
-    if KERNELS[variant][2] == "masks":
+    kind = KERNELS[variant][2]
+    if kind == "masks":
         host = kernel_masks(pm)
+    elif kind == "frags":
+        host = lift_fragments(pm)
     else:
         host = mma_operand(pm, variant)
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)

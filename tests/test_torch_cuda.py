@@ -152,7 +152,7 @@ VARIANT_CASES = {
 }
 
 
-@pytest.mark.parametrize("variant", NEW_VARIANTS)
+@pytest.mark.parametrize("variant", ("int8",) + NEW_VARIANTS)
 @pytest.mark.parametrize("case", sorted(VARIANT_CASES))
 def test_variant_kernel_equals_plain_version(card, variant, case):
     name, shape, tile = VARIANT_CASES[case]
@@ -167,6 +167,20 @@ def test_variant_kernel_equals_plain_version(card, variant, case):
     assert got.shape == (shape[0], m.shape[0], shape[-1])
     assert torch.equal(got, want)
     assert np.array_equal(got[0].cpu().numpy(), gf8.gf_mat_vec(m, data[0]))
+
+
+@pytest.mark.parametrize("tile", [128, 384, 2176])
+@pytest.mark.parametrize("name", ["rs_10_4", "random_32x32"])
+def test_int8_kernel_tiles_below_and_off_the_span(card, tile, name):
+    """int8 takes any multiple of 128 as its tile, below and between the
+    2048-column trips of its blocks."""
+    m = MATRICES[name]()
+    data = np.random.default_rng(tile).integers(0, 256, (2, m.shape[1], 10007), np.uint8)
+    x = torch.from_numpy(data).to(card)
+    got = rs_cuda.apply_matrix(m, x, tile=tile, variant="int8")
+    want = rs_cuda.plain_apply(m, x, tile=tile, variant="int8")
+    assert torch.equal(got, want)
+    assert np.array_equal(got[1].cpu().numpy(), gf8.gf_mat_vec(m, data[1]))
 
 
 @pytest.mark.parametrize("variant", NEW_VARIANTS)

@@ -4,8 +4,11 @@ the plain PyTorch path (`rs_torch.gf_apply`, what `rs_cuda.apply_matrix`
 runs on CPU tensors) is byte-exact (tolerance 0: GF arithmetic is exact)
 against `rs_jax.gf_apply`, the Pallas `_kernel` in interpret mode
 (`rs_pallas.apply_matrix(mxu="int8")`) and the `gf8.gf_mat_vec` golden.
-The CUDA kernel's own arithmetic (mask layout, byte packing, popc parity)
-is replayed in numpy here, since the kernel itself runs only on the card."""
+The popc arithmetic of the dma kernel (`gf_dma.cu` through
+`gf_common.cuh:parity_rows`: mask layout, byte packing, popc parity) is
+replayed in numpy here, since the kernel itself runs only on the card; the
+int8 kernel's tensor-core arithmetic is replayed in
+`tests/test_torch_int8_mma.py`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,9 +120,10 @@ def test_lift_from_reference_is_plane_major_operand(name):
 
 
 def _kernel_replay(masks: np.ndarray, m_shape: tuple, data: np.ndarray) -> np.ndarray:
-    """numpy replay of gf_bitplane.cu's arithmetic: a column's bytes of rows
-    4w..4w+3 packed little-endian into word w, output bit (r, i) the parity
-    of popc(XOR_w mask[(r*8+i)*NW + w] & word[w])."""
+    """numpy replay of the dma kernel's popc arithmetic (`gf_dma.cu` via
+    `gf_common.cuh:parity_rows`): a column's bytes of rows 4w..4w+3 packed
+    little-endian into word w, output bit (r, i) the parity of
+    popc(XOR_w mask[(r*8+i)*NW + w] & word[w])."""
     r_n, c_n = m_shape
     nw = -(-c_n // 4)
     rows = np.zeros((4 * nw, data.shape[1]), dtype=np.uint8)
