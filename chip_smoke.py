@@ -11,8 +11,10 @@ Phases, one JSON line each:
            (tolerance 0), at the main path's shapes and ragged/batched/
            strided/other family shapes, and all five against each other;
            at the three main-path shapes, kernel_ms (20 launches in a CUDA
-           graph, replayed between CUDA events, per launch) and call_ms
-           (one eager call of the wrapper, its host time included)
+           graph, replayed between CUDA events, per launch), call_ms
+           (one eager call of the wrapper, its host time included), and
+           bound_ms/bound_by (`measure.bound_ms`: bytes, or the product at
+           the variant's own tensor-core rate, bf16 989e12 op/s)
   sweep    the kernel sweep (`--quick`, full size) into JSONL under
            _smoke_tmp/, assembled into a GPU_MEASUREMENT file there; checks
            that `pick_device_backend` on it names the best configuration
@@ -44,10 +46,6 @@ import zlib
 import numpy as np
 import torch
 
-#: published H100 SXM peaks (dense): HBM bytes/s and int8 tensor-core ops/s
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "_smoke_tmp")
 LOST = (0, 5, 10, 13)
@@ -62,19 +60,11 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(c: int, r: int, n: int, batch: int = 1) -> tuple[float, str]:
-    """Least time for one application: (C+R)*N bytes over HBM bandwidth vs
-    the 8R x 8C bit products per column as int8 tensor-core operations."""
-    bytes_ms = (c + r) * n * batch / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * 8 * r * 8 * c * n * batch / INT8_OPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-
-
 #: variant -> (kernel name, source, the TPU kernel it replaces)
 KERNELS = {
     "int8": ("gf_bitplane", "seaweedfs_tpu_torch/csrc/gf_bitplane.cu",
              "seaweedfs_tpu/ops/rs_pallas.py:112"),
-    "bf16": ("gf_bf16", "seaweedfs_tpu_torch/csrc/gf_mma.cu",
+    "bf16": ("gf_bf16", "seaweedfs_tpu_torch/csrc/gf_bf16.cu",
              "seaweedfs_tpu/ops/rs_pallas.py:146"),
     "u8": ("gf_u8", "seaweedfs_tpu_torch/csrc/gf_mma.cu", "seaweedfs_tpu/ops/rs_pallas.py:187"),
     "mplane": ("gf_mplane", "seaweedfs_tpu_torch/csrc/gf_mma.cu",
@@ -127,7 +117,7 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
                 del bufs
                 row["call_ms"] = measure.eager_ms(lambda: rs_cuda.apply_matrix(m, data, variant=v), 50)
                 row["plain_ms"] = measure.eager_ms(lambda: rs_cuda.plain_apply(m, data, variant=v), 3)
-                row["bound_ms"], row["bound_by"] = bound(c, r, n)
+                row["bound_ms"], row["bound_by"] = measure.bound_ms(v, c, r, n)
                 row["kernel_gbps"] = (c + r) * n / row["kernel_ms"] / 1e6
             outs[v] = got
             rows[v].append(row)

@@ -60,13 +60,12 @@
 namespace {
 
 using gf::kCols;
+using gf::kGroup;
+using gf::kOutStride;
 using gf::kSpan;
 using gf::kThreads;
-
-constexpr int kWStride = kSpan + 8;     // words per W row: +8 spreads the banks
-constexpr int kOutStride = kSpan + 16;  // bytes per output-tile row
-constexpr int kWarpCols = kSpan / (kThreads / 32);
-constexpr int kGroup = 4;               // output rows (n8 tiles) per pack product
+using gf::kWStride;
+using gf::padded_rows;
 
 // d += popc(a & b) per output, m16n8k256 with 1-bit operands
 __device__ __forceinline__ void mma_and_popc(int (&d)[4], const uint32_t (&a)[4],
@@ -77,27 +76,8 @@ __device__ __forceinline__ void mma_and_popc(int (&d)[4], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a . b, m16n8k32 with u8 operands
-__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the parities (bit 0) of x0..x3 as the 4 bytes of one A register of the
-// pack product
-__device__ __forceinline__ uint32_t parity_bytes(int x0, int x1, int x2, int x3) {
-  const uint32_t lo = __byte_perm(static_cast<uint32_t>(x0), static_cast<uint32_t>(x1), 0x40);
-  const uint32_t hi = __byte_perm(static_cast<uint32_t>(x2), static_cast<uint32_t>(x3), 0x40);
-  return __byte_perm(lo, hi, 0x5410) & 0x01010101u;
-}
-
 // One M tile against one group of up to 4 output rows: the NT products
-// into int32 accumulators (tiles past NT stay zero), the pack product, and
-// the bytes of rows 2t, 2t + 1 of the group (lanes t < 2) to `cell`, the
-// output tile at the group's first row and column g.
+// into int32 accumulators (tiles past NT stay zero), then the pack.
 template <int NT>
 __device__ __forceinline__ void group_product(const uint32_t (&a)[4], const uint2 (&b)[NT],
                                               uint32_t pack0, uint32_t pack1,
@@ -110,29 +90,7 @@ __device__ __forceinline__ void group_product(const uint32_t (&a)[4], const uint
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) mma_and_popc(d[nt], a, b[nt].x, b[nt].y);
-  // the A fragment of the pack product is the accumulators' C layout:
-  // lane t holds bits 2t, 2t + 1 of each n-tile, for columns g and g + 8
-  const uint32_t e[4] = {
-      parity_bytes(d[0][0], d[0][1], d[1][0], d[1][1]),  // column g, tiles 0-1
-      parity_bytes(d[0][2], d[0][3], d[1][2], d[1][3]),  // column g + 8
-      parity_bytes(d[2][0], d[2][1], d[3][0], d[3][1]),  // column g, tiles 2-3
-      parity_bytes(d[2][2], d[2][3], d[3][2], d[3][3]),
-  };
-  int o[4] = {0, 0, 0, 0};
-  mma_u8(o, e, pack0, pack1);
-  // o: rows 2t, 2t + 1 of column g (o[0], o[1]) and of column g + 8
-  if (t < 2 && 2 * t < rows) {
-    cell[2 * t * kOutStride] = static_cast<uint8_t>(o[0]);
-    cell[2 * t * kOutStride + 8] = static_cast<uint8_t>(o[2]);
-  }
-  if (t < 2 && 2 * t + 1 < rows) {
-    cell[(2 * t + 1) * kOutStride] = static_cast<uint8_t>(o[1]);
-    cell[(2 * t + 1) * kOutStride + 8] = static_cast<uint8_t>(o[3]);
-  }
-}
-
-__host__ __device__ constexpr int padded_rows(int r) {
-  return (r + kGroup - 1) / kGroup * kGroup;
+  gf::pack_group(d, pack0, pack1, cell, rows, t);
 }
 
 // shared memory of one block: W, the output tile, and the lift fragments
@@ -173,16 +131,8 @@ gf_bitplane_kernel(const uint8_t* __restrict__ data, long long in_batch,
     }
     __syncthreads();
   }
-  // the pack product's B: row k = 4t' + e (a0 half) or 16 + 4t' + e (a2
-  // half) is bit 2t' + (e & 1) of n-tile (e >> 1) or 2 + (e >> 1); column
-  // g is output row g of the group; entries 2^bit
-  uint32_t pack0 = 0u, pack1 = 0u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const uint32_t v = (1u << (2 * t + (e & 1))) << (8 * e);
-    if (g == (e >> 1)) pack0 |= v;
-    if (g == 2 + (e >> 1)) pack1 |= v;
-  }
+  uint32_t pack0, pack1;
+  gf::pack_operand(g, t, pack0, pack1);
 
   const long long start = static_cast<long long>(blockIdx.x) * tile;
   const long long lim = min(n, start + tile);
@@ -191,48 +141,15 @@ gf_bitplane_kernel(const uint8_t* __restrict__ data, long long in_batch,
   const int off = threadIdx.x * kCols;
 
   for (long long base = start; base < lim; base += kSpan) {
-    // 1. bytes -> column words in shared memory; all loads in flight first
+    // 1. bytes -> column words in shared memory
     const long long col0 = base + off;
-    uint4 v[NW][4];
-    if (vec_in && col0 + kCols <= lim) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int ci = 4 * w + q;
-          v[w][q] = ci < c ? __ldcs(reinterpret_cast<const uint4*>(src + ci * in_row + col0))
-                           : make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int ci = 4 * w + q;
-          v[w][q] = (ci < c && col0 < lim) ? gf::load16(src + ci * in_row, col0, lim, false)
-                                           : make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      uint32_t words[kCols];
-      gf::column_words(v[w], words);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        *reinterpret_cast<uint4*>(s_w + w * kWStride + off + 4 * s) =
-            make_uint4(words[4 * s], words[4 * s + 1], words[4 * s + 2], words[4 * s + 3]);
-      }
-    }
+    gf::stage_words<NW>(src, in_row, c, col0, lim, vec_in, s_w, off);
     __syncwarp();
 
     // 2. the warp's M tiles of 16 columns, up to the edge
-    const long long left = lim - base - warp * kWarpCols;
-    const int m_tiles =
-        left <= 0 ? 0 : static_cast<int>(min((left + 15) / 16, static_cast<long long>(kWarpCols / 16)));
+    const int m_tiles = gf::warp_m_tiles(base, lim, warp);
     for (int mt = 0; mt < m_tiles; ++mt) {
-      const int nb = warp * kWarpCols + mt * 16;
+      const int nb = warp * gf::kWarpCols + mt * 16;
       uint32_t a[4];  // words t and 4 + t of columns g and g + 8
       a[0] = t < NW ? s_w[t * kWStride + nb + g] : 0u;
       a[1] = t < NW ? s_w[t * kWStride + nb + g + 8] : 0u;
@@ -253,13 +170,7 @@ gf_bitplane_kernel(const uint8_t* __restrict__ data, long long in_batch,
     __syncwarp();
 
     // 3. output tile -> HBM, 16 bytes per row per thread
-    if (col0 < lim) {
-      for (int r = 0; r < r_rows; ++r) {
-        const uint4 o = *reinterpret_cast<const uint4*>(s_out + r * kOutStride + off);
-        const uint32_t ow[4] = {o.x, o.y, o.z, o.w};
-        gf::store16(dst + r * out_row, col0, lim, vec_out, ow);
-      }
-    }
+    gf::store_tile(dst, out_row, s_out, r_rows, col0, lim, vec_out, off);
     __syncwarp();  // the next trip's products rewrite the output tile
   }
 }

@@ -1,5 +1,5 @@
 // GF(2^8) matrix application on the tensor cores (mma.sync), for Hopper
-// (sm_90a): three kernels, the ports of three Pallas variants.
+// (sm_90a): two kernels, the ports of two Pallas variants.
 //
 //   gf_mplane_apply  replaces rs_pallas.py:_kernel_mplane (:210): eight
 //                    per-plane int8 products (K = C, padded to 32) summed
@@ -9,11 +9,8 @@
 //                    product over the whole plane-major stack, whose bytes
 //                    are made by mask-and-compare (__vcmpne4), no shifts
 //                    of the data.
-//   gf_bf16_apply    replaces rs_pallas.py:_kernel_bf16 (:146): the u8
-//                    stack as bf16 1.0/0.0 operands, float32 accumulation
-//                    (exact: every sum <= 8C <= 256).
 //
-// All compute out[b, r, n] = XOR_c m[r][c] * data[b, c, n] over GF(2^8) as
+// Both compute out[b, r, n] = XOR_c m[r][c] * data[b, c, n] over GF(2^8) as
 // (lift @ bits) mod 2: M = output bits, K = input bits, N = byte columns.
 //
 // What bounds them on this card: not HBM (C + R bytes per column) and not
@@ -40,8 +37,6 @@
 //                          with (j, w) = divmod(q, NW), the stack order
 //                          q = j*NW + w: plane-major, each plane padded to
 //                          4*NW rows (zero columns in A; exact);
-//        bf16:             the u8 bytes of two stack rows, times 0x3F80
-//                          (bf16 1.0) per 16-bit half;
 //   3. M rows are ordered so that an M tile holds the 8 bits of two output
 //      rows (row 8h + i = bit i of output row 2*mt + h). After `& 1` each
 //      lane holds bit g of two adjacent bytes; three xor-shuffles over the
@@ -53,7 +48,6 @@
 // memory once per block.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -69,7 +63,7 @@ constexpr int kWStride = kSpan + 8;  // words per W row: +8 spreads the banks
 constexpr int kGroup = 4;            // n8 tiles sharing one A fragment read
 constexpr int kWarpCols = kSpan / (kThreads / 32);
 
-enum Variant { kMplane = 0, kU8 = 1, kBf16 = 2 };
+enum Variant { kMplane = 0, kU8 = 1 };
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
@@ -78,20 +72,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two 0/1 bytes (bytes 0 and 1 of x) -> two bf16 values 0.0/1.0.
-__device__ __forceinline__ uint32_t bf16_pair(uint32_t x) {
-  return __byte_perm(x, 0u, 0x4140) * 0x3F80u;
 }
 
 // Plane j of a column word as 0/1 bytes, by mask and compare.
@@ -107,7 +87,7 @@ __host__ __device__ constexpr int k_pad() {
 
 template <int V, int NW>
 __host__ __device__ constexpr int k_steps() {
-  return V == kMplane ? 8 : V == kU8 ? NW : 2 * NW;
+  return V == kMplane ? 8 : NW;
 }
 
 template <int V, int NW>
@@ -176,50 +156,33 @@ gf_mma_kernel(const uint8_t* __restrict__ data, long long in_batch,
         }
       }
       for (int mt = 0; mt < mt_n; ++mt) {
-        using Acc = typename std::conditional<V == kBf16, float, int>::type;
-        Acc acc[kGroup][4];
+        int acc[kGroup][4];
 #pragma unroll
         for (int nt = 0; nt < kGroup; ++nt) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nt][e] = Acc(0);
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
         }
         const uint8_t* arow = s_a + (mt * 16 + g) * kA;
 #pragma unroll
         for (int s = 0; s < k_steps<V, NW>(); ++s) {
           uint32_t a[4];
-          if constexpr (V == kBf16) {
-            const uint8_t* ar = arow + 16 * s + 2 * t;
-            a[0] = bf16_pair(*reinterpret_cast<const uint16_t*>(ar));
-            a[1] = bf16_pair(*reinterpret_cast<const uint16_t*>(ar + 8 * kA));
-            a[2] = bf16_pair(*reinterpret_cast<const uint16_t*>(ar + 8));
-            a[3] = bf16_pair(*reinterpret_cast<const uint16_t*>(ar + 8 * kA + 8));
-          } else {
-            const uint8_t* ar = arow + 32 * s + 4 * t;
-            a[0] = *reinterpret_cast<const uint32_t*>(ar);
-            a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kA);
-            a[2] = *reinterpret_cast<const uint32_t*>(ar + 16);
-            a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * kA + 16);
-          }
+          const uint8_t* ar = arow + 32 * s + 4 * t;
+          a[0] = *reinterpret_cast<const uint32_t*>(ar);
+          a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * kA);
+          a[2] = *reinterpret_cast<const uint32_t*>(ar + 16);
+          a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * kA + 16);
 #pragma unroll
           for (int nt = 0; nt < kGroup; ++nt) {
             const int col = nb + nt * 8 + g;
             if constexpr (V == kMplane) {
               mma_s8(acc[nt], a, (wv[nt][0] >> s) & 0x01010101u,
                      (wv[nt][1] >> s) & 0x01010101u);
-            } else if constexpr (V == kU8) {
+            } else {
               const int q0 = 8 * s + t;
               const int q1 = q0 + 4;
               const uint32_t b0 = plane_bytes(s_w[(q0 % NW) * kWStride + col], q0 / NW);
               const uint32_t b1 = plane_bytes(s_w[(q1 % NW) * kWStride + col], q1 / NW);
               mma_s8(acc[nt], a, b0, b1);
-            } else {
-              const int q0 = 4 * s + (t >> 1);
-              const int q1 = q0 + 2;
-              const uint32_t sel = (t & 1) ? 0x4342u : 0x4140u;
-              const uint32_t u0 = plane_bytes(s_w[(q0 % NW) * kWStride + col], q0 / NW);
-              const uint32_t u1 = plane_bytes(s_w[(q1 % NW) * kWStride + col], q1 / NW);
-              mma_bf16(acc[nt], a, __byte_perm(u0, 0u, sel) * 0x3F80u,
-                       __byte_perm(u1, 0u, sel) * 0x3F80u);
             }
           }
         }
@@ -228,13 +191,7 @@ gf_mma_kernel(const uint8_t* __restrict__ data, long long in_batch,
         for (int nt = 0; nt < kGroup; ++nt) {
           uint32_t e[4];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if constexpr (V == kBf16) {
-              e[k] = static_cast<uint32_t>(__float2int_rz(acc[nt][k])) & 1u;
-            } else {
-              e[k] = static_cast<uint32_t>(acc[nt][k]) & 1u;
-            }
-          }
+          for (int k = 0; k < 4; ++k) e[k] = static_cast<uint32_t>(acc[nt][k]) & 1u;
           uint32_t v0 = (e[0] | (e[1] << 8)) << g;  // output row 2*mt
           uint32_t v1 = (e[2] | (e[3] << 8)) << g;  // output row 2*mt + 1
 #pragma unroll
@@ -338,4 +295,3 @@ int apply(const void* data, long long in_batch, long long in_row, void* out,
 
 GF_MMA_ENTRY(gf_mplane_apply, kMplane)
 GF_MMA_ENTRY(gf_u8_apply, kU8)
-GF_MMA_ENTRY(gf_bf16_apply, kBf16)

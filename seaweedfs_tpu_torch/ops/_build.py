@@ -21,7 +21,10 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: kernel sources by library name
-SOURCES = {"gf_bitplane": "gf_bitplane.cu", "gf_dma": "gf_dma.cu", "gf_mma": "gf_mma.cu"}
+SOURCES = {
+    "gf_bitplane": "gf_bitplane.cu", "gf_bf16": "gf_bf16.cu", "gf_dma": "gf_dma.cu",
+    "gf_mma": "gf_mma.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,7 +3,7 @@
 (`rs_pallas.VARIANTS`):
 
   int8    `gf_bitplane.cu`  AND-popc MMA, transposed: bits x lift (`_kernel`)
-  bf16    `gf_mma.cu`       bf16 tensor-core MMA (`_kernel_bf16`)
+  bf16    `gf_bf16.cu`      bf16 MMA, transposed: bits x lift (`_kernel_bf16`)
   u8      `gf_mma.cu`       int8 MMA over a mask-and-compare stack (`_kernel_u8`)
   mplane  `gf_mma.cu`       8 per-plane int8 MMAs, one accumulator (`_kernel_mplane`)
   dma     `gf_dma.cu`       int8 arithmetic fed by a cp.async ring (`_make_dma_kernel`)
@@ -21,9 +21,10 @@ in which the bytes of one column pack into uint32 words), so the wrapper
 re-packs the plane-major lift into per-output-bit masks (`kernel_masks`).
 The int8 kernel takes the same masks as the 1-bit B operand of its
 transposed tensor-core product, in fragment order (`lift_fragments`); the
-other MMA kernels take
-it as an A image in MMA row order (`mma_operand`). Each is uploaded once
-per matrix and device.
+bf16 kernel takes them as bf16 1.0/0.0 B fragments of its transposed
+product (`bf16_fragments`); u8 and mplane take the lift as an A image in
+MMA row order (`mma_operand`). Each is uploaded once per matrix and
+device.
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ def smem_bytes(variant: str, c: int, rows: int) -> int:
         return nw * (SPAN + 8) * 4 + rows * (SPAN + 16) + frags
     if variant == "dma":
         return masks + 2 * c * DMA_CHUNK
+    if variant == "bf16":  # column words, output tile, B image on wgmma (R <= 4)
+        return nw * (SPAN + 8) * 4 + rows * (SPAN + 16) + (2 * nw * rows * 256 if rows <= 4 else 0)
     k = 256 if variant == "mplane" else 32 * nw
     return nw * (SPAN + 8) * 4 + 16 * ((rows + 1) // 2) * (k + 16) + rows * SPAN
 
@@ -85,14 +88,16 @@ def auto_tile(c: int, rows: int, variant: str = "int8") -> int:
     """The tile of `tile=None`, re-derived from the shared memory each
     variant's block uses (the reference plans against its VMEM budget).
 
-    int8 covers SPAN columns per block (one trip): its only per-block
-    staging is the lift fragments, held in registers on the main path.
+    int8 and bf16 cover SPAN columns per block (one trip): their only
+    per-block staging is the lift fragments (int8: in registers on the main
+    path; bf16: the B image, a few KB), and many small blocks keep the card
+    fuller than few long ones (`PERF.md` §6: bf16 at 2048 and 8192).
     The others stage per-block state in shared memory (the lift or masks,
     the ring, the column words): a block walks as many
     SPAN (dma: DMA_CHUNK) trips as blocks of its size fit one SM, at least
     two for the dma ring to overlap, so that staging is amortised; snapped
     down to `_TILE_STEPS`."""
-    if variant == "int8":
+    if variant in ("int8", "bf16"):
         return SPAN
     unit = DMA_CHUNK if variant == "dma" else SPAN
     per_sm = max(1, min(8, SMEM_PER_SM // smem_bytes(variant, c, rows)))
@@ -177,13 +182,52 @@ def lift_fragments(pm: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(words.reshape(r_n, 8, 2, 4).transpose(0, 1, 3, 2)).reshape(r_n, 32, 2)
 
 
+#: bf16 1.0, the lift's entries in the bf16 kernel's B operand
+BF16_ONE = 0x3F80
+
+
+def bf16_fragments(pm: torch.Tensor) -> np.ndarray:
+    """The bf16 kernel's B operand (`gf_bf16.cu`): the lift as bf16 1.0/0.0
+    in the fragment order of mma.m16n8k16's B, uint32 (R, 2*NW, 32, 2), NW =
+    ceil(C/4).
+
+    The kernel computes out^T = bits^T . lift^T with n8 tile r = output row
+    r (column i = its bit i) and K in column-word order with the kernel's
+    byte order (`kRowPairs`): word w, bit 8*slot + p = plane p of input row
+    4w + (0, 2, 1, 3)[slot]. K values come in pairs: K step s = 2w + h
+    holds the 16 bits of word w at pair index b = 8h + 4*reg + t (bits b and
+    b + 16: rows 4w + 2h and 4w + 2h + 1). Entry [r, s, lane, reg] is B
+    register b_reg of lane = 4g + t: its low half is B[2t + 8*reg][g], the
+    lift's entry for word-bit b into output bit (r, i = g); its high half
+    B[2t + 8*reg + 1][g] the entry for word-bit b + 16. The A operand the
+    kernel builds from a column word puts the same two bits in the same
+    halves, as bf16 2.0, by one rotation (14 - b) and an AND with
+    0x40004000. Step 2*NW - 1 is all zero when C % 4 is 1 or 2 (rows past
+    C), and the kernel skips it."""
+    r_n = pm.shape[0] // 8
+    nw = -(-(pm.shape[1] // 8) // 4)
+    masks = kernel_masks(pm).reshape(r_n, 8, nw)  # [r, i, w], byte q = row 4w + q
+    masks = (masks & 0xFF0000FF) | ((masks & 0x0000FF00) << 8) | ((masks & 0x00FF0000) >> 8)
+    masks = masks.astype(np.uint64)
+    s = np.arange(2 * nw)
+    g, t = np.divmod(np.arange(32), 4)
+    reg = np.arange(2)
+    w, h = s // 2, s % 2
+    b = 8 * h[:, None, None] + 4 * reg[None, None, :] + t[None, :, None]  # [s, lane, reg]
+    word = masks[:, g[None, :, None], w[:, None, None]]  # [r, s, lane, reg]
+    lo = (word >> b.astype(np.uint64)) & 1
+    hi = (word >> (b + 16).astype(np.uint64)) & 1
+    return ((lo | (hi << 16)) * BF16_ONE).astype(np.uint32)
+
+
 def mma_operand(pm: torch.Tensor, variant: str) -> np.ndarray:
-    """The A image of the MMA kernels (`gf_mma.cu`): uint8 rows of K + 16
-    bytes (16 bytes of bank padding), 16 per M tile, ceil(R/2) M tiles.
+    """The A image of the u8 and mplane kernels (`gf_mma.cu`): uint8 rows of
+    K + 16 bytes (16 bytes of bank padding), 16 per M tile, ceil(R/2) M
+    tiles.
 
     Row 16*mt + 8*h + i is output bit i of output row 2*mt + h (rows past R
     are zero). Columns: mplane, plane j at [32j, 32j + 32) with column
-    32j + ci = input bit j of row ci (K = 256); u8/bf16, the stack of K =
+    32j + ci = input bit j of row ci (K = 256); u8, the stack of K =
     32*NW columns (NW = ceil(C/4)), column 4q + k for stack word q = j*NW + w
     = input bit j of row 4w + k. Columns for rows past C are zero, so the
     padding adds nothing to any sum."""
@@ -209,7 +253,7 @@ def mma_operand(pm: torch.Tensor, variant: str) -> np.ndarray:
 #: variant -> (library, C entry point, operand), in FUSED_VARIANTS order
 KERNELS = {
     "int8": ("gf_bitplane", "gf_bitplane_apply", "frags"),
-    "bf16": ("gf_mma", "gf_bf16_apply", "mma"),
+    "bf16": ("gf_bf16", "gf_bf16_apply", "bf16"),
     "u8": ("gf_mma", "gf_u8_apply", "mma"),
     "mplane": ("gf_mma", "gf_mplane_apply", "mma"),
     "dma": ("gf_dma", "gf_dma_apply", "masks"),
@@ -224,6 +268,8 @@ def _device_operand(key: tuple, variant: str, device: str) -> torch.Tensor:
         host = kernel_masks(pm)
     elif kind == "frags":
         host = lift_fragments(pm)
+    elif kind == "bf16":
+        host = bf16_fragments(pm)
     else:
         host = mma_operand(pm, variant)
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)
@@ -257,13 +303,13 @@ def _check(m: np.ndarray, shards: torch.Tensor) -> None:
 
 def resolve_tile(variant: str, tile: Optional[int], c: int, rows: int) -> int:
     """The tile a call runs with: `auto_tile` for None, else the caller's,
-    which must be a positive multiple of 128 (of SPAN for the MMA kernels,
-    whose blocks cover SPAN columns per trip)."""
+    which must be a positive multiple of 128 (of SPAN for the bf16, u8 and
+    mplane kernels, whose blocks cover SPAN columns per trip)."""
     if variant not in KERNELS:
         raise ValueError(f"unknown variant {variant!r} (want one of {tuple(KERNELS)})")
     if tile is None:
         return auto_tile(c, rows, variant)
-    unit = SPAN if KERNELS[variant][2] == "mma" else 128
+    unit = SPAN if variant in ("bf16", "u8", "mplane") else 128
     if int(tile) <= 0 or int(tile) % unit:
         raise ValueError(f"{variant} takes a tile that is a positive multiple of {unit}, got {tile}")
     return int(tile)

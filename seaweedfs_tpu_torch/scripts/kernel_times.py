@@ -1,7 +1,7 @@
 """Time the GF(2^8) kernels of one checkout on the card, graph-timed.
 
     python seaweedfs_tpu_torch/scripts/kernel_times.py [--root DIR]
-        [--variants int8,dma,...] [--label L] [--out FILE]
+        [--variants int8,dma,...] [--tile T] [--label L] [--out FILE]
 
 Imports `seaweedfs_tpu_torch` from DIR (default: this checkout), so that
 the kernels of another commit, unpacked with `git archive` into DIR, are
@@ -10,9 +10,11 @@ path): two runs in one call, parent and change in turns, compare the two
 on one card. For each variant and each of the main path's three shapes
 (encode (4,10) x (10, 6 553 600), rebuild of 4 and of 1 lost shard at
 (10, 4 194 304)) it checks the kernel against its plain version on the
-card byte for byte and prints one JSON line: `kernel_ms` (graph time per
+card byte for byte (at the variant's own tile, or `--tile`) and prints
+one JSON line: `kernel_ms` (graph time per
 launch), `call_ms` (one eager call of the wrapper, host time included),
-`bound_ms` and the card line. Exits 1 on a mismatch or without a card.
+`bound_ms` with `bound_by` (`measure.bound_ms`: bytes, or the
+variant's own tensor-core rate) and the card line. Exits 1 on a mismatch or without a card.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OWN_ROOT = os.path.dirname(os.path.dirname(HERE))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
 def _own_measure():
@@ -41,6 +42,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=OWN_ROOT)
     ap.add_argument("--variants", default="int8,dma,mplane,u8,bf16")
+    ap.add_argument("--tile", type=int, default=None, help="columns per block (default: auto_tile)")
     ap.add_argument("--label", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="append the JSON lines to this file too")
@@ -77,18 +79,19 @@ def main(argv=None) -> int:
             data = torch.from_numpy(rng.integers(0, 256, (m.shape[1], n), dtype=np.uint8)).cuda()
             bufs = (data, data.clone())  # launches alternate: together > the 50 MB L2
             for v in args.variants.split(","):
-                got = rs_cuda.apply_matrix(m, data, variant=v)
-                equal = bool(torch.equal(got, rs_cuda.plain_apply(m, data, variant=v)))
+                tile = args.tile
+                got = rs_cuda.apply_matrix(m, data, tile, variant=v)
+                equal = bool(torch.equal(got, rs_cuda.plain_apply(m, data, tile, variant=v)))
                 del got
                 rec = {
-                    "label": label, "variant": v, "shape": shape,
+                    "label": label, "variant": v, "shape": shape, "tile": tile,
                     "matrix": list(m.shape), "data": list(data.shape), "equal": equal,
                     "kernel_ms": measure.graph_ms(
-                        lambda i: rs_cuda.apply_matrix(m, bufs[i % 2], variant=v)),
-                    "call_ms": measure.eager_ms(lambda: rs_cuda.apply_matrix(m, data, variant=v), 50),
-                    "bound_ms": (m.shape[0] + m.shape[1]) * n / HBM_BYTES_PER_S * 1e3,
+                        lambda i: rs_cuda.apply_matrix(m, bufs[i % 2], tile, variant=v)),
+                    "call_ms": measure.eager_ms(lambda: rs_cuda.apply_matrix(m, data, tile, variant=v), 50),
                     "card": card,
                 }
+                rec["bound_ms"], rec["bound_by"] = measure.bound_ms(v, m.shape[1], m.shape[0], n)
                 line = json.dumps(rec)
                 print(line, flush=True)
                 if out:

@@ -1,5 +1,5 @@
-"""The CUDA kernels on a card: each variant (`gf_bitplane.cu`, `gf_dma.cu`,
-`gf_mma.cu`) through `rs_cuda.apply_matrix` against its plain PyTorch
+"""The CUDA kernels on a card: each variant (`gf_bitplane.cu`, `gf_bf16.cu`,
+`gf_dma.cu`, `gf_mma.cu`) through `rs_cuda.apply_matrix` against its plain PyTorch
 version (`rs_cuda.plain_apply`) on the same device, byte-exact (tolerance
 0: GF arithmetic is exact), and the stripe engine on the card against the
 port's own CPU path. The kernel has no CPU mode, so
@@ -237,3 +237,33 @@ def test_variant_encoder_stripe_round_trip_on_card(card, variant, tmp_path):
     stripe.write_dat_file(base)
     with open(base + ".dat", "rb") as f:
         assert f.read() == data
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("cols", [1, 10, 20, 32])
+def test_bf16_kernel_rows_and_columns(card, rows, cols):
+    """bf16 at R = 1..4 (B in registers where R * ceil(C/4) <= 16), R = 5
+    and 8 (B read per product), over C from one word to eight: byte-exact
+    against `rs_torch.gf_apply_bf16` and the int8 kernel, ragged width."""
+    rng = np.random.default_rng(100 * rows + cols)
+    m = rng.integers(0, 256, (rows, cols), np.uint8)
+    data = rng.integers(0, 256, (2, cols, 20001), np.uint8)
+    x = torch.from_numpy(data).to(card)
+    before = rs_cuda.launches_by_variant.get("bf16", 0)
+    got = rs_cuda.apply_matrix(m, x, variant="bf16")
+    torch.cuda.synchronize()
+    assert rs_cuda.launches_by_variant["bf16"] == before + 1
+    assert torch.equal(got, rs_torch.gf_apply_bf16(rs_cuda.plane_major_matrix(m), x))
+    assert torch.equal(got, rs_cuda.apply_matrix(m, x, variant="int8"))
+    assert np.array_equal(got[1].cpu().numpy(), gf8.gf_mat_vec(m, data[1]))
+
+
+@pytest.mark.parametrize("tile", [None, 2048, 6144])
+def test_bf16_kernel_strided_views_and_tiles(card, tile):
+    m = MATRICES["rs_10_4"]()
+    slot = torch.from_numpy(
+        np.random.default_rng(8).integers(0, 256, (3, 10, 12288), np.uint8)).to(card)
+    for view in (slot, slot[..., :10001], slot[..., 3:10001], slot[1, :, 5:9000]):
+        got = rs_cuda.apply_matrix(m, view, tile=tile, variant="bf16")
+        assert torch.equal(got, rs_cuda.apply_matrix(m, view.contiguous(), variant="int8"))
+        assert torch.equal(got, rs_torch.gf_apply_bf16(rs_cuda.plane_major_matrix(m), view.contiguous()))

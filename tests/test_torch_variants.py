@@ -3,9 +3,10 @@ package's Pallas variants of the same names, on the CPU: the plain version
 each variant's wrapper runs on a CPU tensor is byte-exact (tolerance 0:
 GF arithmetic is exact) against `rs_pallas.gf_apply_fused(mxu=v)` in
 interpret mode, the encoder and stripe engine carrying a variant give the
-reference's bytes, and the MMA kernels' operands (`rs_cuda.mma_operand`)
-and lane-level fragment arithmetic replay in numpy to the `gf8` golden,
-which pins the layouts `gf_mma.cu` uses without a card."""
+reference's bytes, and the u8 and mplane kernels' operands
+(`rs_cuda.mma_operand`) and lane-level fragment arithmetic replay in numpy
+to the `gf8` golden, which pins the layouts `gf_mma.cu` uses without a
+card (bf16's are pinned in `tests/test_torch_bf16_mma.py`)."""
 
 import os
 import shutil
@@ -22,7 +23,7 @@ from seaweedfs_tpu_torch.ec import stripe
 from seaweedfs_tpu_torch.ops import gf8, rs_codec, rs_cuda, rs_torch
 
 NEW_VARIANTS = ("dma", "mplane", "u8", "bf16")
-MMA_VARIANTS = ("mplane", "u8", "bf16")
+MMA_VARIANTS = ("mplane", "u8")
 
 
 def _decode_4_of_10() -> np.ndarray:
@@ -171,15 +172,15 @@ def test_mma_operand_replays_to_golden(variant, name):
 
 def _lane_replay(variant: str, a_img: np.ndarray, data: np.ndarray, r_n: int) -> np.ndarray:
     """gf_mma.cu's arithmetic lane by lane for one trip: A and B fragments
-    built as the kernel builds them, placed by the PTX fragment layouts of
-    mma.m16n8k32 (s8) and mma.m16n8k16 (bf16), the product, and the
-    xor-shuffle pack of the accumulator lanes."""
+    built as the kernel builds them, placed by the PTX fragment layout of
+    mma.m16n8k32 (s8), the product, and the xor-shuffle pack of the
+    accumulator lanes."""
     c_n, n = data.shape
     words = _column_words(data)
     nw = words.shape[0]
     k_a = a_img.shape[1]
-    steps = 8 if variant == "mplane" else nw if variant == "u8" else 2 * nw
-    kk = 16 if variant == "bf16" else 32
+    steps = 8 if variant == "mplane" else nw
+    kk = 32
     mt_n = (r_n + 1) // 2
     out = np.zeros((r_n, n), dtype=np.uint8)
 
@@ -196,28 +197,18 @@ def _lane_replay(variant: str, a_img: np.ndarray, data: np.ndarray, r_n: int) ->
                     g, t = ln >> 2, ln & 3
                     row = a_img[mt * 16 + g : mt * 16 + g + 9 : 8]  # rows g, g + 8
                     col = nb + g
-                    if variant == "bf16":
-                        for h in range(2):  # regs a0/a1 (k 2t..) and a2/a3 (k 2t+8..)
-                            for half in range(2):
-                                a[g + 8 * half, 2 * t + 8 * h : 2 * t + 8 * h + 2] = \
-                                    row[half, 16 * s + 2 * t + 8 * h : 16 * s + 2 * t + 8 * h + 2]
-                        for reg, q in enumerate((4 * s + (t >> 1), 4 * s + 2 + (t >> 1))):
-                            u = _plane_bytes(words[q % nw, col : col + 1], q // nw)[0]
-                            lo = 2 * (t & 1)
-                            b[2 * t + 8 * reg : 2 * t + 8 * reg + 2, g] = [byte(u, lo), byte(u, lo + 1)]
-                    else:
-                        for h in range(2):  # regs a0/a1 (k 4t..) and a2/a3 (k 16+4t..)
-                            for half in range(2):
-                                a[g + 8 * half, 4 * t + 16 * h : 4 * t + 16 * h + 4] = \
-                                    row[half, 32 * s + 4 * t + 16 * h : 32 * s + 4 * t + 16 * h + 4]
-                        for reg in range(2):
-                            if variant == "mplane":
-                                w = t + 4 * reg
-                                x = (int(words[w, col]) >> s) & 0x01010101 if w < nw else 0
-                            else:
-                                q = 8 * s + t + 4 * reg
-                                x = _plane_bytes(words[q % nw, col : col + 1], q // nw)[0]
-                            b[4 * t + 16 * reg : 4 * t + 16 * reg + 4, g] = [byte(x, i) for i in range(4)]
+                    for h in range(2):  # regs a0/a1 (k 4t..) and a2/a3 (k 16+4t..)
+                        for half in range(2):
+                            a[g + 8 * half, 4 * t + 16 * h : 4 * t + 16 * h + 4] = \
+                                row[half, 32 * s + 4 * t + 16 * h : 32 * s + 4 * t + 16 * h + 4]
+                    for reg in range(2):
+                        if variant == "mplane":
+                            w = t + 4 * reg
+                            x = (int(words[w, col]) >> s) & 0x01010101 if w < nw else 0
+                        else:
+                            q = 8 * s + t + 4 * reg
+                            x = _plane_bytes(words[q % nw, col : col + 1], q // nw)[0]
+                        b[4 * t + 16 * reg : 4 * t + 16 * reg + 4, g] = [byte(x, i) for i in range(4)]
                 d += a @ b
             for t in range(4):  # lanes of one column pair: g = 0..7, the same t
                 v0 = v1 = 0
