@@ -169,8 +169,10 @@ __device__ __forceinline__ void pack_group(const int (&d)[kGroup][4], uint32_t p
 // Phase 1 of a trip: thread `off / kCols` loads its 16 columns from col0 of
 // every input row (16-byte loads, all in flight first; zero past C and
 // past lim) and stores their column words (byte order `kOrder`, as
-// `column_words`) to W[w][off .. off + 15].
-template <int NW, uint32_t kOrder = 0x5410u>
+// `column_words`) to W[w][off .. off + 15]: column off + k at off + k, or
+// with kPairs at off + 2 * (k % 8) + k / 8, so that the words of columns
+// g and g + 8 of a 16-column M tile are one 8-byte load.
+template <int NW, uint32_t kOrder = 0x5410u, bool kPairs = false>
 __device__ __forceinline__ void stage_words(const uint8_t* src, long long in_row, int c,
                                             long long col0, long long lim, bool vec_in,
                                             uint32_t* s_w, int off) {
@@ -203,7 +205,8 @@ __device__ __forceinline__ void stage_words(const uint8_t* src, long long in_row
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       *reinterpret_cast<uint4*>(s_w + w * kWStride + off + 4 * s) =
-          make_uint4(words[4 * s], words[4 * s + 1], words[4 * s + 2], words[4 * s + 3]);
+          kPairs ? make_uint4(words[2 * s], words[2 * s + 8], words[2 * s + 1], words[2 * s + 9])
+                 : make_uint4(words[4 * s], words[4 * s + 1], words[4 * s + 2], words[4 * s + 3]);
     }
   }
 }

@@ -181,6 +181,8 @@ class Encoder:
             )
         if variant not in FUSED_VARIANTS:
             raise ValueError(f"unknown variant {variant!r} (want one of {FUSED_VARIANTS})")
+        if want == "cuda":  # every matrix dispatched has C = data_shards
+            rs_cuda.check_shape(parity_shards, data_shards)
         rs_cuda.resolve_tile(variant, tile, data_shards, parity_shards)  # raises on a bad tile
         self.backend = want
         self.variant = variant
@@ -437,14 +439,24 @@ def _encode_numbers(ev: dict) -> dict:
     return out
 
 
-def _best_fused(ev: dict) -> tuple[Optional[str], float]:
+def _best_fused(ev: dict, c: int, rows: int) -> tuple[Optional[str], float, dict]:
     """Best encode number of any configuration other than the default
-    (int8 with its own tile), and its label."""
-    best_label, best = None, 0.0
+    (int8 with its own tile) that an (R x C) encoder can run, its label,
+    and {label: why} for the labels naming a tile their kernel does not
+    take (`rs_cuda.resolve_tile`), which are skipped."""
+    best_label, best, skipped = None, 0.0, {}
     for k, v in _encode_numbers(ev).items():
-        if parse_fused_variant(k) != ("int8", None) and v > best:
+        variant, tile = parse_fused_variant(k)
+        if (variant, tile) == ("int8", None):
+            continue
+        try:
+            rs_cuda.resolve_tile(variant, tile, c, rows)
+        except ValueError as e:
+            skipped[k] = str(e)
+            continue
+        if v > best:
             best_label, best = k, v
-    return best_label, best
+    return best_label, best, skipped
 
 
 def _int8_anchor(ev: dict) -> float:
@@ -454,8 +466,11 @@ def _int8_anchor(ev: dict) -> float:
     return max(nums, default=0.0)
 
 
-def pick_device_backend(art_dir: Optional[str] = None) -> tuple[str, dict]:
-    """The kernel choice on a card: (variant, decision).
+def pick_device_backend(
+    art_dir: Optional[str] = None, data_shards: int = 10, parity_shards: int = 4
+) -> tuple[str, dict]:
+    """The kernel choice on a card for a (data_shards + parity_shards)
+    encoder: (variant, decision).
 
     The reference flips from XLA to a fused Pallas variant when committed
     on-chip evidence shows the variant beating XLA. The port has no XLA
@@ -465,19 +480,23 @@ def pick_device_backend(art_dir: Optional[str] = None) -> tuple[str, dict]:
     int8 number. A file that is not a GPU measurement naming its card
     (`platform` "gpu", `card` the nvidia-smi name and power limit), whose
     `when` is unparseable or older than EVIDENCE_MAX_AGE_DAYS, or that
-    lacks an int8 number, keeps int8. The decision dict names the file,
-    both numbers and the reason."""
+    lacks an int8 number, keeps int8. A label whose tile its kernel does
+    not take is skipped, as the reference leaves the default in place for
+    evidence it cannot use. The decision dict names the file, both
+    numbers, the skipped labels and the reason."""
     ev = load_device_evidence(art_dir)
     if ev is None:
         return "int8", {"variant": "int8", "tile": None,
                         "reason": "no committed on-chip measurement evidence"}
     anchor = _int8_anchor(ev)
-    label, fused = _best_fused(ev)
+    label, fused, skipped = _best_fused(ev, data_shards, parity_shards)
     decision: dict = {
         "evidence_file": ev.get("_file"), "variant": "int8", "tile": None,
         "int8_steady_gbps": anchor or None, "fused_steady_gbps": fused or None,
         "fused_variant": label, "card": ev.get("card"),
     }
+    if skipped:
+        decision["skipped"] = skipped
     age = _evidence_age_days(ev)
     if str(ev.get("platform", "")).lower() != "gpu" or not ev.get("card"):
         decision["reason"] = "evidence is not an on-chip measurement naming its card"
@@ -494,6 +513,8 @@ def pick_device_backend(art_dir: Optional[str] = None) -> tuple[str, dict]:
         return variant, decision
     else:
         decision["reason"] = f"no variant beats int8={anchor}"
+        if skipped:
+            decision["reason"] += "; skipped, a tile its kernel does not take: " + ", ".join(sorted(skipped))
     return "int8", decision
 
 
@@ -523,7 +544,7 @@ def new_encoder(
     decision: dict = {}
     variant, tile = "int8", None
     if dev.type == "cuda":
-        variant, decision = pick_device_backend()
+        variant, decision = pick_device_backend(data_shards=data_shards, parity_shards=parity_shards)
         tile = decision.get("tile")
     enc = Encoder(data_shards, parity_shards, matrix_kind=matrix_kind, device=dev,
                   variant=variant, tile=tile)

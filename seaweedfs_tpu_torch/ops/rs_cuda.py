@@ -4,8 +4,8 @@
 
   int8    `gf_bitplane.cu`  AND-popc MMA, transposed: bits x lift (`_kernel`)
   bf16    `gf_bf16.cu`      bf16 MMA, transposed: bits x lift (`_kernel_bf16`)
-  u8      `gf_mma.cu`       int8 MMA over a mask-and-compare stack (`_kernel_u8`)
-  mplane  `gf_mma.cu`       8 per-plane int8 MMAs, one accumulator (`_kernel_mplane`)
+  u8      `gf_mma.cu`       int8 MMA, transposed, over the plane-major 0/1 stack (`_kernel_u8`)
+  mplane  `gf_mma.cu`       int8 MMA, transposed, one K step per plane (`_kernel_mplane`)
   dma     `gf_dma.cu`       int8 arithmetic fed by a cp.async ring (`_make_dma_kernel`)
 
 `apply_matrix(m, shards, tile, variant)` takes a CPU tensor to the
@@ -22,9 +22,9 @@ re-packs the plane-major lift into per-output-bit masks (`kernel_masks`).
 The int8 kernel takes the same masks as the 1-bit B operand of its
 transposed tensor-core product, in fragment order (`lift_fragments`); the
 bf16 kernel takes them as bf16 1.0/0.0 B fragments of its transposed
-product (`bf16_fragments`); u8 and mplane take the lift as an A image in
-MMA row order (`mma_operand`). Each is uploaded once per matrix and
-device.
+product (`bf16_fragments`); u8 and mplane take it as 0/1 int8 B fragments
+of their transposed products (`s8_fragments`). Each is uploaded once per
+matrix and device.
 """
 
 from __future__ import annotations
@@ -69,43 +69,47 @@ def _dma_chunk(tile: int) -> int:
     return 128
 
 
+def s8_steps(variant: str, c: int) -> int:
+    """K steps of 32 of the u8 (the stack, ceil(C/4)) and mplane (one per
+    plane, 8) products."""
+    return -(-c // 4) if variant == "u8" else 8
+
+
 def smem_bytes(variant: str, c: int, rows: int) -> int:
     """Shared memory one block of `variant` uses for an (R x C) matrix."""
     nw = -(-c // 4)
-    masks = 32 * rows * nw
-    if variant == "int8":  # column words, output tile, lift fragments unless in registers
-        frags = 0 if rows <= 4 else 256 * -(-rows // 4) * 4
-        return nw * (SPAN + 8) * 4 + rows * (SPAN + 16) + frags
     if variant == "dma":
-        return masks + 2 * c * DMA_CHUNK
-    if variant == "bf16":  # column words, output tile, B image on wgmma (R <= 4)
-        return nw * (SPAN + 8) * 4 + rows * (SPAN + 16) + (2 * nw * rows * 256 if rows <= 4 else 0)
-    k = 256 if variant == "mplane" else 32 * nw
-    return nw * (SPAN + 8) * 4 + 16 * ((rows + 1) // 2) * (k + 16) + rows * SPAN
+        return 32 * rows * nw + 2 * c * DMA_CHUNK
+    tiles = nw * (SPAN + 8) * 4 + rows * (SPAN + 16)  # column words, output tile
+    padded = -(-rows // 4) * 4  # whole groups of 4 output rows
+    if variant == "int8":  # lift fragments unless in registers (R <= 4)
+        return tiles + (0 if rows <= 4 else 256 * padded)
+    if variant == "bf16":  # B image on wgmma (R <= 4)
+        return tiles + (2 * nw * rows * 256 if rows <= 4 else 0)
+    # u8, mplane: B fragments unless in registers (R <= 4)
+    return tiles + (0 if rows <= 4 else 256 * s8_steps(variant, c) * padded)
 
 
 def auto_tile(c: int, rows: int, variant: str = "int8") -> int:
     """The tile of `tile=None`, re-derived from the shared memory each
     variant's block uses (the reference plans against its VMEM budget).
 
-    int8 and bf16 cover SPAN columns per block (one trip): their only
-    per-block staging is the lift fragments (int8: in registers on the main
-    path; bf16: the B image, a few KB), and many small blocks keep the card
-    fuller than few long ones (`PERF.md` §6: bf16 at 2048 and 8192).
-    The others stage per-block state in shared memory (the lift or masks,
-    the ring, the column words): a block walks as many
-    SPAN (dma: DMA_CHUNK) trips as blocks of its size fit one SM, at least
-    two for the dma ring to overlap, so that staging is amortised; snapped
-    down to `_TILE_STEPS`."""
-    if variant in ("int8", "bf16"):
+    The tensor-core kernels (int8, bf16, u8, mplane) cover SPAN columns per
+    block (one trip): their only per-block staging is the lift fragments
+    (in registers on the main path; bf16: the B image, a few KB), and many
+    small blocks keep the card fuller than few long ones (`PERF.md` §6:
+    bf16, u8 and mplane timed at 2048 and 8192). dma stages its masks and
+    ring in shared memory: a block walks as many DMA_CHUNK trips as blocks
+    of its size fit one SM, at least two for the ring to overlap, so that
+    staging is amortised; snapped down to `_TILE_STEPS`."""
+    if variant != "dma":
         return SPAN
-    unit = DMA_CHUNK if variant == "dma" else SPAN
     per_sm = max(1, min(8, SMEM_PER_SM // smem_bytes(variant, c, rows)))
-    cap = unit * max(per_sm, 2 if variant == "dma" else 1)
+    cap = DMA_CHUNK * max(per_sm, 2)
     for t in _TILE_STEPS:
-        if t <= cap and t % unit == 0:
+        if t <= cap and t % DMA_CHUNK == 0:
             return t
-    return unit
+    return DMA_CHUNK
 
 
 def _plane_major_columns(b_bits: np.ndarray) -> np.ndarray:
@@ -220,42 +224,44 @@ def bf16_fragments(pm: torch.Tensor) -> np.ndarray:
     return ((lo | (hi << 16)) * BF16_ONE).astype(np.uint32)
 
 
-def mma_operand(pm: torch.Tensor, variant: str) -> np.ndarray:
-    """The A image of the u8 and mplane kernels (`gf_mma.cu`): uint8 rows of
-    K + 16 bytes (16 bytes of bank padding), 16 per M tile, ceil(R/2) M
-    tiles.
+def s8_fragments(pm: torch.Tensor, variant: str) -> np.ndarray:
+    """The u8 and mplane kernels' B operand (`gf_mma.cu`): the lift as 0/1
+    bytes in the fragment order of mma.m16n8k32's int8 B, uint32 (R, S, 32,
+    2), S = `s8_steps`.
 
-    Row 16*mt + 8*h + i is output bit i of output row 2*mt + h (rows past R
-    are zero). Columns: mplane, plane j at [32j, 32j + 32) with column
-    32j + ci = input bit j of row ci (K = 256); u8, the stack of K =
-    32*NW columns (NW = ceil(C/4)), column 4q + k for stack word q = j*NW + w
-    = input bit j of row 4w + k. Columns for rows past C are zero, so the
-    padding adds nothing to any sum."""
-    p = pm.numpy().astype(np.uint8)
-    rows8, cols8 = p.shape
-    r_n, c_n = rows8 // 8, cols8 // 8
+    The kernels compute out^T = bits^T . lift^T with n8 tile r = output row
+    r (column i = its bit i) and K in steps of 32 bytes. Entry [r, s, lane,
+    h] is B register b_h of lane = 4g + t: K bytes 16h + 4t + e, e = 0..3,
+    of step s, each the lift's entry for one input bit into output bit (r,
+    i = g). Which input bit K byte 16h + 4t + e of step s is:
+      u8      bit j of input row 4w + e, (j, w) = divmod(8s + 4h + t, NW):
+              the plane-major stack, each plane padded to 4*NW rows;
+      mplane  bit s of input row 16h + 4t + e: one step per plane, K = C
+              rows padded to 32.
+    Rows past C are zero, so the padding adds nothing to any sum."""
+    p = pm.numpy().astype(np.uint32)
+    r_n, c_n = p.shape[0] // 8, p.shape[1] // 8
     nw = -(-c_n // 4)
-    k = 256 if variant == "mplane" else 32 * nw
-    mt_n = (r_n + 1) // 2
-    j, ci = np.divmod(np.arange(8 * c_n), c_n)  # plane-major column -> (j, ci)
-    if variant == "mplane":
-        cols = 32 * j + ci
+    # lift[r, i, ci, j]: input bit j of row ci into output bit i of row r
+    lift = np.zeros((r_n, 8, 32, 8), dtype=np.uint32)
+    lift[:, :, :c_n, :] = p.reshape(8, r_n, 8, c_n).transpose(1, 0, 3, 2)
+    steps = s8_steps(variant, c_n)
+    s, g, t, h, e = np.ix_(np.arange(steps), np.arange(8), np.arange(4), np.arange(2), np.arange(4))
+    if variant == "u8":
+        j, w = np.divmod(8 * s + 4 * h + t, nw)
+        row, plane = 4 * w + e, j
     else:
-        cols = 4 * (j * nw + ci // 4) + ci % 4
-    a = np.zeros((16 * mt_n, k + 16), dtype=np.uint8)
-    for m in range(16 * mt_n):
-        r = 2 * (m // 16) + (m % 16) // 8
-        if r < r_n:
-            a[m, cols] = p[(m % 8) * r_n + r]
-    return a
+        row, plane = 16 * h + 4 * t + e, s
+    b = lift[:, g, row, plane] << (8 * e).astype(np.uint32)  # [r, s, g, t, h, e]
+    return np.ascontiguousarray(b.sum(axis=-1, dtype=np.uint32).reshape(r_n, steps, 32, 2))
 
 
 #: variant -> (library, C entry point, operand), in FUSED_VARIANTS order
 KERNELS = {
     "int8": ("gf_bitplane", "gf_bitplane_apply", "frags"),
     "bf16": ("gf_bf16", "gf_bf16_apply", "bf16"),
-    "u8": ("gf_mma", "gf_u8_apply", "mma"),
-    "mplane": ("gf_mma", "gf_mplane_apply", "mma"),
+    "u8": ("gf_mma", "gf_u8_apply", "s8"),
+    "mplane": ("gf_mma", "gf_mplane_apply", "s8"),
     "dma": ("gf_dma", "gf_dma_apply", "masks"),
 }
 
@@ -271,7 +277,7 @@ def _device_operand(key: tuple, variant: str, device: str) -> torch.Tensor:
     elif kind == "bf16":
         host = bf16_fragments(pm)
     else:
-        host = mma_operand(pm, variant)
+        host = s8_fragments(pm, variant)
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)
 
 
@@ -283,7 +289,7 @@ def _kernel_fn(variant: str):
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # data, strides
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # out, strides
-        ctypes.c_void_p,  # masks or A image
+        ctypes.c_void_p,  # masks or B fragments
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,  # B, C, R, N
         ctypes.c_longlong,  # tile
         *([ctypes.c_int] if variant == "dma" else []),  # chunk
@@ -301,15 +307,24 @@ def _check(m: np.ndarray, shards: torch.Tensor) -> None:
         raise ValueError(f"matrix {m.shape} does not apply to shards {tuple(shards.shape)}")
 
 
+def check_shape(rows: int, cols: int) -> None:
+    """Raise ValueError unless the kernels take an (R x C) matrix."""
+    if not (1 <= rows <= MAX_ROWS and 1 <= cols <= MAX_COLS):
+        raise ValueError(
+            f"kernel takes R, C <= {MAX_ROWS}, got matrix ({rows}, {cols}): apply at most "
+            f"{MAX_ROWS} rows per call (reconstruct `wanted` in slices), or use device='cpu', "
+            "whose plain version takes any shape")
+
+
 def resolve_tile(variant: str, tile: Optional[int], c: int, rows: int) -> int:
     """The tile a call runs with: `auto_tile` for None, else the caller's,
-    which must be a positive multiple of 128 (of SPAN for the bf16, u8 and
-    mplane kernels, whose blocks cover SPAN columns per trip)."""
+    which must be a positive multiple of 128 (of SPAN for the bf16 kernel,
+    whose warpgroup products cover whole trips of SPAN columns)."""
     if variant not in KERNELS:
         raise ValueError(f"unknown variant {variant!r} (want one of {tuple(KERNELS)})")
     if tile is None:
         return auto_tile(c, rows, variant)
-    unit = SPAN if variant in ("bf16", "u8", "mplane") else 128
+    unit = SPAN if variant == "bf16" else 128
     if int(tile) <= 0 or int(tile) % unit:
         raise ValueError(f"{variant} takes a tile that is a positive multiple of {unit}, got {tile}")
     return int(tile)
@@ -352,8 +367,7 @@ def _launch(m: np.ndarray, shards: torch.Tensor, tile: Optional[int], variant: s
     global launches
     r_n, c_n = m.shape
     t = resolve_tile(variant, tile, c_n, r_n)
-    if not (1 <= r_n <= MAX_ROWS and 1 <= c_n <= MAX_COLS):
-        raise ValueError(f"kernel takes R, C <= {MAX_ROWS}, got matrix {m.shape}")
+    check_shape(r_n, c_n)
     squeeze = shards.ndim == 2
     data = shards[None] if squeeze else shards
     batch, _, n = data.shape

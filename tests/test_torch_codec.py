@@ -190,3 +190,31 @@ def test_env_registry_defaults_clamps_and_unknown_names(monkeypatch):
     assert config.env("WEEDTPU_REBUILD_PREFETCH_BATCHES") == 1
     with pytest.raises(KeyError):
         config.env("WEEDTPU_PIPELINE_DEPHT")
+
+
+@pytest.mark.parametrize("k, m", [(40, 8), (10, 33), (33, 1)])
+def test_card_encoder_rejects_at_construction_what_its_kernels_do_not_take(k, m):
+    """Every matrix a cuda encoder dispatches has C = data_shards and R <=
+    parity_shards (encode) or len(wanted) rows, and the kernels take R, C <=
+    32, so the card's encoder raises when it is built, not at its first
+    dispatch. The CPU backend keeps the reference's k + m <= 256."""
+    with pytest.raises(ValueError, match="R, C <= 32"):
+        rs_codec.Encoder(k, m, device="cuda")
+    mine = rs_codec.Encoder(k, m, device="cpu")
+    ref = ref_codec.Encoder(k, m, backend="numpy")
+    data = _shards(mine, 64, seed=k + m)
+    assert all(np.array_equal(a, b) for a, b in zip(mine.encode(data), ref.encode(data)))
+
+
+def test_card_encoder_takes_32_by_32_and_names_the_way_around_the_row_limit(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(rs_codec, "_artifacts_dir", lambda: str(tmp_path))  # no evidence
+    enc = rs_codec.new_encoder(32, 32)  # constructs: nothing touches the card yet
+    assert enc.backend == "cuda" and (enc.data_shards, enc.parity_shards) == (32, 32)
+    with pytest.raises(ValueError, match="R, C <= 32"):
+        rs_codec.new_encoder(40, 8)
+    # a reconstruct of more than 32 wanted rows still reaches the kernel's
+    # check at the call; its message names the limit and the ways around it
+    with pytest.raises(ValueError, match=r"at most 32 rows per call.*device='cpu'"):
+        rs_codec.rs_cuda.check_shape(40, 32)
+    rs_codec.rs_cuda.check_shape(32, 32)

@@ -212,7 +212,7 @@ def test_variant_wrapper_rejects_on_card(card):
     with pytest.raises(ValueError, match="unknown variant"):
         rs_cuda.apply_matrix(m, x, variant="fp8")
     with pytest.raises(ValueError, match="multiple of 2048"):
-        rs_cuda.apply_matrix(m, x, tile=1024, variant="u8")
+        rs_cuda.apply_matrix(m, x, tile=1024, variant="bf16")
     with pytest.raises(ValueError, match="multiple of 128"):
         rs_cuda.apply_matrix(m, x, tile=100, variant="dma")
 
@@ -267,3 +267,37 @@ def test_bf16_kernel_strided_views_and_tiles(card, tile):
         got = rs_cuda.apply_matrix(m, view, tile=tile, variant="bf16")
         assert torch.equal(got, rs_cuda.apply_matrix(m, view.contiguous(), variant="int8"))
         assert torch.equal(got, rs_torch.gf_apply_bf16(rs_cuda.plane_major_matrix(m), view.contiguous()))
+
+
+@pytest.mark.parametrize("variant", ["u8", "mplane"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("cols", [1, 4, 10, 20, 32])
+def test_s8_kernels_rows_and_columns(card, variant, rows, cols):
+    """u8 and mplane at R = 1..4 (B in registers), R = 5 and 8 (B in shared
+    memory), over C from one word to eight: byte-exact against their plain
+    versions and the int8 kernel, ragged width."""
+    rng = np.random.default_rng(100 * rows + cols)
+    m = rng.integers(0, 256, (rows, cols), np.uint8)
+    data = rng.integers(0, 256, (2, cols, 20001), np.uint8)
+    x = torch.from_numpy(data).to(card)
+    before = rs_cuda.launches_by_variant.get(variant, 0)
+    got = rs_cuda.apply_matrix(m, x, variant=variant)
+    torch.cuda.synchronize()
+    assert rs_cuda.launches_by_variant[variant] == before + 1
+    assert torch.equal(got, rs_cuda.plain_apply(m, x, variant=variant))
+    assert torch.equal(got, rs_cuda.apply_matrix(m, x, variant="int8"))
+    assert np.array_equal(got[1].cpu().numpy(), gf8.gf_mat_vec(m, data[1]))
+
+
+@pytest.mark.parametrize("tile", [128, 1024, 2176])
+@pytest.mark.parametrize("variant", ["u8", "mplane"])
+@pytest.mark.parametrize("name", ["rs_10_4", "random_32x32"])
+def test_s8_kernels_tiles_below_and_off_the_span(card, name, variant, tile):
+    """u8 and mplane take any multiple of 128 as their tile, below and
+    between the 2048-column trips of their blocks."""
+    m = MATRICES[name]()
+    data = np.random.default_rng(tile).integers(0, 256, (2, m.shape[1], 10007), np.uint8)
+    x = torch.from_numpy(data).to(card)
+    got = rs_cuda.apply_matrix(m, x, tile=tile, variant=variant)
+    assert torch.equal(got, rs_cuda.plain_apply(m, x, tile=tile, variant=variant))
+    assert np.array_equal(got[1].cpu().numpy(), gf8.gf_mat_vec(m, data[1]))

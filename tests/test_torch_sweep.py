@@ -135,6 +135,26 @@ def test_int8_at_an_explicit_tile_can_beat_its_own_default(tmp_path):
     assert (variant, dec["tile"]) == ("int8", 16384)
 
 
+def test_evidence_naming_a_tile_its_kernel_rejects_keeps_int8(tmp_path, monkeypatch):
+    """The best label, cuda-bf16-1024, names a tile the bf16 kernel does not
+    take (whole trips of 2048): it is skipped, as the reference leaves its
+    default for evidence it cannot use, and the factory still builds an
+    encoder. A usable label that beats int8 is still chosen beside it."""
+    _write_evidence(tmp_path, _gpu(sweep={"encode": {"cuda-auto": 580.0, "cuda-bf16-1024": 700.0}}))
+    variant, dec = rs_codec.pick_device_backend(art_dir=str(tmp_path))
+    assert (variant, dec["tile"]) == ("int8", None)
+    assert list(dec["skipped"]) == ["cuda-bf16-1024"] and "cuda-bf16-1024" in dec["reason"]
+    assert "multiple of 2048" in dec["skipped"]["cuda-bf16-1024"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(rs_codec, "_artifacts_dir", lambda: str(tmp_path))
+    enc = rs_codec.new_encoder()
+    assert (enc.variant, enc.tile, enc.selection["source"]) == ("int8", None, "on-chip-evidence")
+    _write_evidence(tmp_path, _gpu(sweep={"encode": {"cuda-auto": 580.0, "cuda-bf16-1024": 700.0,
+                                                     "cuda-u8-1024": 600.0}}))
+    enc = rs_codec.new_encoder()
+    assert (enc.variant, enc.tile) == ("u8", 1024)
+
+
 def test_variant_label_parsing():
     cases = {
         "cuda_steady_gbps": ("int8", None),

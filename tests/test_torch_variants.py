@@ -3,10 +3,9 @@ package's Pallas variants of the same names, on the CPU: the plain version
 each variant's wrapper runs on a CPU tensor is byte-exact (tolerance 0:
 GF arithmetic is exact) against `rs_pallas.gf_apply_fused(mxu=v)` in
 interpret mode, the encoder and stripe engine carrying a variant give the
-reference's bytes, and the u8 and mplane kernels' operands
-(`rs_cuda.mma_operand`) and lane-level fragment arithmetic replay in numpy
-to the `gf8` golden, which pins the layouts `gf_mma.cu` uses without a
-card (bf16's are pinned in `tests/test_torch_bf16_mma.py`)."""
+reference's bytes. The kernels' own layouts are pinned without a card by
+lane-level numpy replays: `tests/test_torch_int8_mma.py` (int8),
+`test_torch_bf16_mma.py` (bf16) and `test_torch_s8_mma.py` (u8, mplane)."""
 
 import os
 import shutil
@@ -23,7 +22,6 @@ from seaweedfs_tpu_torch.ec import stripe
 from seaweedfs_tpu_torch.ops import gf8, rs_codec, rs_cuda, rs_torch
 
 NEW_VARIANTS = ("dma", "mplane", "u8", "bf16")
-MMA_VARIANTS = ("mplane", "u8")
 
 
 def _decode_4_of_10() -> np.ndarray:
@@ -109,128 +107,15 @@ def test_variant_table_and_bad_variant_or_tile():
     with pytest.raises(ValueError, match="unknown variant"):
         rs_cuda.apply_matrix(m, x, variant="fp8")
     with pytest.raises(ValueError, match="multiple of 2048"):
-        rs_cuda.apply_matrix(m, x, tile=1024, variant="mplane")
+        rs_cuda.apply_matrix(m, x, tile=1024, variant="bf16")
+    for variant in ("u8", "mplane"):  # off the 2048-column trip, as int8
+        for tile in (128, 1024):
+            assert torch.equal(rs_cuda.apply_matrix(m, x, tile=tile, variant=variant),
+                               rs_cuda.plain_apply(m, x, variant=variant))
     with pytest.raises(ValueError, match="multiple of 128"):
         rs_cuda.apply_matrix(m, x, tile=100, variant="dma")
     with pytest.raises(ValueError, match="unknown variant"):
         rs_codec.Encoder(10, 4, device="cpu", variant="xla")
-
-
-# -- the MMA kernels' operands, replayed in numpy ------------------------------
-
-
-def _column_words(data: np.ndarray) -> np.ndarray:
-    """(NW, N) uint32: byte q of word w of a column = that column's byte of
-    row 4w + q (zero past C), as gf_mma.cu stores them."""
-    c, n = data.shape
-    nw = -(-c // 4)
-    rows = np.zeros((4 * nw, n), dtype=np.uint8)
-    rows[:c] = data
-    return np.ascontiguousarray(rows.reshape(nw, 4, n).transpose(0, 2, 1)).view("<u4")[..., 0]
-
-
-def _plane_bytes(word: np.ndarray, j: int) -> np.ndarray:
-    """__vcmpne4(word & (0x01010101 << j), 0) & 0x01010101."""
-    b = word.astype("<u4").view(np.uint8).reshape(*word.shape, 4)
-    return ((b & (1 << j)) != 0).astype(np.uint8).view("<u4").reshape(word.shape)
-
-
-def _stack(data: np.ndarray, variant: str) -> list:
-    """The B operand of each K step of the A image, as (K, N) 0/1 rows."""
-    words = _column_words(data)
-    nw = words.shape[0]
-    bits = lambda w, j: np.stack(  # noqa: E731 - rows 4w..4w+3, plane j
-        [(words[w] >> (8 * q + j)) & 1 for q in range(4)]
-    )
-    if variant == "mplane":
-        return [np.concatenate([bits(w, j) if w < nw else np.zeros_like(bits(0, 0))
-                                for w in range(8)]) for j in range(8)]
-    return [np.concatenate([bits(q % nw, q // nw) for q in range(8 * nw)])]
-
-
-@pytest.mark.parametrize("variant", MMA_VARIANTS)
-@pytest.mark.parametrize("name", sorted(MATRICES) + ["random_32x32", "random_5x17", "random_1x1"])
-def test_mma_operand_replays_to_golden(variant, name):
-    rng = np.random.default_rng(5)
-    if name.startswith("random_"):
-        r_n, c_n = (int(v) for v in name.split("_")[1].split("x"))
-        m = rng.integers(0, 256, size=(r_n, c_n), dtype=np.uint8)
-    else:
-        m = MATRICES[name]()
-    a = rs_cuda.mma_operand(rs_cuda.plane_major_matrix(m), variant).astype(np.int64)
-    data = rng.integers(0, 256, size=(m.shape[1], 97), dtype=np.uint8)
-    steps = _stack(data, variant)
-    acc = sum(a[:, 32 * j : 32 * j + 32] @ b for j, b in enumerate(steps)) if variant == "mplane" \
-        else a[:, : steps[0].shape[0]] @ steps[0]
-    assert not a[:, -16:].any()  # bank padding stays zero
-    out = np.zeros((m.shape[0], data.shape[1]), dtype=np.uint8)
-    for r in range(m.shape[0]):
-        for i in range(8):
-            out[r] |= ((acc[16 * (r // 2) + 8 * (r % 2) + i] & 1) << i).astype(np.uint8)
-    assert np.array_equal(out, gf8.gf_mat_vec(m, data))
-
-
-def _lane_replay(variant: str, a_img: np.ndarray, data: np.ndarray, r_n: int) -> np.ndarray:
-    """gf_mma.cu's arithmetic lane by lane for one trip: A and B fragments
-    built as the kernel builds them, placed by the PTX fragment layout of
-    mma.m16n8k32 (s8), the product, and the xor-shuffle pack of the
-    accumulator lanes."""
-    c_n, n = data.shape
-    words = _column_words(data)
-    nw = words.shape[0]
-    k_a = a_img.shape[1]
-    steps = 8 if variant == "mplane" else nw
-    kk = 32
-    mt_n = (r_n + 1) // 2
-    out = np.zeros((r_n, n), dtype=np.uint8)
-
-    def byte(x, i):
-        return (int(x) >> (8 * i)) & 0xFF
-
-    for nb in range(0, n, 8):
-        for mt in range(mt_n):
-            d = np.zeros((16, 8), dtype=np.int64)
-            for s in range(steps):
-                a = np.zeros((16, kk), dtype=np.int64)
-                b = np.zeros((kk, 8), dtype=np.int64)
-                for ln in range(32):
-                    g, t = ln >> 2, ln & 3
-                    row = a_img[mt * 16 + g : mt * 16 + g + 9 : 8]  # rows g, g + 8
-                    col = nb + g
-                    for h in range(2):  # regs a0/a1 (k 4t..) and a2/a3 (k 16+4t..)
-                        for half in range(2):
-                            a[g + 8 * half, 4 * t + 16 * h : 4 * t + 16 * h + 4] = \
-                                row[half, 32 * s + 4 * t + 16 * h : 32 * s + 4 * t + 16 * h + 4]
-                    for reg in range(2):
-                        if variant == "mplane":
-                            w = t + 4 * reg
-                            x = (int(words[w, col]) >> s) & 0x01010101 if w < nw else 0
-                        else:
-                            q = 8 * s + t + 4 * reg
-                            x = _plane_bytes(words[q % nw, col : col + 1], q // nw)[0]
-                        b[4 * t + 16 * reg : 4 * t + 16 * reg + 4, g] = [byte(x, i) for i in range(4)]
-                d += a @ b
-            for t in range(4):  # lanes of one column pair: g = 0..7, the same t
-                v0 = v1 = 0
-                for g in range(8):
-                    v0 |= (int(d[g, 2 * t] & 1) | int(d[g, 2 * t + 1] & 1) << 8) << g
-                    v1 |= (int(d[g + 8, 2 * t] & 1) | int(d[g + 8, 2 * t + 1] & 1) << 8) << g
-                for r, v in ((2 * mt, v0), (2 * mt + 1, v1)):
-                    if r < r_n:
-                        out[r, nb + 2 * t : nb + 2 * t + 2] = [v & 0xFF, v >> 8]
-    assert k_a >= (256 if variant == "mplane" else 32 * nw) + 16
-    return out
-
-
-@pytest.mark.parametrize("variant", MMA_VARIANTS)
-@pytest.mark.parametrize("name", ["rs_10_4", "merge_20_4", "random_3x5"])
-def test_mma_lane_fragments_replay_to_golden(variant, name):
-    rng = np.random.default_rng(12)
-    m = (rng.integers(0, 256, size=(3, 5), dtype=np.uint8) if name == "random_3x5"
-         else MATRICES[name]())
-    a = rs_cuda.mma_operand(rs_cuda.plane_major_matrix(m), variant)
-    data = rng.integers(0, 256, size=(m.shape[1], 16), dtype=np.uint8)
-    assert np.array_equal(_lane_replay(variant, a, data, m.shape[0]), gf8.gf_mat_vec(m, data))
 
 
 # -- the plain versions' product -----------------------------------------------
