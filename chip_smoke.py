@@ -14,7 +14,14 @@ Phases, one JSON line each:
            graph, replayed between CUDA events, per launch), call_ms
            (one eager call of the wrapper, its host time included), and
            bound_ms/bound_by (`measure.bound_ms`: bytes, or the product at
-           the variant's own tensor-core rate, bf16 989e12 op/s)
+           the variant's own tensor-core rate, bf16 989e12 op/s); one case
+           has rows that are not 16-byte aligned (offset 3), so that the
+           dma kernel's masked producer path runs on the card
+  dma_ring the dma kernel's ring as it launches (`gf_dma_plan`: stages,
+           columns per pass, shared memory, blocks per SM by the occupancy
+           calculator) at the main path's shapes and at (32, 32), checked
+           against `rs_cuda.dma_plan`, and `ptxas -v` of its kernels
+           (registers, spills, static shared memory)
   sweep    the kernel sweep (`--quick`, full size) into JSONL under
            _smoke_tmp/, assembled into a GPU_MEASUREMENT file there; checks
            that `pick_device_backend` on it names the best configuration
@@ -132,9 +139,43 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
     slot = torch.from_numpy(rng.integers(0, 256, (10, 6_553_600), dtype=np.uint8)).cuda()
     view = slot[:, :1_000_003]
     compare("strided", par, view, False, contiguous=view.contiguous())
+    # rows that are not 16-byte aligned: the masked loads of every kernel
+    view = slot[:, 3:8324]
+    compare("unaligned", par, view, False, contiguous=view.contiguous())
     del slot, view
     torch.cuda.empty_cache()
     return rows
+
+
+def dma_ring(ptxas_log: str) -> dict:
+    """The dma kernel's ring as it launches, held against `rs_cuda.dma_plan`,
+    and `ptxas -v` of its instantiations (NW = ceil(C/4) words per column,
+    NT = R for R <= 4, else 0)."""
+    import re
+
+    from seaweedfs_tpu_torch.ops import _build, rs_cuda
+
+    plans = {}
+    for label, c, r in (("encode_rebuild4", 10, 4), ("rebuild1", 10, 1),
+                        ("merge_20_4", 20, 4), ("random_32x32", 32, 32)):
+        got = rs_cuda.dma_device_plan(c, r)
+        want = rs_cuda.dma_plan(c, r)
+        check((got["stages"], got["pass_cols"], got["smem"]) == (want.stages, want.pass_cols, want.smem),
+              f"dma plan at ({c}, {r}): kernel {got}, rs_cuda {want}")
+        check(got["blocks_per_sm"] >= 1, f"dma at ({c}, {r}): no block fits an SM: {got}")
+        plans[label] = {"c": c, "r": r, **got, "smem_blocks_per_sm": want.blocks_per_sm}
+    kernels = {}
+    for name, rep in _build.ptxas_report(ptxas_log).items():
+        m = re.search(r"gf_dma_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            kernels[f"NW{m.group(1)}_NT{m.group(2)}"] = rep
+    main = {k: kernels.get(k) for k in ("NW3_NT4", "NW3_NT1")}  # (10, 4) and (10, 1)
+    return {
+        "plans": plans, "ptxas_main_path": main,
+        "ptxas_kernels": len(kernels),
+        "max_registers": max((v["registers"] for v in kernels.values()), default=None),
+        "spilling": sorted(k for k, v in kernels.items() if v["spill_stores"] or v["spill_loads"]),
+    }
 
 
 def run_sweep(seed: int) -> dict:
@@ -316,6 +357,7 @@ def main(argv=None) -> int:
     check(set(built) == set(_build.SOURCES), f"built {sorted(built)}")
     for name, v in built.items():
         print(f"[{name}] {v['ptxas']}", file=sys.stderr)
+    emit({"phase": "dma_ring", "card": card, **dma_ring(built["gf_dma"]["ptxas"])})
 
     checks = check_kernels(args.seed)
     for v, rows in checks.items():

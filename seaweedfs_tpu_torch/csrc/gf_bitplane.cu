@@ -67,15 +67,6 @@ using gf::kThreads;
 using gf::kWStride;
 using gf::padded_rows;
 
-// d += popc(a & b) per output, m16n8k256 with 1-bit operands
-__device__ __forceinline__ void mma_and_popc(int (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One M tile against one group of up to 4 output rows: the NT products
 // into int32 accumulators (tiles past NT stay zero), then the pack.
 template <int NT>
@@ -89,7 +80,7 @@ __device__ __forceinline__ void group_product(const uint32_t (&a)[4], const uint
     for (int e = 0; e < 4; ++e) d[nt][e] = 0;
   }
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) mma_and_popc(d[nt], a, b[nt].x, b[nt].y);
+  for (int nt = 0; nt < NT; ++nt) gf::mma_and_popc(d[nt], a, b[nt].x, b[nt].y);
   gf::pack_group(d, pack0, pack1, cell, rows, t);
 }
 

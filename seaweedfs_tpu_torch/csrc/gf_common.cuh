@@ -68,37 +68,9 @@ __device__ __forceinline__ void column_words(const uint4 v[4], uint32_t words[kC
   }
 }
 
-// Output bit (r, i) of column t = parity(popc(XOR_w mask[(r*8+i)*NW + w] &
-// bits[t][w])); 8 bits pack into each output byte, 16 bytes per row per
-// store. s_masks: the lift as per-output-bit masks over the column words.
-template <int NW>
-__device__ __forceinline__ void parity_rows(const uint32_t (&bits)[kCols][NW],
-                                            const uint32_t* s_masks, int r_rows,
-                                            uint8_t* dst, long long out_row,
-                                            long long col0, long long lim,
-                                            bool vec_out) {
-  for (int r = 0; r < r_rows; ++r) {
-    uint32_t o[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      uint32_t m[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) m[w] = s_masks[(r * 8 + i) * NW + w];
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) {
-        uint32_t x = 0u;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) x ^= m[w] & bits[t][w];
-        o[t >> 2] |= (uint32_t(__popc(x)) & 1u) << ((t & 3) * 8 + i);
-      }
-    }
-    store16(dst + r * out_row, col0, lim, vec_out, o);
-  }
-}
-
-// -- the transposed tensor-core kernels (gf_bitplane.cu, gf_bf16.cu) --------
+// -- the transposed tensor-core kernels (gf_bitplane.cu, gf_bf16.cu, gf_dma.cu) --
 //
-// Both take outT = bitsT . liftT with 16 byte columns on M and one n8 tile
+// All take outT = bitsT . liftT with 16 byte columns on M and one n8 tile
 // per output row (column i = its bit i), stage each trip's column words in
 // shared W[w][col], and pack each sum's parity into bytes with one int8
 // product per group of 4 output rows.
@@ -143,10 +115,12 @@ __device__ __forceinline__ void pack_operand(int g, int t, uint32_t& pack0, uint
 // in the m16n8 C layout: lane t holds bits 2t, 2t + 1 of n-tile nt for
 // columns g and g + 8; the output bit is bit 0 of each sum) into bytes,
 // and write rows 2t, 2t + 1 of the group (lanes t < 2) to `cell`, the
-// output tile at the group's first row and column g. The A fragment of the
-// pack product is that C layout as it stands: no shuffle.
+// output tile at the group's first row and column g, rows `stride` bytes
+// apart. The A fragment of the pack product is that C layout as it
+// stands: no shuffle.
 __device__ __forceinline__ void pack_group(const int (&d)[kGroup][4], uint32_t pack0,
-                                           uint32_t pack1, uint8_t* cell, int rows, int t) {
+                                           uint32_t pack1, uint8_t* cell, int rows, int t,
+                                           int stride = kOutStride) {
   const uint32_t e[4] = {
       parity_bytes(d[0][0], d[0][1], d[1][0], d[1][1]),  // column g, tiles 0-1
       parity_bytes(d[0][2], d[0][3], d[1][2], d[1][3]),  // column g + 8
@@ -157,13 +131,22 @@ __device__ __forceinline__ void pack_group(const int (&d)[kGroup][4], uint32_t p
   mma_u8(o, e, pack0, pack1);
   // o: rows 2t, 2t + 1 of column g (o[0], o[1]) and of column g + 8
   if (t < 2 && 2 * t < rows) {
-    cell[2 * t * kOutStride] = static_cast<uint8_t>(o[0]);
-    cell[2 * t * kOutStride + 8] = static_cast<uint8_t>(o[2]);
+    cell[2 * t * stride] = static_cast<uint8_t>(o[0]);
+    cell[2 * t * stride + 8] = static_cast<uint8_t>(o[2]);
   }
   if (t < 2 && 2 * t + 1 < rows) {
-    cell[(2 * t + 1) * kOutStride] = static_cast<uint8_t>(o[1]);
-    cell[(2 * t + 1) * kOutStride + 8] = static_cast<uint8_t>(o[3]);
+    cell[(2 * t + 1) * stride] = static_cast<uint8_t>(o[1]);
+    cell[(2 * t + 1) * stride + 8] = static_cast<uint8_t>(o[3]);
   }
+}
+
+// d += popc(a & b) per output, m16n8k256 with 1-bit operands
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Phase 1 of a trip: thread `off / kCols` loads its 16 columns from col0 of

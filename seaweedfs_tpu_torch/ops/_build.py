@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -82,6 +83,32 @@ def build(names=None) -> dict[str, dict]:
         out[name] = {"path": path, "seconds": time.perf_counter() - t0, "ptxas": log}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return out
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Per kernel of an `nvcc -Xptxas=-v` log: {mangled name: {"registers",
+    "spill_stores", "spill_loads", "smem"}} (smem: static shared bytes;
+    the kernels here take theirs dynamically, so 0)."""
+    out: dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": 0, "spill_stores": 0,
+                                              "spill_loads": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
     return out
 
 

@@ -32,7 +32,7 @@ last_method = None
 #: H100 SXM published peaks (dense): HBM bytes/s, and tensor-core operations
 #: per second for the type each variant's TPU kernel takes its product in
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "u8": 1979e12, "mplane": 1979e12}
+OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "u8": 1979e12, "mplane": 1979e12, "dma": 1979e12}
 
 
 def bound_ms(variant: str, c: int, r: int, n: int, batch: int = 1) -> tuple[float, str]:
@@ -40,14 +40,12 @@ def bound_ms(variant: str, c: int, r: int, n: int, batch: int = 1) -> tuple[floa
     to (batch, C, N) bytes with `variant`, and what sets it ("bytes" or
     "operations"): the larger of the (C + R) * N bytes over HBM bandwidth
     and the TPU kernel's product, 2 * 8R * 8C operations per column, at
-    the tensor-core rate of that variant's type (bf16 989e12; int8, u8
-    and mplane 1979e12). dma counts bytes only: its product is popc on the
-    CUDA cores."""
-    if variant not in OPS_PER_S and variant != "dma":
+    the tensor-core rate of that variant's type (bf16 989e12; int8, u8,
+    mplane and dma, whose TPU kernel takes an int8 `dot_general` per
+    chunk, 1979e12)."""
+    if variant not in OPS_PER_S:
         raise ValueError(f"no bound for variant {variant!r}")
     bytes_ms = (c + r) * n * batch / HBM_BYTES_PER_S * 1e3
-    if variant == "dma":
-        return bytes_ms, "bytes"
     ops_ms = 2 * 8 * r * 8 * c * n * batch / OPS_PER_S[variant] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 

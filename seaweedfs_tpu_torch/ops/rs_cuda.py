@@ -6,20 +6,21 @@
   bf16    `gf_bf16.cu`      bf16 MMA, transposed: bits x lift (`_kernel_bf16`)
   u8      `gf_mma.cu`       int8 MMA, transposed, over the plane-major 0/1 stack (`_kernel_u8`)
   mplane  `gf_mma.cu`       int8 MMA, transposed, one K step per plane (`_kernel_mplane`)
-  dma     `gf_dma.cu`       int8 arithmetic fed by a cp.async ring (`_make_dma_kernel`)
+  dma     `gf_dma.cu`       int8's AND-popc MMA fed by a TMA ring, warp-specialised (`_make_dma_kernel`)
 
 `apply_matrix(m, shards, tile, variant)` takes a CPU tensor to the
 variant's plain version (`rs_torch`) and a CUDA tensor to its kernel;
 nothing else. `tile` is the byte columns one block covers (the
-reference's `pallas_tile`), walked by a loop inside the block.
+reference's `pallas_tile`), walked by a loop inside the block; dma's
+persistent blocks take it as their work item instead (`dma_schedule`).
 
 Operand layout. The reference feeds its kernel the plane-major lift
 (`plane_major_matrix`): input bit j of byte-row ci at column j*C + ci,
-output bit i of row r at row i*R + r. The popc kernel (dma) reads each
-column's bits in byte order (bit 8*ci + j is bit j of row ci, the order
-in which the bytes of one column pack into uint32 words), so the wrapper
-re-packs the plane-major lift into per-output-bit masks (`kernel_masks`).
-The int8 kernel takes the same masks as the 1-bit B operand of its
+output bit i of row r at row i*R + r. The kernels read each column's
+bits in byte order (bit 8*ci + j is bit j of row ci, the order in which
+the bytes of one column pack into uint32 words), so the wrapper re-packs
+the plane-major lift into per-output-bit masks (`kernel_masks`). The
+int8 and dma kernels take the masks as the 1-bit B operand of their
 transposed tensor-core product, in fragment order (`lift_fragments`); the
 bf16 kernel takes them as bf16 1.0/0.0 B fragments of its transposed
 product (`bf16_fragments`); u8 and mplane take it as 0/1 int8 B fragments
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -69,6 +70,111 @@ def _dma_chunk(tile: int) -> int:
     return 128
 
 
+class DmaPlan(NamedTuple):
+    """How the dma kernel lays out one block (`gf_dma.cu:plan`)."""
+
+    stages: int  # ring slots of (C, chunk) bytes
+    pass_cols: int  # columns the consumer warps take per pass of a stage
+    smem: int  # shared memory bytes of one block
+    blocks_per_sm: int  # blocks of that size one SM holds, by shared memory and threads only
+
+
+#: the dma kernel's block: 4 consumer warps and one producer warp
+DMA_THREADS = 160
+#: an H100 SM's shared memory, of which each resident block reserves 1 KiB
+SMEM_SM_TOTAL = 233472
+#: consumer pass when 2048-column column words and output tiles do not fit
+DMA_NARROW_PASS = 512
+
+
+def _dma_w_stride(pass_cols: int) -> int:
+    """Words per row of the dma kernel's column words W (`gf_dma.cu:
+    w_stride`): 20 per 16 columns (16 and 4 of padding against bank
+    conflicts), and 8 more."""
+    return pass_cols // 16 * 20 + 8
+
+
+def _dma_fixed_bytes(c: int, rows: int, pass_cols: int) -> int:
+    """The dma block's shared memory besides the ring: its 8 mbarriers (128
+    bytes), the column words W (NW rows of `_dma_w_stride` words), two
+    output tiles (R rows of pass + 16 bytes each), and the lift fragments
+    when they are not held in registers (R > 4: whole groups of 4 rows,
+    256 bytes each)."""
+    nw = -(-c // 4)
+    frags = 0 if rows <= 4 else 256 * (-(-rows // 4) * 4)
+    return 128 + nw * _dma_w_stride(pass_cols) * 4 + 2 * rows * (pass_cols + 16) + frags
+
+
+def _dma_blocks(smem: int) -> int:
+    return min(2048 // DMA_THREADS, SMEM_SM_TOTAL // (smem + 1024))
+
+
+def dma_plan(c: int, rows: int, chunk: int = DMA_CHUNK) -> DmaPlan:
+    """The dma kernel's ring for an (R x C) matrix and `chunk`-column stages,
+    as `gf_dma.cu:plan` derives it: consumers take a stage in passes of
+    min(chunk, SPAN) columns, or DMA_NARROW_PASS when two stages do not fit
+    beside SPAN-wide column words and output tiles (C and R near 32); then
+    the ring gets the most stages, 2 to 4, that keep as many blocks per SM
+    as 2 stages do."""
+    stage = c * chunk
+    pass_cols = min(chunk, SPAN)
+    if _dma_fixed_bytes(c, rows, pass_cols) + 2 * stage > SMEM_PER_SM and pass_cols > DMA_NARROW_PASS:
+        pass_cols = DMA_NARROW_PASS
+    base = _dma_fixed_bytes(c, rows, pass_cols)
+    per_sm = _dma_blocks(base + 2 * stage)
+    stages = max(s for s in (2, 3, 4)
+                 if s == 2 or (base + s * stage <= SMEM_PER_SM and _dma_blocks(base + s * stage) == per_sm))
+    smem = base + stages * stage
+    return DmaPlan(stages, pass_cols, smem, _dma_blocks(smem))
+
+
+class DmaStage(NamedTuple):
+    """One stage of a dma block's walk: columns [start, stop) of batch
+    element `batch`, in ring slot `slot`; the producer waits on the slot's
+    empty barrier for `empty_parity`, the consumers on its full barrier
+    for `full_parity`."""
+
+    batch: int
+    start: int
+    stop: int
+    slot: int
+    empty_parity: int
+    full_parity: int
+
+
+def dma_items(batch: int, n: int, tile: int) -> int:
+    """Work items of a dma launch: (batch element, tile) pairs."""
+    return batch * -(-n // tile)
+
+
+def dma_grid(batch: int, n: int, tile: int, blocks_per_sm: int, sms: int) -> int:
+    """Persistent blocks of a dma launch: as many as fit the SMs, at most
+    one per work item."""
+    return min(dma_items(batch, n, tile), blocks_per_sm * sms)
+
+
+def dma_schedule(batch: int, n: int, tile: int, chunk: int, grid: int, stages: int) -> list[list[DmaStage]]:
+    """The dma kernel's ring, block by block, as `gf_dma.cu` walks it: block
+    k takes the work items k, k + grid, k + 2*grid, ... (item i is batch
+    element i // tiles, columns [(i % tiles) * tile, + tile) cut at N),
+    each in `chunk`-column stages; the block's s-th stage uses slot s %
+    stages, the producer waits for its empty barrier's phase of parity
+    ((s // stages) & 1) ^ 1 (a fresh barrier passes parity 1 at once), the
+    consumers for its full barrier's phase of parity (s // stages) & 1."""
+    per_batch = -(-n // tile)
+    blocks = []
+    for k in range(grid):
+        walk: list[DmaStage] = []
+        for i in range(k, batch * per_batch, grid):
+            b, j = divmod(i, per_batch)
+            start, lim = j * tile, min(n, (j + 1) * tile)
+            for cbase in range(start, lim, chunk):
+                rnd, slot = divmod(len(walk), stages)
+                walk.append(DmaStage(b, cbase, min(lim, cbase + chunk), slot, (rnd & 1) ^ 1, rnd & 1))
+        blocks.append(walk)
+    return blocks
+
+
 def s8_steps(variant: str, c: int) -> int:
     """K steps of 32 of the u8 (the stack, ceil(C/4)) and mplane (one per
     plane, 8) products."""
@@ -78,8 +184,8 @@ def s8_steps(variant: str, c: int) -> int:
 def smem_bytes(variant: str, c: int, rows: int) -> int:
     """Shared memory one block of `variant` uses for an (R x C) matrix."""
     nw = -(-c // 4)
-    if variant == "dma":
-        return 32 * rows * nw + 2 * c * DMA_CHUNK
+    if variant == "dma":  # at its widest stage (`dma_plan`)
+        return dma_plan(c, rows).smem
     tiles = nw * (SPAN + 8) * 4 + rows * (SPAN + 16)  # column words, output tile
     padded = -(-rows // 4) * 4  # whole groups of 4 output rows
     if variant == "int8":  # lift fragments unless in registers (R <= 4)
@@ -98,18 +204,11 @@ def auto_tile(c: int, rows: int, variant: str = "int8") -> int:
     block (one trip): their only per-block staging is the lift fragments
     (in registers on the main path; bf16: the B image, a few KB), and many
     small blocks keep the card fuller than few long ones (`PERF.md` §6:
-    bf16, u8 and mplane timed at 2048 and 8192). dma stages its masks and
-    ring in shared memory: a block walks as many DMA_CHUNK trips as blocks
-    of its size fit one SM, at least two for the ring to overlap, so that
-    staging is amortised; snapped down to `_TILE_STEPS`."""
-    if variant != "dma":
-        return SPAN
-    per_sm = max(1, min(8, SMEM_PER_SM // smem_bytes(variant, c, rows)))
-    cap = DMA_CHUNK * max(per_sm, 2)
-    for t in _TILE_STEPS:
-        if t <= cap and t % DMA_CHUNK == 0:
-            return t
-    return DMA_CHUNK
+    bf16, u8 and mplane timed at 2048 and 8192). dma's blocks are
+    persistent and its ring runs across work items, so the tile only sets
+    how finely the items share out among the blocks: two DMA_CHUNK stages
+    per item, the least that keeps two stages of one item in the ring."""
+    return 2 * DMA_CHUNK if variant == "dma" else SPAN
 
 
 def _plane_major_columns(b_bits: np.ndarray) -> np.ndarray:
@@ -168,9 +267,9 @@ def kernel_masks(pm: torch.Tensor) -> np.ndarray:
 
 
 def lift_fragments(pm: torch.Tensor) -> np.ndarray:
-    """The int8 kernel's B operand (`gf_bitplane.cu`): the lift as popc
-    masks in the fragment order of mma.m16n8k256's 1-bit B, uint32 (R, 32,
-    2).
+    """The int8 and dma kernels' B operand (`gf_bitplane.cu`, `gf_dma.cu`):
+    the lift as popc masks in the fragment order of mma.m16n8k256's 1-bit
+    B, uint32 (R, 32, 2).
 
     The kernel computes out^T = bits^T . lift^T with K = the column's
     8C-bit vector in column-word order (word w, bit 8q + p = plane p of
@@ -262,7 +361,7 @@ KERNELS = {
     "bf16": ("gf_bf16", "gf_bf16_apply", "bf16"),
     "u8": ("gf_mma", "gf_u8_apply", "s8"),
     "mplane": ("gf_mma", "gf_mplane_apply", "s8"),
-    "dma": ("gf_dma", "gf_dma_apply", "masks"),
+    "dma": ("gf_dma", "gf_dma_apply", "frags"),
 }
 
 
@@ -270,15 +369,28 @@ KERNELS = {
 def _device_operand(key: tuple, variant: str, device: str) -> torch.Tensor:
     pm = _plane_major(key)
     kind = KERNELS[variant][2]
-    if kind == "masks":
-        host = kernel_masks(pm)
-    elif kind == "frags":
+    if kind == "frags":
         host = lift_fragments(pm)
     elif kind == "bf16":
         host = bf16_fragments(pm)
     else:
         host = s8_fragments(pm, variant)
     return torch.from_numpy(np.ascontiguousarray(host)).to(device)
+
+
+def dma_device_plan(c: int, rows: int, chunk: int = DMA_CHUNK) -> dict:
+    """The dma kernel's own plan on the current card (`gf_dma_plan`):
+    stages, pass_cols and smem as it launches them, blocks_per_sm from the
+    occupancy calculator (registers included), and the card's SMs. Builds
+    the library; needs a card."""
+    fn = _build.load("gf_dma").gf_dma_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 5)()
+    err = fn(c, rows, chunk, out)
+    if err != 0:
+        raise RuntimeError(f"gf_dma_plan failed: cudaError {err}")
+    return dict(zip(("stages", "pass_cols", "smem", "blocks_per_sm", "sms"), out))
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,7 +401,7 @@ def _kernel_fn(variant: str):
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # data, strides
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # out, strides
-        ctypes.c_void_p,  # masks or B fragments
+        ctypes.c_void_p,  # B fragments
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,  # B, C, R, N
         ctypes.c_longlong,  # tile
         *([ctypes.c_int] if variant == "dma" else []),  # chunk

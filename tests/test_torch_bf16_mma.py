@@ -297,6 +297,7 @@ def test_bf16_shared_memory_and_tile(c, rows):
     ("bf16", 10, 1, 4_194_304, 0.0138, "bytes"),       # 1-lost rebuild
     ("int8", 10, 4, 6_553_600, 0.0274, "bytes"),
     ("dma", 10, 4, 6_553_600, 0.0274, "bytes"),
+    ("dma", 32, 32, 4_194_304, 0.2778, "operations"),  # the int8 rate of its TPU kernel's product
 ])
 def test_bound_ms_takes_each_variants_own_rate(variant, c, r, n, want_ms, want_by):
     ms, by = measure.bound_ms(variant, c, r, n)

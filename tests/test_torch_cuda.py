@@ -183,6 +183,32 @@ def test_int8_kernel_tiles_below_and_off_the_span(card, tile, name):
     assert np.array_equal(got[1].cpu().numpy(), gf8.gf_mat_vec(m, data[1]))
 
 
+@pytest.mark.parametrize("tile", [128, 384, 1024, 4096, 65536])
+@pytest.mark.parametrize("name", ["rs_10_4", "random_32x32", "random_1x1"])
+def test_dma_kernel_stage_widths_and_work_items(card, tile, name):
+    """dma's stages are rs_cuda._dma_chunk(tile) columns wide (128 to 2048)
+    and its persistent blocks walk (batch element, tile) items: from many
+    small items per block to fewer items than blocks; (32, 32) takes its
+    stages in narrow passes."""
+    m = MATRICES[name]()
+    data = np.random.default_rng(tile).integers(0, 256, (3, m.shape[1], 70001), np.uint8)
+    x = torch.from_numpy(data).to(card)
+    got = rs_cuda.apply_matrix(m, x, tile=tile, variant="dma")
+    want = rs_cuda.plain_apply(m, x, tile=tile, variant="dma")
+    assert torch.equal(got, want)
+    assert np.array_equal(got[2].cpu().numpy(), gf8.gf_mat_vec(m, data[2]))
+
+
+@pytest.mark.parametrize("c, rows", [(10, 4), (10, 1), (12, 3), (20, 4), (32, 32), (1, 1), (32, 5)])
+@pytest.mark.parametrize("chunk", [128, 512, 2048])
+def test_dma_kernel_plan_is_rs_cuda_plan(card, c, rows, chunk):
+    got = rs_cuda.dma_device_plan(c, rows, chunk)
+    want = rs_cuda.dma_plan(c, rows, chunk)
+    assert (got["stages"], got["pass_cols"], got["smem"]) == (want.stages, want.pass_cols, want.smem)
+    assert 1 <= got["blocks_per_sm"] <= want.blocks_per_sm
+    assert got["sms"] == torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @pytest.mark.parametrize("variant", NEW_VARIANTS)
 def test_variant_kernel_strided_views(card, variant):
     m = MATRICES["rs_10_4"]()

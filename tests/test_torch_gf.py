@@ -120,10 +120,11 @@ def test_lift_from_reference_is_plane_major_operand(name):
 
 
 def _kernel_replay(masks: np.ndarray, m_shape: tuple, data: np.ndarray) -> np.ndarray:
-    """numpy replay of the dma kernel's popc arithmetic (`gf_dma.cu` via
-    `gf_common.cuh:parity_rows`): a column's bytes of rows 4w..4w+3 packed
-    little-endian into word w, output bit (r, i) the parity of
-    popc(XOR_w mask[(r*8+i)*NW + w] & word[w])."""
+    """numpy replay of what the popc masks mean: a column's bytes of rows
+    4w..4w+3 packed little-endian into word w, output bit (r, i) the
+    parity of popc(XOR_w mask[(r*8+i)*NW + w] & word[w]). The masks are
+    what `lift_fragments` lays out as the 1-bit B operand of the int8 and
+    dma kernels (`gf_bitplane.cu`, `gf_dma.cu`)."""
     r_n, c_n = m_shape
     nw = -(-c_n // 4)
     rows = np.zeros((4 * nw, data.shape[1]), dtype=np.uint8)
