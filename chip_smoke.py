@@ -10,7 +10,9 @@ Phases, one JSON line each:
            against its own plain PyTorch version on the card, byte-exact
            (tolerance 0), at the main path's shapes and ragged/batched/
            strided/other family shapes, and all five against each other;
-           at the three main-path shapes, kernel_ms (20 launches in a CUDA
+           at the three main-path shapes and the degraded read's three
+           bucketed shapes (degraded4k (1, 10, 4096), degraded64k (3, 10,
+           65536), degraded1m (2, 10, 1 MiB), R = 1), kernel_ms (20 launches in a CUDA
            graph, replayed between CUDA events, per launch), call_ms
            (one eager call of the wrapper, its host time included), and
            bound_ms/bound_by (`measure.bound_ms`: bytes, or the product at
@@ -31,10 +33,23 @@ Phases, one JSON line each:
            64 MiB large blocks (default 1 GiB, both tiers) through the CLI's
            own functions with the factory's encoder (int8: no evidence is
            committed), then one 1 GiB two-tier volume per other variant
-           with `Encoder(10, 4, variant=v)`: encode, verify, delete the .dat
-           and shards 0/5/10/13, rebuild, decode; asserts rebuilt CRCs match
-           the .eci, the decoded .dat hashes equal to the original, and the
-           volume's kernel launched in both encode and rebuild
+           with `Encoder(10, 4, variant=v)`: encode, verify, delete shards
+           0/5/10/13 [degraded read], delete the .dat, rebuild, decode;
+           asserts rebuilt CRCs match the .eci, the decoded .dat hashes equal
+           to the original, and the volume's kernel launched in both encode
+           and rebuild
+  degraded_read
+           for the two factory volumes, with the four shards lost: the
+           port's EcVolume mounted with the run's encoder reads a seeded
+           sample of 256 needles (1 MiB records, crossing blocks and lost
+           shards) and the overwritten 64-byte record, serially (latency of
+           local and degraded reads, the cold first degraded read, launches
+           per degraded read, ec.gather/ec.decode seconds), then from 8
+           threads, then 32 degraded ones again, which the decoded-interval
+           cache must serve with no launch; and a few 12 MiB ranges through
+           `read_intervals`, whose two intervals per lost shard decode in one
+           bucketed `reconstruct_batch`. Every blob must equal the .dat bytes,
+           zero-padded past its end; a deleted needle raises NeedleDeleted
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -56,6 +71,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "_smoke_tmp")
 LOST = (0, 5, 10, 13)
+#: the degraded read's bucketed reconstruct shapes (B, C, bucket), R = 1
+DEGRADED_SHAPES = {"degraded4k": (1, 10, 4096), "degraded64k": (3, 10, 65536),
+                   "degraded1m": (2, 10, 1 << 20)}
 
 
 def check(ok: bool, what) -> None:
@@ -104,6 +122,10 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
         ("merge_20_4_decode", rs_codec.Encoder(20, 4, "cauchy", device="cuda")
          .reconstruction_matrix(list(range(2, 22)), (0, 1, 22, 23)), (20, 8321), False),
     ]
+    # the degraded read's bucketed reconstructs: one lost data shard (R = 1)
+    # from the 13 others, at each of Encoder.RECONSTRUCT_BUCKETS
+    one_lost = enc.reconstruction_matrix([s for s in range(14) if s != 5][:10], (5,))
+    cases += [(label, one_lost, shape, True) for label, shape in DEGRADED_SHAPES.items()]
     rows: dict[str, list[dict]] = {v: [] for v in KERNELS}
 
     def compare(label, m, data, timed, contiguous=None):
@@ -118,14 +140,15 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
             del want
             if timed:
                 c, r, n = m.shape[1], m.shape[0], data.shape[-1]
+                batch = data.shape[0] if data.ndim == 3 else 1
                 bufs = (data, data.clone())  # launches alternate: together > the 50 MB L2
                 row["kernel_ms"] = measure.graph_ms(
                     lambda i: rs_cuda.apply_matrix(m, bufs[i % 2], variant=v))
                 del bufs
                 row["call_ms"] = measure.eager_ms(lambda: rs_cuda.apply_matrix(m, data, variant=v), 50)
                 row["plain_ms"] = measure.eager_ms(lambda: rs_cuda.plain_apply(m, data, variant=v), 3)
-                row["bound_ms"], row["bound_by"] = measure.bound_ms(v, c, r, n)
-                row["kernel_gbps"] = (c + r) * n / row["kernel_ms"] / 1e6
+                row["bound_ms"], row["bound_by"] = measure.bound_ms(v, c, r, n, batch)
+                row["kernel_gbps"] = (c + r) * n * batch / row["kernel_ms"] / 1e6
             outs[v] = got
             rows[v].append(row)
         for v in KERNELS:  # the five kernels byte for byte against each other
@@ -241,7 +264,226 @@ def make_volume(base: str, gib: float, seed: int) -> tuple[int, str]:
                 + (64).to_bytes(4, "big", signed=True))
         f.write(int(keys[-1]).to_bytes(8, "big") + (0).to_bytes(4, "big")
                 + (-1).to_bytes(4, "big", signed=True))
-    return size, h.hexdigest()
+    return size, h.hexdigest(), [int(k) for k in keys]
+
+
+def _expected(f, offset: int, length: int) -> bytes:
+    """.dat bytes [offset, offset + length), zero-padded past its end, as
+    the stripe pads the last row."""
+    f.seek(offset)
+    got = f.read(length)
+    return got + bytes(length - len(got))
+
+
+def _pct(xs: list, q: float) -> float | None:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else None
+
+
+def decode_anatomy(ev, nid: int, lost_data: set, runs: int = 7) -> dict:
+    """Where one degraded interval's time goes (median ms of `runs`): the
+    survivor gather, the (10, N) host stack, the host-to-device copy, the
+    kernel call (wrapper included) to its sync, the copy back, and the
+    whole `Encoder.reconstruct` that a read makes, for `nid`'s interval on
+    a lost data shard."""
+    import statistics
+
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    iv = next(iv for iv in ev.locate_needle(nid)[2]
+              if iv.to_shard_id_and_offset(ev.large, ev.small)[0] in lost_data)
+    sid, off = iv.to_shard_id_and_offset(ev.large, ev.small)
+    enc = ev.encoder
+    on_card = enc.device.type == "cuda"
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    parts: dict[str, list] = {k: [] for k in ("gather", "stack", "h2d", "kernel", "d2h",
+                                              "reconstruct")}
+    for _ in range(runs):
+        t = time.perf_counter()
+        shards = ev.planner._gather_survivors(sid, off, iv.size)
+        parts["gather"].append(time.perf_counter() - t)
+        survivors = [i for i, x in enumerate(shards) if x is not None][: enc.data_shards]
+        m = enc.reconstruction_matrix(survivors, [sid])
+        t = time.perf_counter()
+        stack = np.stack([shards[i] for i in survivors])
+        parts["stack"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        dev = torch.from_numpy(stack).to(enc.device)
+        sync()
+        parts["h2d"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        out = rs_cuda.apply_matrix(m, dev, enc.tile, enc.variant)
+        sync()
+        parts["kernel"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        host = out.cpu().numpy()
+        parts["d2h"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        rec = enc.reconstruct(shards, wanted=[sid])[sid]
+        parts["reconstruct"].append(time.perf_counter() - t)
+        check(np.array_equal(rec, host[0]), "decode anatomy: the parts disagree with reconstruct")
+    out_ms = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
+    out_ms["width"] = iv.size
+    return out_ms
+
+
+def degraded_read(base: str, enc, keys: list, size: int, seed: int, card: str) -> dict:
+    """The degraded read through the port's EcVolume, with shards LOST gone
+    and the .dat still on disk to compare against (see the module doc)."""
+    import concurrent.futures
+
+    from seaweedfs_tpu_torch.ec import ec_volume, locate, read_planner
+    from seaweedfs_tpu_torch.obs import trace
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.storage import types
+
+    span = 1 << 20
+    record = types.actual_size(span - 8)
+    rng = np.random.default_rng(seed + 100)
+    # keys[0] now names the overwritten 64-byte record at offset 8; keys[-1]
+    # was deleted in the .idx; keys[i] is the 1 MiB record at 8 + i * span
+    sample = sorted(int(i) for i in rng.choice(np.arange(1, len(keys) - 1),
+                                               min(256, len(keys) - 2), replace=False))
+    want = {}
+    with open(base + ".dat", "rb") as f:
+        for i in sample:
+            want[keys[i]] = _expected(f, 8 + i * span, record)
+        want[keys[0]] = _expected(f, 8, types.actual_size(64))
+    lost_data = {s for s in LOST if s < enc.data_shards}
+
+    def count() -> int:
+        return rs_cuda.launches_by_variant.get(enc.variant, 0)
+
+    env0 = {k: os.environ.get(k) for k in ("WEEDTPU_READ_CACHE_MB", "WEEDTPU_READ_CACHE_TTL_S")}
+    os.environ.update(WEEDTPU_READ_CACHE_MB="1024", WEEDTPU_READ_CACHE_TTL_S="0")
+    read_planner.CACHE.clear()
+    try:
+        n_warm = count()
+        t0 = time.perf_counter()
+        ev = ec_volume.EcVolume(base, encoder=enc)
+        mount_s = time.perf_counter() - t0
+        with ev:
+            ev.warm_thread.join()
+            warm_s = time.perf_counter() - t0
+            warm_launches = count() - n_warm
+
+            def lost_intervals(nid: int) -> int:
+                return sum(iv.to_shard_id_and_offset(ev.large, ev.small)[0] in lost_data
+                           for iv in ev.locate_needle(nid)[2])
+
+            degraded = {nid for nid in want if lost_intervals(nid)}
+            check(degraded and len(degraded) < len(want), f"{len(degraded)} of {len(want)} degraded")
+            # a degraded needle's lost interval is its 1 MiB body part or the
+            # 32-byte tail it runs into the next block: timed apart
+            big = {nid for nid in degraded if max(
+                iv.size for iv in ev.locate_needle(nid)[2]
+                if iv.to_shard_id_and_offset(ev.large, ev.small)[0] in lost_data) >= 64 << 10}
+            lat: dict[str, list] = {"local": [], "degraded": [], "degraded_1m": [],
+                                    "degraded_tail": []}
+            cold_ms = None
+            n0 = count()
+            t_serial = time.perf_counter()
+            with trace.collect() as spans:
+                for nid in want:
+                    t = time.perf_counter()
+                    blob = ev.read_needle_blob(nid)
+                    ms = (time.perf_counter() - t) * 1e3
+                    check(blob == want[nid], f"needle {nid}: blob differs from the .dat")
+                    if nid in degraded and cold_ms is None:
+                        cold_ms = ms
+                    lat["degraded" if nid in degraded else "local"].append(ms)
+                    if nid in degraded:
+                        lat["degraded_1m" if nid in big else "degraded_tail"].append(ms)
+            serial_launches = count() - n0
+            serial_s = time.perf_counter() - t_serial
+            anatomy = {label: decode_anatomy(ev, nid, lost_data) for label, nid in (
+                ("1m", min(big)), ("tail", min(degraded - big)))} if big and degraded - big else None
+            on_card = enc.device.type == "cuda"  # a CPU rehearsal launches nothing
+            check(serial_launches > 0 or not on_card,
+                  f"{enc.variant} never launched in the serial reads")
+            span_s = {k: sum(x["seconds"] for x in spans if x["name"] == k)
+                      for k in ("ec.recover", "ec.gather", "ec.decode")}
+            n_intervals = sum(lost_intervals(nid) for nid in degraded)
+
+            # ranges of 12 small blocks: two intervals on each lost data
+            # shard, decoded together by one bucketed reconstruct_batch
+            n_large = locate.large_row_count(size, ev.large)
+            small0 = n_large * ev.large * 10
+            rows = (size - small0) // (10 * ev.small)  # whole small rows
+            range_ms, n1 = [], count()
+            starts = rng.choice(rows - 1, min(4, rows - 1), replace=False) if rows >= 2 else []
+            with open(base + ".dat", "rb") as f:
+                for row in starts:
+                    off, length = small0 + int(row) * 10 * ev.small, 12 * ev.small
+                    ivs = locate.locate_data(ev.large, ev.small, ev.dat_file_size, off, length)
+                    t = time.perf_counter()
+                    got = ev.read_intervals(ivs)
+                    range_ms.append((time.perf_counter() - t) * 1e3)
+                    check(got == _expected(f, off, length), f"range at {off} differs from the .dat")
+            range_launches = count() - n1
+
+            read_planner.CACHE.clear()  # the threaded pass decodes again
+            n2 = count()
+            t = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                blobs = dict(zip(want, pool.map(ev.read_needle_blob, want)))
+            threaded_s = time.perf_counter() - t
+            threaded_launches = count() - n2
+            check(blobs == want, "a blob read from 8 threads differs from the .dat")
+            check(threaded_launches > 0 or not on_card, "the threaded pass launched nothing")
+
+            again = sorted(degraded)[:32]
+            n3 = count()
+            with trace.collect() as repeat_spans:
+                for nid in again:
+                    check(ev.read_needle_blob(nid) == want[nid], f"cached needle {nid} differs")
+            hits = sum(x["name"] == "cache.hit" for x in repeat_spans)
+            repeat_launches = count() - n3
+            check(hits > 0 and repeat_launches == 0,
+                  f"repeat pass: {hits} cache hits, {repeat_launches} launches")
+
+            deleted = keys[sample[-1]]  # every read is done: a sampled needle will do
+            check(ev.delete_needle(deleted), "delete_needle found nothing to delete")
+            for nid, cls in ((deleted, ec_volume.NeedleDeleted), (keys[-1], ec_volume.NeedleNotFound)):
+                try:
+                    ev.read_needle_blob(nid)
+                    check(False, f"needle {nid} read after its delete")
+                except cls:
+                    pass
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        read_planner.CACHE.clear()
+    n_deg = len(lat["degraded"])
+    return {
+        "card": card, "variant": enc.variant, "needles": len(want), "degraded_needles": n_deg,
+        "degraded_intervals": n_intervals,
+        "record_bytes": record, "mount_s": mount_s, "warm_s": warm_s,
+        "warm_launches": warm_launches, "cold_first_degraded_ms": cold_ms,
+        "local_p50_ms": _pct(lat["local"], 0.5), "local_p99_ms": _pct(lat["local"], 0.99),
+        "degraded_p50_ms": _pct(lat["degraded"], 0.5),
+        "degraded_p99_ms": _pct(lat["degraded"], 0.99),
+        "degraded_1m_reads": len(lat["degraded_1m"]),
+        "degraded_1m_p50_ms": _pct(lat["degraded_1m"], 0.5),
+        "degraded_1m_p99_ms": _pct(lat["degraded_1m"], 0.99),
+        "degraded_tail_p50_ms": _pct(lat["degraded_tail"], 0.5),
+        "degraded_tail_p99_ms": _pct(lat["degraded_tail"], 0.99),
+        "serial_launches": serial_launches, "launches_per_degraded_read": serial_launches / n_deg,
+        "span_s": span_s,
+        "range_reads": len(range_ms), "range_bytes": 12 * ev.small,
+        "range_p50_ms": _pct(range_ms, 0.5), "range_launches": range_launches,
+        "serial_s": serial_s, "threaded_s": threaded_s, "threaded_launches": threaded_launches,
+        "decode_anatomy_ms": anatomy,
+        "repeat_reads": len(again), "repeat_cache_hits": hits, "repeat_launches": repeat_launches,
+        "all_equal": True, "deleted_raises": "NeedleDeleted",
+    }
 
 
 def sha256_file(path: str) -> str:
@@ -271,7 +513,7 @@ def run_volume(base: str, gib: float, large_block: int, seed: int, card: str,
     def count() -> int:
         return rs_cuda.launches_by_variant.get(enc.variant, 0)
 
-    size, digest = make_volume(base, gib, seed)
+    size, digest, keys = make_volume(base, gib, seed)
     n0 = count()
     with trace.collect() as spans:
         t0 = time.perf_counter()
@@ -280,9 +522,10 @@ def run_volume(base: str, gib: float, large_block: int, seed: int, card: str,
     encode_launches = count() - n0
     ver = local.verify(base, device, encoder=enc)
     check(ver["verified"], ver)
-    os.remove(base + ".dat")  # decode must bring it back from the shards alone
     for s in LOST:
         os.remove(stripe.shard_file_name(base, s))
+    degraded = degraded_read(base, enc, keys, size, seed, card) if variant is None else None
+    os.remove(base + ".dat")  # decode must bring it back from the shards alone
     n1 = count()
     with trace.collect() as rebuild_spans:
         t0 = time.perf_counter()
@@ -328,7 +571,7 @@ def run_volume(base: str, gib: float, large_block: int, seed: int, card: str,
         "encode_batches": encode_batches, "encode_launches": encode_launches,
         "rebuild_batches": rebuild_batches, "rebuild_launches": rebuild_launches,
         "verified": True, "crc_match": True, "decoded_sha256_match": True,
-        "card": card,
+        "card": card, "degraded_read": degraded,
     }
 
 
@@ -377,8 +620,7 @@ def main(argv=None) -> int:
         need = int(2.5 * max(args.dat_gib, args.second_gib, args.variant_gib) * (1 << 30))
         free = shutil.disk_usage(SCRATCH).free
         check(free > need, f"{free} bytes free under {SCRATCH}, the e2e phase needs {need}")
-        rs_cuda.launches = 0  # the main path's run starts here
-        rs_cuda.launches_by_variant.clear()
+        rs_cuda.reset_launches()  # the main path's run starts here
         vols = [
             run_volume(os.path.join(SCRATCH, "1"), args.dat_gib, 1 << 30, args.seed, card),
             run_volume(os.path.join(SCRATCH, "2"), args.second_gib, 64 << 20,
@@ -390,7 +632,9 @@ def main(argv=None) -> int:
         main_launches = dict(rs_cuda.launches_by_variant)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
+    reads = [v.pop("degraded_read") for v in vols]
     emit({"phase": "e2e", "card": card, "volumes": vols, "launches": main_launches})
+    emit({"phase": "degraded_read", "card": card, "volumes": [r for r in reads if r]})
     idle = [v for v in KERNELS if not main_launches.get(v)]
     if idle:
         print(f"chip_smoke: the main path never launched {idle}", file=sys.stderr)
@@ -416,6 +660,8 @@ def main(argv=None) -> int:
             "bound_ms": enc["bound_ms"],
             "bound_by": enc["bound_by"],
             "library_ms": None,
+            "degraded": {c["shape"]: {k: c[k] for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms")}
+                         for c in rows if c["shape"] in DEGRADED_SHAPES},
         })
     emit({"kernels": table})
     print(card)

@@ -320,11 +320,10 @@ constexpr int smem_bytes(int nw, int r) {
 template <int NW, int NT>
 int launch(const Job& job, int batch, cudaStream_t stream) {
   const int smem = smem_bytes(NW, job.r_rows);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gf_bf16_kernel<NW, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static int opted[64];
+  static std::mutex lock;
+  const cudaError_t e = gf::opt_in_smem(gf_bf16_kernel<NW, NT>, smem, opted, lock);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(gf::column_blocks(job.n, job.tile), static_cast<unsigned>(batch));
   gf_bf16_kernel<NW, NT><<<grid, kThreads, smem, stream>>>(job);
   return static_cast<int>(cudaGetLastError());

@@ -172,11 +172,10 @@ int launch(const uint8_t* data, long long in_batch, long long in_row,
            const uint2* frags, int batch, int c, int r, long long n,
            long long tile, bool vec_in, bool vec_out, cudaStream_t stream) {
   const int smem = smem_bytes(NW, NT, r);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gf_bitplane_kernel<NW, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static int opted[64];
+  static std::mutex lock;
+  const cudaError_t e = gf::opt_in_smem(gf_bitplane_kernel<NW, NT>, smem, opted, lock);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(gf::column_blocks(n, tile), static_cast<unsigned>(batch));
   gf_bitplane_kernel<NW, NT><<<grid, kThreads, smem, stream>>>(
       data, in_batch, in_row, out, out_batch, out_row, frags, c, r, n, tile,

@@ -11,6 +11,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace gf {
 
@@ -233,6 +234,25 @@ inline bool vectorizable(const void* base, long long batch_stride,
 inline bool shape_ok(int batch, int c, int r_rows, long long n) {
   return c >= 1 && c <= kMaxCols && r_rows >= 1 && r_rows <= kMaxRows &&
          n >= 1 && batch >= 1 && batch <= kMaxBatch;
+}
+
+// Opt `kernel` in to `smem` bytes of dynamic shared memory on the current
+// device. Reader threads may launch one kernel with different shared memory
+// at once (NT = 0 kernels size it by R), so the opt-in only ever rises,
+// under a lock: no thread lowers it below what another is about to launch
+// with. `opted` is the kernel's own high-water mark per device.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, int smem, int (&opted)[64], std::mutex& lock) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  if (smem <= opted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) opted[dev] = smem;
+  return e;
 }
 
 // Blocks along the columns: one per `tile` columns.

@@ -54,6 +54,7 @@
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 #include "gf_common.cuh"
 
@@ -532,24 +533,25 @@ int sm_count(int dev) {
 // Opt the kernel for (C, R) in to `smem` bytes on device `dev`, and return
 // the blocks of it that fit one SM (shared memory, registers and threads
 // together), or a cudaError_t < 0. Both cost host time, so each kernel
-// remembers them for the last (device, smem) it ran with.
+// remembers them for the last (device, smem) it ran with; the opt-in only
+// ever rises (`gf::opt_in_smem`), so a remembered (device, smem) stays
+// opted in while other threads launch the kernel with other chunks.
 int blocks_per_sm(int c, int r, int smem, int dev) {
   static std::atomic<unsigned long long> seen[gf::kMaxCols / 4][5];
+  static int opted[gf::kMaxCols / 4][5][64];
+  static std::mutex lock;
   std::atomic<unsigned long long>& slot = seen[nw_index(c)][nt_index(r)];
   const unsigned long long key = (static_cast<unsigned long long>(dev) << 40) |
                                  (static_cast<unsigned long long>(smem) << 8);
-  const unsigned long long got = slot.load(std::memory_order_relaxed);
+  const unsigned long long got = slot.load(std::memory_order_acquire);
   if (got != 0 && (got & ~0xffull) == key) return static_cast<int>(got & 0xff);
   const KernelFn k = kKernels[nw_index(c)][nt_index(r)];
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return -static_cast<int>(e);
-  }
+  const cudaError_t oe = gf::opt_in_smem(k, smem, opted[nw_index(c)][nt_index(r)], lock);
+  if (oe != cudaSuccess) return -static_cast<int>(oe);
   int per_sm = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kBlock, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  slot.store(key | static_cast<unsigned long long>(per_sm & 0xff), std::memory_order_relaxed);
+  slot.store(key | static_cast<unsigned long long>(per_sm & 0xff), std::memory_order_release);
   return per_sm;
 }
 

@@ -275,11 +275,10 @@ __global__ void __launch_bounds__(kThreads, (min_blocks<V, NW, NT>())) gf_mma_ke
 template <int V, int NW, int NT>
 int launch(const Job& job, int batch, cudaStream_t stream) {
   const int smem = smem_bytes<V, NW>(job.r_rows);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gf_mma_kernel<V, NW, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static int opted[64];
+  static std::mutex lock;
+  const cudaError_t e = gf::opt_in_smem(gf_mma_kernel<V, NW, NT>, smem, opted, lock);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(gf::column_blocks(job.n, job.tile), static_cast<unsigned>(batch));
   gf_mma_kernel<V, NW, NT><<<grid, kThreads, smem, stream>>>(job);
   return static_cast<int>(cudaGetLastError());

@@ -109,6 +109,21 @@ def _aligned(width: int, align: int) -> int:
     return -(-width // align) * align
 
 
+def _abandon_future(fut) -> None:
+    """Cancel an abandoned fetch future; if it already runs, observe and
+    drop its outcome when it ends, so a late error never surfaces from a
+    thread nobody waits on."""
+    if not fut.cancel():
+        fut.add_done_callback(_observe_and_drop)
+
+
+def _observe_and_drop(fut) -> None:
+    try:
+        fut.result()
+    except Exception:  # noqa: BLE001 — abandoned by design
+        pass
+
+
 def _discard_inflight(inflight: deque) -> None:
     """Failure path: wait for every pending dispatch and drop its result, so
     teardown never races device work still reading a staging buffer. Errors
@@ -698,6 +713,44 @@ def read_ecj(base_file_name: str) -> list[int]:
         buf = f.read()
     n = len(buf) // types.NEEDLE_ID_SIZE
     return [int.from_bytes(buf[i * 8 : i * 8 + 8], "big") for i in range(n)]
+
+
+def append_ecj(base_file_name: str, needle_id: int) -> None:
+    """Journal one EC deletion, fsync'd: an acknowledged delete survives a
+    power cut. A torn tail record from a crash mid-append is dropped by
+    `read_ecj`, costing at most the unacknowledged delete."""
+    with open(base_file_name + ".ecj", "ab") as f:
+        f.write(needle_id.to_bytes(types.NEEDLE_ID_SIZE, "big"))
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def compact_ecj(base_file_name: str) -> int:
+    """Fold the deletion journal into the index: tombstone every journaled
+    id in .ecx, then drop .ecj. Crash-safe order: write .ecx.cpt, fsync,
+    rename over .ecx, unlink .ecj; a crash after the rename leaves a stale
+    .ecj whose replay only tombstones dead entries again. Returns the
+    number of journal entries folded."""
+    deleted = set(read_ecj(base_file_name))
+    if not deleted:
+        return 0
+    ecx = base_file_name + ".ecx"
+    with open(ecx, "rb") as f:
+        buf = f.read()
+    tmp = ecx + ".cpt"
+    with open(tmp, "wb") as out:
+        for key, off, size in idx_mod.walk_index_buffer(buf):
+            if key in deleted and not types.is_deleted(size):
+                size = types.TOMBSTONE_FILE_SIZE
+            out.write(types.pack_index_entry(key, off, size))
+        out.flush()
+        os.fsync(out.fileno())
+    os.replace(tmp, ecx)
+    try:
+        os.remove(base_file_name + ".ecj")
+    except FileNotFoundError:
+        pass
+    return len(deleted)
 
 
 def write_idx_file_from_ec_index(base_file_name: str) -> None:

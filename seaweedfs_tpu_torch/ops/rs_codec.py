@@ -157,6 +157,12 @@ class Encoder:
     #: staging-width multiple the streaming pipelines round spans to
     width_align = 1
 
+    #: shard-length buckets of the serving path's reconstructs (needle
+    #: intervals: KiBs up to one 1 MiB small block). On the card a
+    #: reconstruct pads to one, so each (B, R, bucket) launch shape repeats
+    #: and a CUDA graph could replay it; zero columns decode to zero
+    RECONSTRUCT_BUCKETS = (4 << 10, 64 << 10, 1 << 20)
+
     def __init__(
         self,
         data_shards: int = 10,
@@ -321,12 +327,76 @@ class Encoder:
         )
 
     def reconstruct_batch(
-        self, stack, survivors: Sequence[int], wanted: Sequence[int]
+        self, stack, survivors: Sequence[int], wanted: Sequence[int], bucketed: bool = False
     ) -> np.ndarray:
-        """(B, data_shards, N) survivor stack -> (B, len(wanted), N) ndarray."""
+        """(B, data_shards, N) survivor stack -> (B, len(wanted), N) ndarray.
+        `bucketed` pads N to the next of RECONSTRUCT_BUCKETS on the card
+        (`_bucket_for`), so degraded reads of odd interval sizes launch a
+        few fixed shapes; the pad is sliced off."""
         if len(stack.shape) != 3 or stack.shape[1] != self.data_shards:
             raise ValueError(f"want (B, {self.data_shards}, N), got {tuple(stack.shape)}")
+        if bucketed:
+            return self._apply_bucketed(self.reconstruction_matrix(survivors, wanted), stack)
         return np.asarray(self.reconstruct_lazy(stack, survivors, wanted))
+
+    def _bucket_for(self, n: int) -> Optional[int]:
+        """The bucket an N-column reconstruct pads to: None on the CPU
+        (the plain version has no shapes to repeat, and padding only adds
+        columns), for N = 0, and past the largest bucket."""
+        if self.backend == "torch" or n == 0:
+            return None
+        for b in self.RECONSTRUCT_BUCKETS:
+            if n <= b:
+                return b
+        return None
+
+    def _apply_bucketed(self, m: np.ndarray, stack) -> np.ndarray:
+        stack = np.asarray(stack, dtype=np.uint8)
+        n = stack.shape[-1]
+        b = self._bucket_for(n)
+        if b is None or b == n:
+            return self._apply(m, stack)
+        padded = np.zeros(stack.shape[:-1] + (b,), dtype=np.uint8)
+        padded[..., :n] = stack
+        return self._apply(m, padded)[..., :n]
+
+    def warm_reconstruct(
+        self, wanted_counts: Sequence[int] = (1,), buckets: Optional[Sequence[int]] = None
+    ) -> int:
+        """Launch each bucketed reconstruct shape once, so the first
+        degraded read finds the kernel library loaded and the operand
+        cache filled (any matrix of the right shape will do). Returns the
+        shapes launched: 0 on the CPU, where there is nothing to warm."""
+        if self.backend == "torch":
+            return 0
+        count = 0
+        for rows in wanted_counts:
+            m = self.gen_matrix[: max(1, rows), : self.data_shards]
+            for b in buckets or self.RECONSTRUCT_BUCKETS:
+                self._apply(m, np.zeros((self.data_shards, b), dtype=np.uint8))
+                count += 1
+        return count
+
+    def warm_decode_matrices(self, local_shards: Sequence[int] = ()) -> int:
+        """Build the decode matrices of the serving path's usual loss
+        pattern: one shard lost, every other one reachable (survivors are
+        picked in id order, so the pattern per lost shard is fixed). Shards
+        held locally never need one. Returns the patterns built."""
+        count = 0
+        for lost in range(self.total_shards):
+            if lost in local_shards:
+                continue
+            survivors = [s for s in range(self.total_shards) if s != lost]
+            _reconstruction_matrix(
+                self.matrix_kind, self.data_shards, self.parity_shards,
+                tuple(survivors[: self.data_shards]), (lost,),
+            )
+            count += 1
+        return count
+
+    def reconstruct_data(self, shards: Sequence[Optional[np.ndarray]]) -> list[np.ndarray]:
+        """reedsolomon.ReconstructData: repair only the data shards."""
+        return self.reconstruct(shards, data_only=True)
 
     def verify(self, shards: Sequence[np.ndarray]) -> bool:
         """True iff parity shards match the data shards."""

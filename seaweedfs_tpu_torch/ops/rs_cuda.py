@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -55,10 +56,28 @@ _TILE_STEPS = (65536, 49152, 32768, 24576, 16384, 8192, 4096, 2048, 1024, 512, 2
 DMA_CHUNK = 2048
 
 #: kernel launches made by `apply_matrix` in this process, in all and by
-#: variant; a run sets them to 0 and reads them back to show which path
-#: its work went through
+#: variant; a run sets them to 0 (`reset_launches`) and reads them back to
+#: show which path its work went through. Reader threads launch at once,
+#: so both change only under `_launch_lock`
 launches = 0
 launches_by_variant: dict[str, int] = {}
+_launch_lock = threading.Lock()
+
+
+def count_launch(variant: str) -> None:
+    """Count one launch of `variant`'s kernel, exactly under threads."""
+    global launches
+    with _launch_lock:
+        launches += 1
+        launches_by_variant[variant] = launches_by_variant.get(variant, 0) + 1
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    global launches
+    with _launch_lock:
+        launches = 0
+        launches_by_variant.clear()
 
 
 def _dma_chunk(tile: int) -> int:
@@ -476,7 +495,6 @@ def apply_matrix(
 
 
 def _launch(m: np.ndarray, shards: torch.Tensor, tile: Optional[int], variant: str) -> torch.Tensor:
-    global launches
     r_n, c_n = m.shape
     t = resolve_tile(variant, tile, c_n, r_n)
     check_shape(r_n, c_n)
@@ -502,6 +520,5 @@ def _launch(m: np.ndarray, shards: torch.Tensor, tile: Optional[int], variant: s
             )
         if err != 0:
             raise RuntimeError(f"{KERNELS[variant][1]} launch failed: cudaError {err}")
-        launches += 1
-        launches_by_variant[variant] = launches_by_variant.get(variant, 0) + 1
+        count_launch(variant)
     return out[0] if squeeze else out

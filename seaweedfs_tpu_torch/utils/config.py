@@ -27,6 +27,14 @@ def _at_least(minimum: int) -> Callable[[str], int]:
     return lambda raw: max(minimum, int(raw))
 
 
+def _flag(raw: str) -> bool:
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _nonneg_float(raw: str) -> float:
+    return max(0.0, float(raw))
+
+
 ENV_REGISTRY: dict[str, EnvVar] = {
     v.name: v
     for v in (
@@ -51,6 +59,36 @@ ENV_REGISTRY: dict[str, EnvVar] = {
         EnvVar(
             "WEEDTPU_DECODE_MATRIX_CACHE", 512,
             "LRU cap on cached decode matrices.",
+        ),
+        EnvVar(
+            "WEEDTPU_READ_CACHE_MB", 64.0,
+            "Byte budget (MiB) of the process-wide decoded-interval read cache; "
+            "0 disables it (no lookups, no counters). Clamped to >= 0.",
+            _nonneg_float,
+        ),
+        EnvVar(
+            "WEEDTPU_READ_CACHE_TTL_S", 30.0,
+            "Age (seconds) after which a cached decoded interval expires and the "
+            "next read decodes again; 0 means no expiry by age. Clamped to >= 0.",
+            _nonneg_float,
+        ),
+        EnvVar(
+            "WEEDTPU_COALESCE_READS", True,
+            "Single-flight coalescing of concurrent degraded decodes of the same "
+            "(shard, interval): one leader decodes, waiters get copies.",
+            _flag,
+        ),
+        EnvVar(
+            "WEEDTPU_HEDGE_READS", True,
+            "Hedged survivor fetches: once a fetch has run past the peer's hedge "
+            "delay, launch one backup against another holder; first success wins.",
+            _flag,
+        ),
+        EnvVar(
+            "WEEDTPU_HEDGE_DELAY_MS", 0.0,
+            "Fixed hedge delay (ms); 0 derives it per peer from the latency "
+            "estimate in the suspicion registry.",
+            float,
         ),
     )
 }

@@ -1,7 +1,8 @@
 """The CUDA kernels on a card: each variant (`gf_bitplane.cu`, `gf_bf16.cu`,
 `gf_dma.cu`, `gf_mma.cu`) through `rs_cuda.apply_matrix` against its plain PyTorch
 version (`rs_cuda.plain_apply`) on the same device, byte-exact (tolerance
-0: GF arithmetic is exact), and the stripe engine on the card against the
+0: GF arithmetic is exact), and the stripe engine and the degraded read
+(`EcVolume`, the bucketed `reconstruct_batch`) on the card against the
 port's own CPU path. The kernel has no CPU mode, so
 every test here carries the `cuda` marker and takes the `card` fixture,
 which skips without a card. These
@@ -327,3 +328,143 @@ def test_s8_kernels_tiles_below_and_off_the_span(card, name, variant, tile):
     got = rs_cuda.apply_matrix(m, x, tile=tile, variant=variant)
     assert torch.equal(got, rs_cuda.plain_apply(m, x, tile=tile, variant=variant))
     assert np.array_equal(got[1].cpu().numpy(), gf8.gf_mat_vec(m, data[1]))
+
+
+# -- the degraded read on the card ------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("width", [100, 4096, 4097, 65536, 70001, 1 << 20, (1 << 20) + 5])
+def test_bucketed_reconstruct_batch_on_card(card, monkeypatch, batch, width):
+    """`reconstruct_batch(bucketed=True)` on the card pads to the next
+    bucket (none past 1 MiB), launches once, and equals the plain version."""
+    gpu, cpu = rs_codec.Encoder(10, 4, device=card), rs_codec.Encoder(10, 4, device="cpu")
+    survivors, wanted = [1, 2, 3, 4, 6, 7, 8, 9, 11, 12], [5]
+    stack = np.random.default_rng(width + batch).integers(0, 256, (batch, 10, width), np.uint8)
+    shapes = []
+    real = rs_cuda.apply_matrix
+
+    def spy(m, shards, tile=None, variant="int8"):
+        shapes.append(tuple(shards.shape))
+        return real(m, shards, tile, variant)
+
+    monkeypatch.setattr(rs_cuda, "apply_matrix", spy)
+    before = rs_cuda.launches_by_variant.get("int8", 0)
+    got = gpu.reconstruct_batch(stack, survivors, wanted, bucketed=True)
+    assert rs_cuda.launches_by_variant["int8"] == before + 1
+    bucket = next((b for b in gpu.RECONSTRUCT_BUCKETS if width <= b), width)
+    assert shapes == [(batch, 10, bucket)]
+    want = cpu.reconstruct_batch(stack, survivors, wanted)
+    assert got.shape == (batch, 1, width) and np.array_equal(got, want)
+
+
+def _card_volume(d, records_seed: int = 9):
+    """A volume of 40 needles of 1 B to 40 KiB (small blocks of 4 KiB, so
+    the larger records cross rows and put several intervals on one shard)
+    with shards 0, 5, 10 and 13 lost; -> (base, {needle id: record})."""
+    from seaweedfs_tpu_torch.storage import idx, types
+
+    rng = np.random.default_rng(records_seed)
+    base = os.path.join(str(d), "11")
+    records, offset, blobs = {}, 8, [b"\x03" + bytes(7)]
+    for nid in rng.permutation(1000)[:40] + 1:
+        body = int(rng.integers(1, 40 << 10))
+        rec = rng.integers(0, 256, types.actual_size(body), np.uint8).tobytes()
+        records[int(nid)] = (offset, body, rec)
+        blobs.append(rec)
+        offset += len(rec)
+    with open(base + ".dat", "wb") as f:
+        f.write(b"".join(blobs))
+    idx.write_entries([(k, off // 8, size) for k, (off, size, _) in records.items()], base + ".idx")
+    stripe.write_ec_files(base, 65536, 4096, buffer_size=4096,
+                          encoder=rs_codec.Encoder(10, 4, device="cpu"))
+    stripe.write_sorted_file_from_idx(base)
+    for s in (0, 5, 10, 13):
+        os.unlink(stripe.shard_file_name(base, s))
+    return base, {k: rec for k, (_, _, rec) in records.items()}
+
+
+def test_card_ec_volume_reads_equal_cpu_serially_and_from_threads(card, tmp_path, monkeypatch):
+    import threading
+
+    from seaweedfs_tpu_torch.ec import ec_volume
+
+    base, records = _card_volume(tmp_path)
+    monkeypatch.setenv("WEEDTPU_READ_CACHE_MB", "0")  # every pass decodes
+    with ec_volume.EcVolume(base, encoder=rs_codec.Encoder(10, 4, device="cpu")) as ev:
+        want = {k: ev.read_needle_blob(k) for k in records}
+    for k, rec in records.items():
+        assert want[k][: len(rec)] == rec
+    with ec_volume.EcVolume(base, encoder=rs_codec.new_encoder()) as ev:
+        ev.warm_thread.join()
+        n0 = rs_cuda.launches_by_variant.get("int8", 0)
+        serial = {k: ev.read_needle_blob(k) for k in records}
+        n1 = rs_cuda.launches_by_variant.get("int8", 0)
+        threaded, lock = {}, threading.Lock()
+        keys = list(records)
+
+        def reader(i):
+            for k in keys[i::8]:
+                blob = ev.read_needle_blob(k)
+                with lock:
+                    threaded[k] = blob
+
+        threads = [threading.Thread(target=reader, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        n2 = rs_cuda.launches_by_variant.get("int8", 0)
+    assert serial == want and threaded == want
+    assert n1 > n0 and n2 - n1 == n1 - n0  # every decode launched, in both passes
+
+
+def test_ec_volume_with_no_encoder_runs_on_the_card(card, tmp_path):
+    from seaweedfs_tpu_torch.ec import ec_volume
+
+    base, records = _card_volume(tmp_path, 4)
+    with ec_volume.EcVolume(base) as ev:
+        assert ev.encoder.backend == "cuda" and ev.encoder.device.type == "cuda"
+        n0 = rs_cuda.launches
+        for k, rec in records.items():
+            assert ev.read_needle_blob(k)[: len(rec)] == rec
+        assert rs_cuda.launches > n0
+
+
+@pytest.mark.parametrize("variant", rs_cuda.KERNELS)
+def test_kernels_launch_from_threads_with_different_shared_memory(card, variant):
+    """Reader threads launch one kernel (C = 32: the same column words)
+    with different shared memory at once: R = 5, 8 and 32 (the R > 4
+    kernels size it by R), and for dma two chunk widths. Each opt-in only
+    rises, so no launch finds its shared memory undercut; all are exact."""
+    import threading
+
+    rng = np.random.default_rng(12)
+    jobs = []
+    for rows in (5, 8, 32):
+        for tile in ((None, 512) if variant == "dma" else (None,)):
+            m = rng.integers(0, 256, (rows, 32), np.uint8)
+            x = torch.from_numpy(rng.integers(0, 256, (2, 32, 30001), np.uint8)).to(card)
+            jobs.append((m, x, tile, rs_cuda.plain_apply(m, x, tile=tile, variant=variant)))
+    torch.cuda.synchronize()
+    errors = []
+    start = threading.Barrier(8)
+
+    def worker(i):
+        try:
+            start.wait()
+            for k in range(24):
+                m, x, tile, want = jobs[(i + k) % len(jobs)]
+                got = rs_cuda.apply_matrix(m, x, tile=tile, variant=variant)
+                torch.cuda.current_stream().synchronize()
+                if not torch.equal(got, want):
+                    errors.append((i, k))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errors, errors[:5]

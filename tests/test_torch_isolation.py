@@ -43,7 +43,9 @@ def test_port_has_modules_for_every_layer():
                  "ops/_build.py", "ec/stripe.py", "ec/constants.py", "storage/idx.py",
                  "storage/needle_map.py", "storage/types.py", "command/local.py",
                  "utils/config.py", "obs/trace.py", "__main__.py", "ops/measure.py",
-                 "scripts/kernel_sweep.py", "scripts/device_window.py"):
+                 "scripts/kernel_sweep.py", "scripts/device_window.py", "ec/ec_volume.py",
+                 "ec/read_planner.py", "ec/locate.py", "ec/suspicion.py", "ec/convert.py",
+                 "stats.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src

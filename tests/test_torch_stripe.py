@@ -247,7 +247,8 @@ def test_spans_record_stage_and_drain(tmp_path):
         os.unlink(stripe.shard_file_name(base, 4))
         stripe.rebuild_ec_files(base, encoder=mine, buffer_size=8192)
     names = {s["name"] for s in spans}
-    assert names == set(trace.SPAN_NAMES)
+    assert names == {"encode.stage", "encode.drain", "rebuild.stage", "rebuild.drain"}
+    assert names <= set(trace.SPAN_NAMES)
     assert all(s["seconds"] >= 0 and s["width"] > 0 for s in spans)
     with trace.span("encode.stage"):  # no collector: a no-op
         pass
