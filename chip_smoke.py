@@ -1,6 +1,7 @@
 """Drive the port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py [--seed N] [--dat-gib G] [--second-gib G] [--variant-gib G]
+                          [--repair-gib G]
 
 Phases, one JSON line each:
   device   the card (nvidia-smi name and power limit); exits 1 without CUDA
@@ -18,7 +19,12 @@ Phases, one JSON line each:
            bound_ms/bound_by (`measure.bound_ms`: bytes, or the product at
            the variant's own tensor-core rate, bf16 989e12 op/s); one case
            has rows that are not 16-byte aligned (offset 3), so that the
-           dma kernel's masked producer path runs on the card
+           dma kernel's masked producer path runs on the card; the repair
+           phase's three shapes are timed too: project (a holder's (1, 3)
+           projection of 4 MiB), combine (the all-ones (1, 4) over 4 MiB)
+           and fused_block (a 12+3 decode, R = 3, C = 12, on a device view
+           at column 3 of a (20, 4 MiB + 128) staging batch; the same at
+           column 0, fused_block_aligned, for what the offset costs)
   dma_ring the dma kernel's ring as it launches (`gf_dma_plan`: stages,
            columns per pass, shared memory, blocks per SM by the occupancy
            calculator) at the main path's shapes and at (32, 32), checked
@@ -50,6 +56,22 @@ Phases, one JSON line each:
            `read_intervals`, whose two intervals per lost shard decode in one
            bucketed `reconstruct_batch`. Every blob must equal the .dat bytes,
            zero-padded past its end; a deleted needle raises NeedleDeleted
+  repair   after the two factory volumes' local rebuilds, with the launch
+           counts reset: (a) remote: volume 1 loses 0/5/10/13 again and is
+           rebuilt through `RemoteSlabSource`s (two holders per survivor,
+           reading the shard files by position; the first holder of shards
+           1 and 6 fails from its fourth fetch, so failover happens mid-
+           rebuild); (b) trace: volume 1 loses shard 5 and is rebuilt from
+           three remote holder groups, whose fetch projects the group's
+           window with `Encoder.project` on the card, and one
+           `LocalProjectionSource`, combined by one launch per batch; (c)
+           fused: volume 2 (LOST), a 12+3 volume losing 0/13/14 and a 10+4
+           volume losing 2/11 (default 256 MiB each) through
+           `rebuild_ec_files_batch`, fused then unfused. Each rebuilt file's
+           CRC must equal the .eci and its sha256 the local rebuild's; each
+           path's launches must equal its batches (trace: holder
+           projections + local projections + one combine per batch; fused:
+           one per block per batch); wall seconds and GB/s (survivor bytes)
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -57,6 +79,7 @@ Any mismatch or error exits nonzero without the last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -74,6 +97,14 @@ LOST = (0, 5, 10, 13)
 #: the degraded read's bucketed reconstruct shapes (B, C, bucket), R = 1
 DEGRADED_SHAPES = {"degraded4k": (1, 10, 4096), "degraded64k": (3, 10, 65536),
                    "degraded1m": (2, 10, 1 << 20)}
+#: the trace repair of shard 5: the first ten other shards survive, in three
+#: remote holder groups and one local group (the last survivor)
+TRACE_SURVIVORS = (0, 1, 2, 3, 4, 6, 7, 8, 9, 10)
+TRACE_GROUPS = ((0, 1, 2), (3, 4, 6), (7, 8, 9))
+#: the fused batch's two extra volumes and their losses (volume 2 loses LOST)
+FUSED_LOST = {"c12": (0, 13, 14), "v10": (2, 11)}
+#: the kernel cases the repair phase launches at
+REPAIR_SHAPES = ("project", "combine", "fused_block", "fused_block_aligned")
 
 
 def check(ok: bool, what) -> None:
@@ -126,9 +157,16 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
     # from the 13 others, at each of Encoder.RECONSTRUCT_BUCKETS
     one_lost = enc.reconstruction_matrix([s for s in range(14) if s != 5][:10], (5,))
     cases += [(label, one_lost, shape, True) for label, shape in DEGRADED_SHAPES.items()]
+    # the repair phase's launches: a holder's projection of three survivors
+    # for shard 5 (R = 1, C = 3), and the trace combine of four groups
+    plan = enc.repair_projection_plan(TRACE_SURVIVORS, (5,))
+    cases += [
+        ("project", np.stack([plan[s] for s in TRACE_GROUPS[0]], axis=1), (3, 4 << 20), True),
+        ("combine", np.ones((1, len(TRACE_GROUPS) + 1), np.uint8), (4, 4 << 20), True),
+    ]
     rows: dict[str, list[dict]] = {v: [] for v in KERNELS}
 
-    def compare(label, m, data, timed, contiguous=None):
+    def compare(label, m, data, timed, contiguous=None, twin=None):
         outs = {}
         for v in KERNELS:
             got = rs_cuda.apply_matrix(m, data, variant=v)
@@ -141,7 +179,8 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
             if timed:
                 c, r, n = m.shape[1], m.shape[0], data.shape[-1]
                 batch = data.shape[0] if data.ndim == 3 else 1
-                bufs = (data, data.clone())  # launches alternate: together > the 50 MB L2
+                # launches alternate: together > the 50 MB L2
+                bufs = (data, data.clone() if twin is None else twin)
                 row["kernel_ms"] = measure.graph_ms(
                     lambda i: rs_cuda.apply_matrix(m, bufs[i % 2], variant=v))
                 del bufs
@@ -166,6 +205,18 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
     view = slot[:, 3:8324]
     compare("unaligned", par, view, False, contiguous=view.contiguous())
     del slot, view
+    # a fused block as `Encoder.reconstruct_block` launches it: the 12+3
+    # decode of three lost shards on a device view at column 3 of a staging
+    # batch whose rows are 4 MiB + 128 bytes apart
+    c12 = rs_codec.Encoder(12, 3, "cauchy", device="cuda")
+    m12 = c12.reconstruction_matrix(list(range(1, 13)), FUSED_LOST["c12"])
+    slots = [torch.from_numpy(rng.integers(0, 256, (20, (4 << 20) + 128), dtype=np.uint8)).cuda()
+             for _ in range(2)]
+    for label, c0 in (("fused_block", 3), ("fused_block_aligned", 0)):  # the offset's cost
+        view = slots[0][:12, c0 : c0 + (4 << 20)]
+        compare(label, m12, view, True, contiguous=view.contiguous(),
+                twin=slots[1][:12, c0 : c0 + (4 << 20)])
+    del slots, view
     torch.cuda.empty_cache()
     return rows
 
@@ -575,12 +626,251 @@ def run_volume(base: str, gib: float, large_block: int, seed: int, card: str,
     }
 
 
+def _crc_file(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        while b := f.read(64 << 20):
+            crc = zlib.crc32(b, crc)
+    return crc
+
+
+def _check_rebuilt(base: str, shards, golden: dict, what: str) -> None:
+    """Each rebuilt shard's CRC equals the .eci record, and its sha256 the
+    one taken of the locally rebuilt file before it was deleted."""
+    from seaweedfs_tpu_torch.ec import stripe
+
+    crcs = stripe.read_ec_info(base)["shard_crc32"]
+    for s in shards:
+        path = stripe.shard_file_name(base, s)
+        check(_crc_file(path) == crcs[s], f"{what}: shard {s} crc differs from the .eci")
+        check(sha256_file(path) == golden[s], f"{what}: shard {s} differs from the local rebuild's")
+
+
+def _stage_drain(recorded: list) -> dict:
+    return {name: sum(x["seconds"] for x in recorded if x["name"] == name)
+            for name in ("rebuild.stage", "rebuild.drain")}
+
+
+def repair_remote(base: str, enc, golden: dict, on_card: bool) -> dict:
+    """(a) LOST rebuilt from `RemoteSlabSource`s, two holders per survivor,
+    whose `fetch` reads the shard file by position; the first holder of
+    shards 1 and 6 fails from its fourth fetch on."""
+    import threading
+
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.obs import trace
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    for s in LOST:
+        os.remove(stripe.shard_file_name(base, s))
+    present = [s for s in range(enc.total_shards) if s not in LOST]
+    shard = os.path.getsize(stripe.shard_file_name(base, present[0]))
+    lock = threading.Lock()
+    served = {"dying": 0}
+
+    def make_fetch(fd: int):
+        def fetch(addr: str, offset: int, size: int) -> bytes:
+            if addr == "dying":
+                with lock:
+                    served["dying"] += 1
+                    gone = served["dying"] > 3
+                if gone:
+                    raise IOError("holder 'dying' lost mid-rebuild")
+            return os.pread(fd, size, offset)
+        return fetch
+
+    with contextlib.ExitStack() as stack:
+        sources = {}
+        for s in present:
+            fd = os.open(stripe.shard_file_name(base, s), os.O_RDONLY)
+            stack.callback(os.close, fd)
+            holders = ["dying" if s in (1, 6) else f"p{s}", f"b{s}"]
+            sources[s] = stack.enter_context(stripe.RemoteSlabSource(s, holders, make_fetch(fd)))
+        n0 = rs_cuda.launches
+        with trace.collect() as spans:
+            t0 = time.perf_counter()
+            rebuilt = stripe.rebuild_ec_files_from_sources(base, sources, shard, encoder=enc)
+            seconds = time.perf_counter() - t0
+        launches = rs_cuda.launches - n0
+    batches = sum(x["name"] == "rebuild.stage" for x in spans)
+    failovers = {s: src.failovers for s, src in sources.items() if src.failovers}
+    check(rebuilt == list(LOST), f"remote rebuilt {rebuilt}")
+    _check_rebuilt(base, LOST, golden, "remote")
+    check(sorted(failovers) in ([1], [6], [1, 6]) and served["dying"] > 3,
+          f"no failover where the holder died: {failovers}, {served}")
+    check(launches == batches or not on_card, f"remote: {launches} launches for {batches} batches")
+    return {"shard_bytes": shard, "seconds": seconds, "gbps": 10 * shard / seconds / 1e9,
+            "batches": batches, "launches": launches, "failovers": failovers,
+            "dying_fetches": served["dying"],
+            "bytes_fetched": sum(src.bytes_fetched for src in sources.values()),
+            "span_s": _stage_drain(spans)}
+
+
+def repair_trace(base: str, enc, golden: dict, on_card: bool) -> dict:
+    """(b) Shard 5 rebuilt from projections: three remote holder groups
+    whose `fetch` plays the holder's half (read the group's window, project
+    it with `enc.project` from the source's fetch threads) and the last
+    survivor as a `LocalProjectionSource`."""
+    import threading
+
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.obs import trace
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    os.remove(stripe.shard_file_name(base, 5))
+    shard = os.path.getsize(stripe.shard_file_name(base, 0))
+    plan = enc.repair_projection_plan(TRACE_SURVIVORS, (5,))
+    cols = lambda sids: np.stack([plan[s] for s in sids], axis=1)  # noqa: E731
+    lock = threading.Lock()
+    projections = {"n": 0}
+
+    def holder(fds: list, coeffs: np.ndarray):
+        def fetch(offset: int, size: int) -> bytes:
+            actual = max(0, min(size, shard - offset))
+            stack = np.empty((len(fds), actual), dtype=np.uint8)
+            for i, fd in enumerate(fds):
+                check(os.preadv(fd, [stack[i]], offset) == actual, "short survivor read")
+            with lock:
+                projections["n"] += 1
+            return enc.project(coeffs, stack).tobytes()
+        return fetch
+
+    with contextlib.ExitStack() as stack:
+        groups = []
+        for i, sids in enumerate(TRACE_GROUPS):
+            fds = [os.open(stripe.shard_file_name(base, s), os.O_RDONLY) for s in sids]
+            for fd in fds:
+                stack.callback(os.close, fd)
+            groups.append(stack.enter_context(
+                stripe.TraceSlabSource(f"h{i}", sids, 1, holder(fds, cols(sids)))))
+        local = TRACE_SURVIVORS[9:]
+        groups.append(stack.enter_context(stripe.LocalProjectionSource(
+            [stripe.shard_file_name(base, s) for s in local], cols(local), enc)))
+        n0 = rs_cuda.launches
+        with trace.collect() as spans:
+            t0 = time.perf_counter()
+            rebuilt = stripe.rebuild_ec_files_from_projections(base, groups, shard, [5], encoder=enc)
+            seconds = time.perf_counter() - t0
+        launches = rs_cuda.launches - n0
+    batches = sum(x["name"] == "rebuild.stage" for x in spans)
+    wire = sum(g.bytes_fetched for g in groups)
+    check(rebuilt == [5], f"trace rebuilt {rebuilt}")
+    _check_rebuilt(base, [5], golden, "trace")
+    check(wire == len(TRACE_GROUPS) * shard < 9 * shard, f"trace wire bytes {wire}")
+    # one launch per holder projection, per local window and per combine
+    combines = launches - projections["n"] - batches
+    check(combines == batches or not on_card,
+          f"trace: {launches} launches, {projections['n']} holder projections, {batches} batches")
+    return {"shard_bytes": shard, "seconds": seconds, "gbps": 10 * shard / seconds / 1e9,
+            "batches": batches, "launches": launches,
+            "launches_by_kind": {"holder_projections": projections["n"],
+                                 "local_projections": batches, "combines": combines},
+            "wire_bytes": wire, "slab_wire_bytes": 9 * shard, "span_s": _stage_drain(spans)}
+
+
+def repair_fused(vols: list, enc, goldens: dict, on_card: bool) -> dict:
+    """(c) Three volumes of two geometries and three loss patterns through
+    `rebuild_ec_files_batch`, fused and then unfused; `vols` is [(base,
+    lost)]."""
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.obs import trace
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    runs = {}
+    for fuse in (True, False):
+        with contextlib.ExitStack() as stack:
+            jobs = []
+            for base, lost in vols:
+                venc = stripe.encoder_for_base(base, enc)
+                for s in lost:
+                    os.remove(stripe.shard_file_name(base, s))
+                present = [s for s in range(venc.total_shards) if s not in lost]
+                jobs.append({
+                    "base": base, "encoder": venc, "missing": list(lost),
+                    "shard_size": os.path.getsize(stripe.shard_file_name(base, present[0])),
+                    "sources": {s: stack.enter_context(
+                        stripe.LocalSlabSource(stripe.shard_file_name(base, s))) for s in present},
+                })
+            n0 = rs_cuda.launches
+            with trace.collect() as spans:
+                t0 = time.perf_counter()
+                res = stripe.rebuild_ec_files_batch(jobs, encoder=enc, fuse=fuse)
+                seconds = time.perf_counter() - t0
+            launches = rs_cuda.launches - n0
+        check(not res["errors"], f"fused={fuse}: {res['errors']}")
+        check(res["signature_groups"] == 3 and res["dispatch_groups"] == (1 if fuse else 3), res)
+        check(res["rebuilt"] == {b: list(lost) for b, lost in vols}, res["rebuilt"])
+        for base, lost in vols:
+            _check_rebuilt(base, lost, goldens[base], f"fused={fuse}")
+        # the launches each pipeline makes: one per block per batch fused,
+        # one per batch of each signature's own pipeline unfused
+        sizes = [j["shard_size"] for j in jobs]
+        if fuse:
+            span = _aligned_span(max(j["encoder"].data_shards for j in jobs))
+            starts = np.cumsum([0] + sizes)
+            want = sum((b - 1) // span - a // span + 1 for a, b in zip(starts, starts[1:]))
+        else:
+            want = sum(-(-n // _aligned_span(j["encoder"].data_shards)) for n, j in zip(sizes, jobs))
+        check(launches == want or not on_card, f"fused={fuse}: {launches} launches, want {want}")
+        survivor_bytes = sum(j["encoder"].data_shards * j["shard_size"] for j in jobs)
+        runs["fused" if fuse else "unfused"] = {
+            "seconds": seconds, "gbps": survivor_bytes / seconds / 1e9, "launches": launches,
+            "batches": sum(x["name"] == "rebuild.stage" for x in spans),
+            "dispatch_groups": res["dispatch_groups"], "signature_groups": res["signature_groups"],
+            "volumes_fused": res["volumes_fused"], "span_s": _stage_drain(spans),
+        }
+    runs["volumes"] = [{"base": os.path.basename(b), "lost": list(lost),
+                        "geometry": stripe.geometry_from_info(stripe.read_ec_info(b)).family,
+                        "shard_bytes": os.path.getsize(stripe.shard_file_name(b, lost[0]))}
+                       for b, lost in vols]
+    runs["same_bytes"] = True  # both runs matched the same sha256s
+    return runs
+
+
+def _aligned_span(k: int, buffer_size: int = 4 << 20, max_batch_bytes: int = 64 << 20) -> int:
+    """A rebuild batch's span for k survivor rows at the pipelines' defaults."""
+    return max(1, max_batch_bytes // (k * buffer_size)) * buffer_size
+
+
+def run_repair(scratch: str, seed: int, card: str, extra_gib: float = 0.25,
+               device: str = "cuda") -> dict:
+    """The repair phase over volumes 1 and 2 as `run_volume` left them
+    (every shard present, the lost ones rebuilt locally): golden sha256s of
+    the files to be rebuilt, two more volumes for the fused batch (made and
+    encoded before the launch counts are reset), then the remote, trace and
+    fused rebuilds. Returns the phase's line, with the launches of its run
+    by variant."""
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+
+    enc = rs_codec.new_encoder(device=device)
+    on_card = device == "cuda"
+    v1, v2 = os.path.join(scratch, "1"), os.path.join(scratch, "2")
+    c12, v10 = os.path.join(scratch, "c12"), os.path.join(scratch, "v10")
+    for base, family, k in ((c12, "cauchy_12_3", 7), (v10, "rs_10_4", 8)):
+        make_volume(base, extra_gib, seed + k)
+        stripe.write_ec_files(base, encoder=rs_codec.new_encoder(family=family, device=device))
+    vols = [(v2, LOST), (c12, FUSED_LOST["c12"]), (v10, FUSED_LOST["v10"])]
+    goldens = {b: {s: sha256_file(stripe.shard_file_name(b, s)) for s in lost} for b, lost in vols}
+    golden1 = {s: sha256_file(stripe.shard_file_name(v1, s)) for s in LOST}
+    rs_cuda.reset_launches()  # the repair path's run starts here
+    out = {"card": card, "variant": enc.variant,
+           "remote": repair_remote(v1, enc, golden1, on_card),
+           "trace": repair_trace(v1, enc, golden1, on_card),
+           "fused": repair_fused(vols, enc, goldens, on_card)}
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    check(out["launches"].get(enc.variant, 0) > 0 or not on_card,
+          f"the repair path never launched {enc.variant}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dat-gib", type=float, default=4.0)
     ap.add_argument("--second-gib", type=float, default=1.0)
     ap.add_argument("--variant-gib", type=float, default=1.0)
+    ap.add_argument("--repair-gib", type=float, default=0.25)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -616,8 +906,10 @@ def main(argv=None) -> int:
     try:
         sweep = run_sweep(args.seed)
         emit({"phase": "sweep", "card": card, **sweep})
-        # .dat + 14 shards of the larger volume, then the decoded .dat
-        need = int(2.5 * max(args.dat_gib, args.second_gib, args.variant_gib) * (1 << 30))
+        # .dat + 14 shards of the larger volume, then the decoded .dat, and
+        # the repair phase's two volumes
+        need = int(2.5 * (max(args.dat_gib, args.second_gib, args.variant_gib)
+                          + 2 * args.repair_gib) * (1 << 30))
         free = shutil.disk_usage(SCRATCH).free
         check(free > need, f"{free} bytes free under {SCRATCH}, the e2e phase needs {need}")
         rs_cuda.reset_launches()  # the main path's run starts here
@@ -630,11 +922,14 @@ def main(argv=None) -> int:
             vols.append(run_volume(os.path.join(SCRATCH, str(3 + k)), args.variant_gib,
                                    64 << 20, args.seed + 2 + k, card, variant=v))
         main_launches = dict(rs_cuda.launches_by_variant)
+        reads = [v.pop("degraded_read") for v in vols]
+        emit({"phase": "e2e", "card": card, "volumes": vols, "launches": main_launches})
+        emit({"phase": "degraded_read", "card": card, "volumes": [r for r in reads if r]})
+        # the repair path counts its own launches (reset inside, read after)
+        repair = run_repair(SCRATCH, args.seed, card, args.repair_gib)
+        emit({"phase": "repair", **repair})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    reads = [v.pop("degraded_read") for v in vols]
-    emit({"phase": "e2e", "card": card, "volumes": vols, "launches": main_launches})
-    emit({"phase": "degraded_read", "card": card, "volumes": [r for r in reads if r]})
     idle = [v for v in KERNELS if not main_launches.get(v)]
     if idle:
         print(f"chip_smoke: the main path never launched {idle}", file=sys.stderr)
@@ -662,6 +957,10 @@ def main(argv=None) -> int:
             "library_ms": None,
             "degraded": {c["shape"]: {k: c[k] for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms")}
                          for c in rows if c["shape"] in DEGRADED_SHAPES},
+            "repair": {"launches": repair["launches"].get(v, 0), **{
+                c["shape"]: {k: c[k] for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms",
+                                               "bound_by")}
+                for c in rows if c["shape"] in REPAIR_SHAPES}},
         })
     emit({"kernels": table})
     print(card)

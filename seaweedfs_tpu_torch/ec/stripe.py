@@ -15,16 +15,25 @@ card is asynchronous and ordered before the kernel on one stream, and a
 slot is refilled only after the batch that used it has been drained (the
 pipeline drains to < depth before every take, and the ring has depth + 1
 slots). Each shard's CRC32 is folded in as its bytes stream out.
+
+Rebuilds read survivors through `SlabSource`s: local files, remote holders
+(`RemoteSlabSource`, with failover), or holder groups that ship the
+projection of their survivors through the decode matrix
+(`TraceSlabSource`, `LocalProjectionSource`), combined by one launch per
+batch. `rebuild_ec_files_batch` runs many volumes of mixed geometry and
+loss pattern through one pipeline of block-diagonal decodes.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import zlib
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,6 +64,14 @@ DEFAULT_PIPELINE_DEPTH = config.env("WEEDTPU_PIPELINE_DEPTH")
 
 #: batches ahead of the reading cursor the rebuild asks sources to prefetch
 DEFAULT_PREFETCH_BATCHES = config.env("WEEDTPU_REBUILD_PREFETCH_BATCHES")
+
+#: sub-range size of the parallel range-fetches within one remote slab
+#: window, so a window costs about one holder round trip, not a serial stream
+DEFAULT_SLAB_STRIPE_BYTES = 4 * 1024 * 1024
+
+#: concurrent sub-range fetches per remote source (slab or projection),
+#: spread across a shard's holders
+DEFAULT_SLAB_FANOUT = config.env("WEEDTPU_SLAB_FANOUT")
 
 
 def to_ext(shard_id: int) -> str:
@@ -290,11 +307,7 @@ def write_ec_files(
                 pipeline_depth, crcs,
             )
     except BaseException:
-        for s in range(enc.total_shards):
-            try:
-                os.unlink(shard_file_name(base_file_name, s))
-            except OSError:
-                pass
+        _unlink_shards(base_file_name, range(enc.total_shards))
         raise
     write_ec_info(
         base_file_name, large_block_size, small_block_size, dat_size,
@@ -475,6 +488,439 @@ class LocalSlabSource(SlabSource):
         self._f.close()
 
 
+class RemoteSlabSource(SlabSource):
+    """One shard's bytes, fetched in parallel sub-ranges from its holders.
+
+    `fetch(addr, offset, size) -> bytes` is the injected transport: it may
+    return short at the shard's end and raises on any failure. A prefetched
+    window is split into `stripe_bytes` sub-ranges run on the executor.
+
+    Failover is per holder and mid-rebuild: a failed fetch marks its holder
+    dead (recorded in `failovers`) and retries the range on the next live
+    one, after a re-lookup through `refresh_holders` (at most two) when all
+    known holders are dead; other ranges in flight are left alone, so the
+    pipeline never restarts. IOError when no holder can serve a range.
+
+    Up to `fanout` sub-ranges run at once, each on the live holder with the
+    fewest fetches in flight (ties broken by a rotation per sub-range), so
+    a replicated shard's windows draw on every holder."""
+
+    def __init__(
+        self,
+        shard_id: int,
+        holders: Sequence[str],
+        fetch: Callable[[str, int, int], bytes],
+        executor: Optional[ThreadPoolExecutor] = None,
+        stripe_bytes: int = DEFAULT_SLAB_STRIPE_BYTES,
+        refresh_holders: Optional[Callable[[], Sequence[str]]] = None,
+        fetch_deadline: float = 120.0,
+        fanout: Optional[int] = None,
+    ):
+        self.shard_id = shard_id
+        self.failovers: list[str] = []
+        #: payload bytes pulled over the network (moved, not repaired, bytes)
+        self.bytes_fetched = 0
+        self._holders = [str(h) for h in holders]
+        self._dead: set[str] = set()
+        self._fetch = fetch
+        self._refresh = refresh_holders
+        # bounded, not one-shot: a transient error may kill the only known
+        # holder more than once in a long rebuild, and the bound still ends
+        # the rebuild against a cluster that is really gone
+        self._refreshes_left = 2
+        self._stripe = max(64 * 1024, int(stripe_bytes))
+        self._deadline = fetch_deadline
+        self._lock = threading.Lock()
+        # fetches run on pool threads, which do not inherit context
+        # variables: they attach the rebuild's span captured here
+        self._trace_parent = trace_mod.current()
+        self._fanout = DEFAULT_SLAB_FANOUT if fanout is None else max(1, int(fanout))
+        #: holder -> fetches running against it
+        self._inflight: dict[str, int] = {}
+        self._own_executor = executor is None
+        self._ex = executor or ThreadPoolExecutor(
+            max_workers=self._fanout, thread_name_prefix=f"slab-fetch-{shard_id}"
+        )
+        #: offset -> (length, [(rel_offset, size, Future[bytes]), ...])
+        self._pending: dict[int, tuple[int, list]] = {}
+
+    def _live_holders(self) -> list[str]:
+        with self._lock:
+            live = [h for h in self._holders if h not in self._dead]
+            if live or self._refresh is None or self._refreshes_left <= 0:
+                return live
+            self._refreshes_left -= 1
+        try:
+            fresh = list(self._refresh() or ())
+        except Exception:  # noqa: BLE001 — a failed lookup is "no holders"
+            fresh = []
+        with self._lock:
+            for h in fresh:
+                if str(h) not in self._holders:
+                    self._holders.append(str(h))
+                self._dead.discard(str(h))
+            return [h for h in self._holders if h not in self._dead]
+
+    def _pick_holder(self, live: list[str], offset: int) -> str:
+        """The live holder with the fewest fetches in flight; a rotation by
+        sub-range breaks ties, so an idle source still spreads consecutive
+        sub-ranges across holders."""
+        with self._lock:
+            rot = (offset // self._stripe) % len(live)
+            order = live[rot:] + live[:rot]
+            addr = min(order, key=lambda h: self._inflight.get(h, 0))
+            self._inflight[addr] = self._inflight.get(addr, 0) + 1
+            return addr
+
+    def _fetch_range(self, offset: int, size: int) -> bytes:
+        with trace_mod.attach(self._trace_parent):
+            return self._fetch_range_inner(offset, size)
+
+    def _fetch_range_inner(self, offset: int, size: int) -> bytes:
+        while True:
+            live = self._live_holders()
+            if not live:
+                raise IOError(
+                    f"shard {self.shard_id}: no reachable holder for "
+                    f"[{offset}, {offset + size}) — tried {self._holders}"
+                )
+            addr = self._pick_holder(live, offset)
+            try:
+                data = self._fetch(addr, offset, size)
+            except Exception:  # noqa: BLE001 — holder down: fail over
+                with self._lock:
+                    self._inflight[addr] = max(0, self._inflight.get(addr, 1) - 1)
+                    if addr not in self._dead:
+                        self._dead.add(addr)
+                        self.failovers.append(addr)
+                continue
+            with self._lock:
+                self._inflight[addr] = max(0, self._inflight.get(addr, 1) - 1)
+                self.bytes_fetched += len(data)
+            if len(data) > size:
+                raise IOError(
+                    f"shard {self.shard_id}: holder {addr} over-answered "
+                    f"({len(data)} > {size} bytes)"
+                )
+            return data
+
+    def prefetch(self, offset: int, length: int) -> None:
+        if length <= 0 or offset in self._pending:
+            return
+        futs = []
+        for off in range(offset, offset + length, self._stripe):
+            n = min(self._stripe, offset + length - off)
+            futs.append((off - offset, n, self._ex.submit(self._fetch_range, off, n)))
+        self._pending[offset] = (length, futs)
+
+    def read_into(self, offset: int, out: np.ndarray) -> None:
+        entry = self._pending.pop(offset, None)
+        if entry is not None and entry[0] != out.size:
+            for _, _, fut in entry[1]:  # a window of another shape: fetch again
+                _abandon_future(fut)
+            entry = None
+        if entry is None:
+            self.prefetch(offset, out.size)
+            entry = self._pending.pop(offset)
+        _, futs = entry
+        # a holder that hangs costs one full deadline before its worker
+        # tries the next: budget one deadline per holder, plus the refresh
+        with self._lock:
+            wait_budget = self._deadline * (len(self._holders) + 1)
+        try:
+            for rel, n, fut in futs:
+                data = fut.result(timeout=wait_budget)
+                got = len(data)
+                if got:
+                    out[rel : rel + got] = np.frombuffer(data, dtype=np.uint8)
+                if got < n:  # the shard ends inside the window: zero-fill
+                    out[rel + got : rel + n] = 0
+        except BaseException:
+            for _, _, fut in futs:
+                _abandon_future(fut)
+            raise
+
+    def close(self) -> None:
+        for _, futs in self._pending.values():
+            for _, _, fut in futs:
+                _abandon_future(fut)
+        self._pending.clear()
+        if self._own_executor:
+            self._ex.shutdown(wait=False, cancel_futures=True)
+
+
+# -- trace-repair projection sources ------------------------------------------
+#
+# A holder of several survivor shards ships the GF(2^8) projection of its
+# local group through the decode matrix (len(missing) rows) in place of one
+# full slab per survivor. The XOR of the holders' projections is the fused
+# decode, so the rebuilt bytes equal the slab path's, while the wire moves
+# holders x repaired bytes instead of survivors x shard bytes.
+
+
+class TraceSlabSource(SlabSource):
+    """One holder group's projections.
+
+    `fetch(offset, size) -> bytes` is the injected transport, bound to the
+    holder and its projection terms: it returns the row-major (rows,
+    actual) projected block of the window, actual = min(size, shard_len -
+    offset), short at the shard's end (the client zero-fills: the
+    projection of zero columns is zero). Windows are split into
+    `chunk_bytes` sub-ranges fetched in parallel (the projection is per
+    byte column, so sub-ranges concatenate exactly).
+
+    No failover inside the source: the group's shards live on this holder,
+    so a failed fetch propagates and the caller falls back to slabs."""
+
+    def __init__(
+        self,
+        holder: str,
+        shard_ids: Sequence[int],
+        rows: int,
+        fetch: Callable[[int, int], bytes],
+        executor: Optional[ThreadPoolExecutor] = None,
+        chunk_bytes: Optional[int] = None,
+        fanout: Optional[int] = None,
+    ):
+        if rows <= 0:
+            raise ValueError("projection rows must be positive")
+        self.holder = str(holder)
+        self.shard_ids = [int(s) for s in shard_ids]
+        self.rows = int(rows)
+        self.bytes_fetched = 0
+        self._fetch = fetch
+        self._chunk = max(
+            64 * 1024,
+            int(config.env("WEEDTPU_TRACE_CHUNK") if chunk_bytes is None else chunk_bytes),
+        )
+        self._lock = threading.Lock()
+        self._trace_parent = trace_mod.current()  # as RemoteSlabSource's
+        self._own_executor = executor is None
+        workers = DEFAULT_SLAB_FANOUT if fanout is None else max(1, int(fanout))
+        self._ex = executor or ThreadPoolExecutor(
+            max_workers=workers, thread_name_prefix=f"trace-fetch-{self.holder}"
+        )
+        #: window offset -> (width, [(rel, size, Future), ...])
+        self._pending: dict[int, tuple[int, list]] = {}
+
+    def _fetch_counted(self, offset: int, size: int) -> bytes:
+        with trace_mod.attach(self._trace_parent):
+            data = self._fetch(offset, size)
+        if len(data) % self.rows:
+            raise IOError(
+                f"trace group {self.holder}: projected stream length "
+                f"{len(data)} is not a multiple of {self.rows} rows"
+            )
+        if len(data) > size * self.rows:
+            raise IOError(
+                f"trace group {self.holder}: over-answered "
+                f"({len(data)} > {size * self.rows} bytes)"
+            )
+        with self._lock:
+            self.bytes_fetched += len(data)
+        return data
+
+    def prefetch(self, offset: int, length: int) -> None:
+        if length <= 0 or offset in self._pending:
+            return
+        futs = []
+        for off in range(offset, offset + length, self._chunk):
+            n = min(self._chunk, offset + length - off)
+            futs.append((off - offset, n, self._ex.submit(self._fetch_counted, off, n)))
+        self._pending[offset] = (length, futs)
+
+    def read_into(self, offset: int, out: np.ndarray) -> None:
+        """Fill a flat (rows * width,) staging view with the window's
+        projected block, row-major (rows, width), zero-filled past the end."""
+        if out.size % self.rows:
+            raise ValueError(f"staging view of {out.size} bytes is not {self.rows} rows")
+        width = out.size // self.rows
+        entry = self._pending.pop(offset, None)
+        if entry is not None and entry[0] != width:
+            for _, _, fut in entry[1]:  # a window of another shape: fetch again
+                _abandon_future(fut)
+            entry = None
+        if entry is None:
+            self.prefetch(offset, width)
+            entry = self._pending.pop(offset)
+        _, futs = entry
+        out2d = out.reshape(self.rows, width)
+        try:
+            for rel, n, fut in futs:
+                data = fut.result()
+                sub = len(data) // self.rows
+                if sub:
+                    out2d[:, rel : rel + sub] = np.frombuffer(data, dtype=np.uint8).reshape(
+                        self.rows, sub
+                    )
+                if sub < n:  # the shard ends inside the window: zero-fill
+                    out2d[:, rel + sub : rel + n] = 0
+        except BaseException:
+            for _, _, fut in futs:
+                _abandon_future(fut)
+            raise
+
+    def close(self) -> None:
+        for _, futs in self._pending.values():
+            for _, _, fut in futs:
+                _abandon_future(fut)
+        self._pending.clear()
+        if self._own_executor:
+            self._ex.shutdown(wait=False, cancel_futures=True)
+
+
+class LocalProjectionSource(SlabSource):
+    """The rebuild target's own survivors as one projection group: reads
+    their windows and projects them through the group's coefficients with
+    `Encoder.project` (one launch per window on the card), the math a
+    remote holder runs, at no wire cost."""
+
+    def __init__(self, paths: Sequence[str], coeffs: np.ndarray, encoder: Encoder):
+        coeffs = np.asarray(coeffs, dtype=np.uint8)
+        if coeffs.ndim != 2 or coeffs.shape[1] != len(paths):
+            raise ValueError(f"want (rows, {len(paths)}) coeffs, got {coeffs.shape}")
+        self.holder = "local"
+        self.rows = coeffs.shape[0]
+        self.bytes_fetched = 0
+        self._coeffs = coeffs
+        self._enc = encoder
+        self._files = []  # owned by the source, closed in close()
+        try:
+            for p in paths:
+                self._files.append(open(p, "rb"))
+        except BaseException:
+            self.close()
+            raise
+
+    def read_into(self, offset: int, out: np.ndarray) -> None:
+        if out.size % self.rows:
+            raise ValueError(f"staging view of {out.size} bytes is not {self.rows} rows")
+        width = out.size // self.rows
+        stack = np.empty((len(self._files), width), dtype=np.uint8)
+        for i, f in enumerate(self._files):
+            read_padded_into(f, offset, stack[i])
+        out.reshape(self.rows, width)[:] = self._enc.project(self._coeffs, stack)
+
+    def close(self) -> None:
+        for f in self._files:
+            f.close()
+
+
+def _unlink_shards(base_file_name: str, shard_ids) -> None:
+    """Remove the named .ecNN files where present: a failed run's partials."""
+    for s in shard_ids:
+        try:
+            os.unlink(shard_file_name(base_file_name, s))
+        except OSError:
+            pass
+
+
+def _batch_windows(shard_size: int, span: int, buffer_size: int) -> list[tuple[int, int, int]]:
+    """(offset, valid bytes, staged width) of each batch of a one-volume
+    rebuild: spans of `span` bytes, the last one's width rounded up to
+    whole `buffer_size` chunks."""
+    out = []
+    off = 0
+    while off < shard_size:
+        valid = min(span, shard_size - off)
+        out.append((off, valid, -(-valid // buffer_size) * buffer_size))
+        off += span
+    return out
+
+
+def rebuild_ec_files_from_projections(
+    base_file_name: str,
+    groups: Sequence[SlabSource],
+    shard_size: int,
+    missing: Sequence[int],
+    encoder: Optional[Encoder] = None,
+    buffer_size: int = 4 * 1024 * 1024,
+    max_batch_bytes: int = 64 * 1024 * 1024,
+    pipeline_depth: Optional[int] = None,
+    prefetch_batches: Optional[int] = None,
+) -> list[int]:
+    """The trace-repair rebuild: each batch reads one (rows, width)
+    projected block per holder group into a (groups, rows * width) staging
+    slot and combines them with one launch, the all-ones (1 x groups) GF
+    matrix (the XOR of the projections). Output equals
+    `rebuild_ec_files_serial` on the same survivor set, since the
+    projection coefficients are the fused decode matrix split by columns.
+    CRC32s are folded in as bytes stream out and checked against the .eci;
+    any failure drains inflight work and unlinks the partial outputs.
+    Returns the rebuilt shard ids."""
+    enc = encoder or encoder_for_base(base_file_name)
+    missing = sorted(int(s) for s in missing)
+    if not missing:
+        return []
+    if not groups:
+        raise ValueError("trace rebuild needs at least one projection group")
+    rows = len(missing)
+    for g in groups:
+        if getattr(g, "rows", None) != rows:
+            raise ValueError(
+                f"group {getattr(g, 'holder', g)!r} projects "
+                f"{getattr(g, 'rows', None)} rows, want {rows}"
+            )
+    depth = DEFAULT_PIPELINE_DEPTH if pipeline_depth is None else max(1, int(pipeline_depth))
+    ahead = (
+        DEFAULT_PREFETCH_BATCHES if prefetch_batches is None else max(1, int(prefetch_batches))
+    )
+    chunks_per_batch = max(1, max_batch_bytes // (enc.data_shards * buffer_size))
+    span = chunks_per_batch * buffer_size
+    combine = np.ones((1, len(groups)), dtype=np.uint8)  # GF sum == XOR
+    ring = _ring(enc, depth + 1, (len(groups), rows * span))
+    crcs = {s: 0 for s in missing}
+    batches = _batch_windows(shard_size, span, buffer_size)
+    try:
+        with ExitStack() as stack:
+            outs = {
+                s: stack.enter_context(open(shard_file_name(base_file_name, s), "wb"))
+                for s in missing
+            }
+            inflight: deque = deque()  # FIFO of (combined_handle, valid, width)
+
+            def drain_one() -> None:
+                lazy, valid, width = inflight.popleft()
+                with trace_mod.span("rebuild.drain", width=width):
+                    out = np.asarray(lazy).reshape(rows, width)  # sync point
+                    for k, s in enumerate(missing):
+                        row = np.ascontiguousarray(out[k, :valid])
+                        outs[s].write(row)
+                        crcs[s] = zlib.crc32(row, crcs[s])
+
+            def issue_prefetch(bi: int) -> None:
+                if bi < len(batches):
+                    o, _, wd = batches[bi]
+                    for g in groups:
+                        g.prefetch(o, wd)
+
+            try:
+                for j in range(min(ahead, len(batches))):
+                    issue_prefetch(j)
+                for bi, (off, valid, width) in enumerate(batches):
+                    issue_prefetch(bi + ahead)
+                    while len(inflight) >= depth:
+                        drain_one()
+                    with trace_mod.span("rebuild.stage", batch=bi, width=width):
+                        staging = ring.take()
+                        for i, g in enumerate(groups):
+                            g.read_into(off, staging[i, : rows * width])
+                    # a strided view when the last batch is short: it goes
+                    # to the card row by row, and the handle holds the slot
+                    combined = enc.project_lazy(combine, staging[:, : rows * width], donate=True)
+                    inflight.append((combined, valid, width))
+                while inflight:
+                    drain_one()
+            except BaseException:
+                _discard_inflight(inflight)
+                raise
+        _verify_rebuilt_crcs(base_file_name, crcs)
+    except BaseException:
+        _unlink_shards(base_file_name, missing)
+        raise
+    return missing
+
+
 def rebuild_ec_files_from_sources(
     base_file_name: str,
     sources: dict[int, SlabSource],
@@ -513,12 +959,7 @@ def rebuild_ec_files_from_sources(
     span = _aligned(chunks_per_batch * buffer_size, align)
     ring = _ring(enc, depth + 1, (enc.data_shards, span))
     crcs = {s: 0 for s in missing}
-    batches = []  # (offset, valid_bytes, staged_width)
-    off = 0
-    while off < shard_size:
-        valid = min(span, shard_size - off)
-        batches.append((off, valid, -(-valid // buffer_size) * buffer_size))
-        off += span
+    batches = _batch_windows(shard_size, span, buffer_size)
     try:
         with ExitStack() as stack:
             outs = {
@@ -567,13 +1008,314 @@ def rebuild_ec_files_from_sources(
                 raise
         _verify_rebuilt_crcs(base_file_name, crcs)
     except BaseException:
-        for s in missing:
-            try:
-                os.unlink(shard_file_name(base_file_name, s))
-            except OSError:
-                pass
+        _unlink_shards(base_file_name, missing)
         raise
     return missing
+
+
+def rebuild_ec_files_batch(
+    jobs: list[dict],
+    encoder: Optional[Encoder] = None,
+    buffer_size: int = 4 * 1024 * 1024,
+    max_batch_bytes: int = 64 * 1024 * 1024,
+    pipeline_depth: Optional[int] = None,
+    prefetch_batches: Optional[int] = None,
+    fuse: Optional[bool] = None,
+) -> dict:
+    """Many volumes' rebuilds through shared launches: the fleet-repair
+    batch engine.
+
+    Each job is {"base", "sources" ({shard id: SlabSource}), "shard_size",
+    "missing" (optional), "encoder" (optional)}. Jobs whose signature
+    (survivor set, missing set, geometry) matches share one decode matrix,
+    and their batches are packed across volume boundaries (the GF product
+    is column-independent; which volume a column came from matters only
+    when it is written out).
+
+    With `fuse` (default WEEDTPU_REBUILD_FUSE), different signatures fuse
+    too: each group is a block of a block-diagonal decode
+    (`Encoder.reconstruct_block`) and the whole cohort runs through one
+    staging pipeline, dispatch_groups == 1. Groups keep insertion order, so
+    the caller's job order is the block order. fuse=False runs one
+    pipeline per signature group.
+
+    Failures are scoped to a group either way: its members' partial outputs
+    are unlinked and the error recorded per job, and the other groups run
+    on. Returns {"rebuilt": {base: [shard ids]}, "errors": {base: str},
+    "dispatch_groups": int, "signature_groups": int, "volumes_fused": int,
+    "block_order": [base, ...]}."""
+    groups: dict[tuple, list[dict]] = {}
+    out: dict = {
+        "rebuilt": {},
+        "errors": {},
+        "dispatch_groups": 0,
+        "signature_groups": 0,
+        "volumes_fused": 0,
+        "block_order": [],
+    }
+    for job in jobs:
+        enc = job.get("encoder") or encoder or encoder_for_base(job["base"])
+        present = sorted(job["sources"])
+        missing = job.get("missing")
+        if missing is None:  # an explicit [] means "nothing to rebuild"
+            missing = [s for s in range(enc.total_shards) if s not in job["sources"]]
+        missing = sorted(missing)
+        if not missing:
+            out["rebuilt"][job["base"]] = []
+            continue
+        if len(present) < enc.data_shards:
+            out["errors"][job["base"]] = (
+                f"only {len(present)} shards present, need {enc.data_shards}"
+            )
+            continue
+        survivors = tuple(present[: enc.data_shards])
+        sig = (survivors, tuple(missing), enc.data_shards, enc.total_shards, enc.matrix_kind)
+        groups.setdefault(sig, []).append(
+            {**job, "encoder": enc, "missing": missing, "survivors": survivors}
+        )
+    depth = DEFAULT_PIPELINE_DEPTH if pipeline_depth is None else max(1, int(pipeline_depth))
+    ahead = (
+        DEFAULT_PREFETCH_BATCHES if prefetch_batches is None else max(1, int(prefetch_batches))
+    )
+    out["signature_groups"] = len(groups)
+    out["block_order"] = [job["base"] for members in groups.values() for job in members]
+    out["volumes_fused"] = len(out["block_order"])
+    if fuse is None:
+        fuse = config.env("WEEDTPU_REBUILD_FUSE") == "on"
+
+    def fail(members: list[dict], e: BaseException) -> None:
+        for job in members:
+            _unlink_shards(job["base"], job["missing"])
+            out["errors"][job["base"]] = f"{type(e).__name__}: {e}"[:300]
+        if not isinstance(e, Exception):
+            raise e  # an interrupt propagates once the partials are gone
+
+    if fuse and groups:
+        out["dispatch_groups"] = 1
+        glist = list(groups.values())
+        try:
+            rebuilt, errors = _rebuild_fused(glist, depth, ahead, buffer_size, max_batch_bytes)
+        except BaseException as e:
+            fail([job for members in glist for job in members], e)
+        else:
+            out["rebuilt"].update(rebuilt)
+            out["errors"].update(errors)
+        return out
+    for members in groups.values():
+        out["dispatch_groups"] += 1
+        try:
+            _rebuild_group(members, depth, ahead, buffer_size, max_batch_bytes)
+        except BaseException as e:
+            fail(members, e)
+        else:
+            for job in members:
+                out["rebuilt"][job["base"]] = list(job["missing"])
+    return out
+
+
+def _pack_segments(sizes: Sequence[int], span: int) -> list[list[tuple[int, int, int]]]:
+    """Batches of (job index, shard offset, length) segments that fill
+    `span` columns each, packed across job boundaries in job order (so a
+    job's segments stay consecutive within a batch)."""
+    batches: list[list[tuple[int, int, int]]] = []
+    cur: list[tuple[int, int, int]] = []
+    room = span
+    for ji, size in enumerate(sizes):
+        off = 0
+        while off < size:
+            take = min(room, size - off)
+            cur.append((ji, off, take))
+            off += take
+            room -= take
+            if room == 0:
+                batches.append(cur)
+                cur, room = [], span
+    if cur:
+        batches.append(cur)
+    return batches
+
+
+def _rebuild_fused(
+    groups: list[list[dict]], depth: int, ahead: int, buffer_size: int, max_batch_bytes: int,
+) -> tuple[dict, dict]:
+    """The heterogeneous cohort as one pipeline: each signature group is a
+    block of a block-diagonal decode, and each staging batch packs blocks'
+    survivor columns side by side (a group's segments stay consecutive, so
+    each block is one column range and the composite's zero blocks never
+    exist). Same depth-N inflight deque, per-volume CRC fold and prefetch
+    as `_rebuild_group`.
+
+    A survivor-read failure fails only its group: its later segments stop
+    staging, its drains stop writing, its partials are unlinked and its
+    members get the error, while the other blocks keep flowing. A decode or
+    drain failure raises to the caller, which unlinks everything.
+    Returns ({base: [rebuilt shard ids]}, {base: error})."""
+    encs = [members[0]["encoder"] for members in groups]
+    max_k = max(e.data_shards for e in encs)
+    align = max(e.width_align for e in encs)
+    chunks_per_batch = max(1, max_batch_bytes // (max_k * buffer_size))
+    span = _aligned(chunks_per_batch * buffer_size, align)
+    ring = _ring(encs[0], depth + 1, (max_k, span))
+    flat = [(gi, job) for gi, members in enumerate(groups) for job in members]
+    crcs = [{s: 0 for s in job["missing"]} for _, job in flat]
+    failed: dict[int, str] = {}  # group index -> error
+    batches = _pack_segments([int(job["shard_size"]) for _, job in flat], span)
+    with ExitStack() as stack:
+        outs = [
+            {
+                s: stack.enter_context(open(shard_file_name(job["base"], s), "wb"))
+                for s in job["missing"]
+            }
+            for _, job in flat
+        ]
+        inflight: deque = deque()  # FIFO of (handle, segments)
+
+        def drain_one() -> None:
+            lazy, segs = inflight.popleft()
+            width = sum(t for _, _, t in segs)
+            with trace_mod.span("rebuild.drain", width=width):
+                dec = np.asarray(lazy)  # (max_m, span): the sync point
+                col = 0
+                for mi, off, length in segs:
+                    job = flat[mi][1]
+                    if flat[mi][0] not in failed:
+                        for k, s in enumerate(job["missing"]):
+                            row = dec[k, col : col + length]
+                            outs[mi][s].write(row)
+                            crcs[mi][s] = zlib.crc32(row, crcs[mi][s])
+                    col += length
+
+        def issue_prefetch(bi: int) -> None:
+            if bi < len(batches):
+                for mi, off, length in batches[bi]:
+                    gi, job = flat[mi]
+                    if gi not in failed:
+                        for s in job["survivors"]:
+                            job["sources"][s].prefetch(off, length)
+
+        try:
+            for j in range(min(ahead, len(batches))):
+                issue_prefetch(j)
+            for bi, segs in enumerate(batches):
+                issue_prefetch(bi + ahead)
+                while len(inflight) >= depth:
+                    drain_one()
+                width = sum(t for _, _, t in segs)
+                blocks: list[dict] = []
+                with trace_mod.span("rebuild.stage", batch=bi, width=width):
+                    staging = ring.take()
+                    col = 0
+                    for mi, off, length in segs:
+                        gi, job = flat[mi]
+                        if gi not in failed:
+                            try:
+                                for i, s in enumerate(job["survivors"]):
+                                    job["sources"][s].read_into(
+                                        off, staging[i, col : col + length]
+                                    )
+                            except Exception as e:  # noqa: BLE001 — fails its group only
+                                failed[gi] = f"{type(e).__name__}: {e}"[:300]
+                        if gi not in failed:
+                            if blocks and blocks[-1]["_gi"] == gi:
+                                blocks[-1]["width"] += length
+                            else:
+                                blocks.append({
+                                    "_gi": gi, "encoder": encs[gi],
+                                    "survivors": job["survivors"], "wanted": job["missing"],
+                                    "col_start": col, "width": length,
+                                })
+                        col += length
+                # a read may fail after its group's block opened in this batch
+                blocks = [b for b in blocks if b["_gi"] not in failed]
+                if blocks:
+                    inflight.append((encs[0].reconstruct_block(staging, blocks), segs))
+            while inflight:
+                drain_one()
+        except BaseException:
+            _discard_inflight(inflight)
+            raise
+    rebuilt: dict = {}
+    errors: dict = {}
+    for mi, (gi, job) in enumerate(flat):
+        if gi in failed:
+            _unlink_shards(job["base"], job["missing"])
+            errors[job["base"]] = failed[gi]
+            continue
+        try:
+            _verify_rebuilt_crcs(job["base"], crcs[mi])
+        except Exception as e:  # noqa: BLE001 — fails this volume only
+            _unlink_shards(job["base"], job["missing"])
+            errors[job["base"]] = f"{type(e).__name__}: {e}"[:300]
+            continue
+        rebuilt[job["base"]] = list(job["missing"])
+    return rebuilt, errors
+
+
+def _rebuild_group(
+    members: list[dict], depth: int, ahead: int, buffer_size: int, max_batch_bytes: int,
+) -> None:
+    """One same-signature group: a single depth-N pipeline whose batches
+    pack columns from consecutive volumes (see rebuild_ec_files_batch)."""
+    enc = members[0]["encoder"]
+    survivors = list(members[0]["survivors"])
+    missing = list(members[0]["missing"])
+    chunks_per_batch = max(1, max_batch_bytes // (enc.data_shards * buffer_size))
+    span = _aligned(chunks_per_batch * buffer_size, enc.width_align)
+    ring = _ring(enc, depth + 1, (enc.data_shards, span))
+    crcs = [{s: 0 for s in missing} for _ in members]
+    batches = _pack_segments([int(job["shard_size"]) for job in members], span)
+    with ExitStack() as stack:
+        outs = [
+            {s: stack.enter_context(open(shard_file_name(job["base"], s), "wb")) for s in missing}
+            for job in members
+        ]
+        inflight: deque = deque()  # FIFO of (handle, segments, width)
+
+        def drain_one() -> None:
+            lazy, segs, width = inflight.popleft()
+            with trace_mod.span("rebuild.drain", width=width):
+                dec = np.asarray(lazy)  # (len(missing), width): the sync point
+                col = 0
+                for ji, off, length in segs:
+                    for k, s in enumerate(missing):
+                        row = dec[k, col : col + length]
+                        outs[ji][s].write(row)
+                        crcs[ji][s] = zlib.crc32(row, crcs[ji][s])
+                    col += length
+
+        def issue_prefetch(bi: int) -> None:
+            if bi < len(batches):
+                for ji, off, length in batches[bi]:
+                    for s in survivors:
+                        members[ji]["sources"][s].prefetch(off, length)
+
+        try:
+            for j in range(min(ahead, len(batches))):
+                issue_prefetch(j)
+            for bi, segs in enumerate(batches):
+                issue_prefetch(bi + ahead)
+                while len(inflight) >= depth:
+                    drain_one()
+                width = sum(length for _, _, length in segs)
+                with trace_mod.span("rebuild.stage", batch=bi, width=width):
+                    staging = ring.take()
+                    col = 0
+                    for ji, off, length in segs:
+                        for i, s in enumerate(survivors):
+                            members[ji]["sources"][s].read_into(off, staging[i, col : col + length])
+                        col += length
+                    aw = _aligned(width, enc.width_align)
+                    if aw > width:
+                        staging[:, width:aw] = 0  # pad columns decode to zeros
+                decoded = enc.reconstruct_lazy(staging[:, :aw], survivors, missing, donate=True)
+                inflight.append((decoded, segs, width))
+            while inflight:
+                drain_one()
+        except BaseException:
+            _discard_inflight(inflight)
+            raise
+    for ji, job in enumerate(members):
+        _verify_rebuilt_crcs(job["base"], crcs[ji])
 
 
 def rebuild_ec_files(

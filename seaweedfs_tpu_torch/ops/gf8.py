@@ -192,3 +192,31 @@ def gf_matrix_to_bits(m: np.ndarray) -> np.ndarray:
         for c in range(c_n):
             out[r * 8 : r * 8 + 8, c * 8 : c * 8 + 8] = gf_const_to_bits(int(m[r, c]))
     return out
+
+
+# -- trace-repair projection (host golden) ---------------------------------------
+
+
+def gf_project(coeffs: np.ndarray, stack: np.ndarray) -> np.ndarray:
+    """Repair projection, host golden: an (R, C) GF(2^8) coefficient matrix
+    applied to a (C, N) stack of a holder's local survivors -> (R, N). The
+    holder ships these R rows (R = shards being rebuilt) in place of its C
+    full slabs."""
+    return gf_mat_vec(coeffs, stack)
+
+
+def gf_project_bits(coeffs: np.ndarray, stack: np.ndarray) -> np.ndarray:
+    """`gf_project` through the bit-plane lift: the stack as little-endian
+    bit-planes times the (8R, 8C) binary matrix of `gf_matrix_to_bits`,
+    reduced mod 2 and repacked; the formulation the kernels run."""
+    coeffs = np.asarray(coeffs, dtype=np.uint8)
+    stack = np.asarray(stack, dtype=np.uint8)
+    r_n, c_n = coeffs.shape
+    if stack.shape[0] != c_n:
+        raise ValueError(f"stack rows {stack.shape[0]} != coeff cols {c_n}")
+    b = gf_matrix_to_bits(coeffs)
+    bits = np.unpackbits(stack, axis=0, bitorder="little").reshape(8 * c_n, -1)
+    out_bits = (b.astype(np.uint32) @ bits.astype(np.uint32)) & 1
+    return np.packbits(
+        out_bits.astype(np.uint8).reshape(8 * r_n, -1), axis=0, bitorder="little"
+    ).reshape(r_n, -1)

@@ -136,6 +136,18 @@ class LazyResult:
         return arr
 
 
+class _FusedBlocks(LazyResult):
+    """The lazy (max_m, W) result of `Encoder.reconstruct_block`: one launch
+    per block has written its decoded rows into one device buffer, read
+    back by one copy at `np.asarray`. Rows past a block's own wanted count
+    inside its columns, and columns no block covers, are unspecified.
+    `parts` lists each block's (rows, col_start, width)."""
+
+    def __init__(self, out: torch.Tensor, source: Optional[torch.Tensor], parts: list):
+        super().__init__(out, source)
+        self.parts = parts
+
+
 def _host_tensor(a) -> torch.Tensor:
     """A uint8 CPU tensor over `a` without copying where numpy allows it
     (a strided view stays strided; a read-only array is copied)."""
@@ -214,12 +226,27 @@ class Encoder:
         pinned memory), so the copy and the kernel are ordered on one
         stream. `donate` is accepted for the reference's signature and has
         no effect: the device copy is freed with the result."""
+        dev, src = self._to_device(shards)
+        return LazyResult(rs_cuda.apply_matrix(m, dev, self.tile, self.variant), source=src)
+
+    def _to_device(self, shards) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the shards on the encoder's device, the host tensor the copy
+        reads, which the result must hold until it is read; None on the
+        CPU, where the shards are used in place)."""
         src = _host_tensor(shards)
         if self.device.type == "cpu":
-            return LazyResult(rs_cuda.apply_matrix(m, src, self.tile, self.variant))
+            return src, None
         dev = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
-        dev.copy_(src, non_blocking=True)
-        return LazyResult(rs_cuda.apply_matrix(m, dev, self.tile, self.variant), source=src)
+        if src.ndim == 2 and not src.is_contiguous() and src.stride(1) == 1:
+            # a column slice of a staging slot: row by row, each row a
+            # contiguous run of the (pinned) slot, so every copy stays
+            # asynchronous; as one copy it would go through a pageable
+            # temporary, which waits for the stream
+            for i in range(src.shape[0]):
+                dev[i].copy_(src[i], non_blocking=True)
+        else:
+            dev.copy_(src, non_blocking=True)
+        return dev, src
 
     def _apply(self, m: np.ndarray, shards) -> np.ndarray:
         return np.asarray(self._apply_lazy(m, shards))
@@ -325,6 +352,83 @@ class Encoder:
         return self._apply_lazy(
             self.reconstruction_matrix(survivors, wanted), stack, donate=donate
         )
+
+    def repair_projection_plan(
+        self, survivors: Sequence[int], wanted: Sequence[int]
+    ) -> dict[int, np.ndarray]:
+        """Shard id -> its (len(wanted),) column of the fused decode matrix:
+        the trace-repair plan. A holder of local survivors L ships
+        row w = XOR over s in L of plan[s][w] * shard_s, and the XOR of the
+        holders' projections is the fused decode of the whole survivor
+        stack (GF addition is XOR; the product splits by columns)."""
+        m = self.reconstruction_matrix(survivors, wanted)
+        return {int(s): np.ascontiguousarray(m[:, i]) for i, s in enumerate(survivors)}
+
+    def project(self, coeffs, stack) -> np.ndarray:
+        """Apply an arbitrary (R, C) coefficient matrix to a (C, N) stack ->
+        (R, N) ndarray, through this encoder's kernel: a holder's repair
+        projection, where C is its local survivor count, not data_shards.
+        `gf8.gf_project` is the host golden it equals."""
+        return np.asarray(self.project_lazy(coeffs, stack))
+
+    def project_lazy(self, coeffs, stack, donate: bool = False) -> LazyResult:
+        """`project` as a lazy result: the trace rebuild's combine (the XOR
+        of holder projections is the all-ones row applied to their stack)."""
+        coeffs = np.asarray(coeffs, dtype=np.uint8)
+        stack = np.asarray(stack, dtype=np.uint8)
+        if coeffs.ndim != 2 or stack.ndim != 2:
+            raise ValueError(
+                f"want (R, C) coeffs and (C, N) stack, got {coeffs.shape} and {stack.shape}"
+            )
+        if coeffs.shape[1] != stack.shape[0]:
+            raise ValueError(f"coeff cols {coeffs.shape[1]} != stack rows {stack.shape[0]}")
+        return self._apply_lazy(coeffs, stack, donate=donate)
+
+    def reconstruct_block(self, staging, blocks: Sequence[dict]) -> _FusedBlocks:
+        """Block-diagonal decode of one (max_k, W) staging batch that packs
+        several signature groups' survivor columns side by side.
+
+        Block g is a dict with `survivors` and `wanted` (shard ids),
+        `col_start` and `width` (its column range, disjoint from the
+        others') and an optional `encoder` (its geometry; default self).
+        Its survivor rows are staging[:k_g, col_start:col_start + width] and
+        its decoded shards land in the same columns of the (max_m, W)
+        result, rows [0, len(wanted_g)); the rest is unspecified. The batch
+        goes to the device in one copy; each block is one launch of this
+        encoder's kernel on a column view of it (so at any byte offset),
+        and the result comes back in one copy when it is read."""
+        if len(staging.shape) != 2:
+            raise ValueError(f"want a 2-D (max_k, W) staging batch, got {tuple(staging.shape)}")
+        if not blocks:
+            raise ValueError("blocks must name at least one signature group")
+        max_k, width_total = staging.shape
+        spans = []
+        for g, b in enumerate(blocks):
+            enc = b.get("encoder") or self
+            c0, w = int(b["col_start"]), int(b["width"])
+            if w <= 0 or c0 < 0 or c0 + w > width_total:
+                raise ValueError(
+                    f"block {g} columns [{c0}, {c0 + w}) outside staging width {width_total}"
+                )
+            if enc.data_shards > max_k:
+                raise ValueError(
+                    f"block {g} needs {enc.data_shards} survivor rows, staging has {max_k}"
+                )
+            spans.append((enc.data_shards, enc.reconstruction_matrix(b["survivors"], b["wanted"]),
+                          c0, w))
+        by_col = sorted(spans, key=lambda s: s[2])
+        for (_, _, a0, aw), (_, _, b0, _) in zip(by_col, by_col[1:]):
+            if a0 + aw > b0:
+                raise ValueError("block column ranges overlap")
+        max_m = max(m.shape[0] for _, m, _, _ in spans)
+        end = max(c0 + w for _, _, c0, w in spans)
+        dev, src = self._to_device(staging[:, :end])
+        out = torch.empty((max_m, width_total), dtype=torch.uint8, device=self.device)
+        for k, m, c0, w in spans:
+            out[: m.shape[0], c0 : c0 + w] = rs_cuda.apply_matrix(
+                m, dev[:k, c0 : c0 + w], self.tile, self.variant
+            )
+        return _FusedBlocks(out, src, [(m.shape[0], c0, w) for _, m, c0, w in spans])
 
     def reconstruct_batch(
         self, stack, survivors: Sequence[int], wanted: Sequence[int], bucketed: bool = False

@@ -35,6 +35,16 @@ def _nonneg_float(raw: str) -> float:
     return max(0.0, float(raw))
 
 
+def _enum(*allowed: str) -> Callable[[str], str]:
+    def parse(raw: str) -> str:
+        v = raw.strip().lower()
+        if v not in allowed:
+            raise ValueError(f"expected one of {allowed}, got {raw!r}")
+        return v
+
+    return parse
+
+
 ENV_REGISTRY: dict[str, EnvVar] = {
     v.name: v
     for v in (
@@ -83,6 +93,24 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             "Hedged survivor fetches: once a fetch has run past the peer's hedge "
             "delay, launch one backup against another holder; first success wins.",
             _flag,
+        ),
+        EnvVar(
+            "WEEDTPU_TRACE_CHUNK", 4 * 1024 * 1024,
+            "Projection-window sub-range size (bytes) a TraceSlabSource fetches "
+            "per request (clamped to >= 64 KiB).",
+            _at_least(64 * 1024),
+        ),
+        EnvVar(
+            "WEEDTPU_SLAB_FANOUT", 4,
+            "Concurrent sub-range fetches per remote slab or projection source, "
+            "spread across a shard's holders by least-inflight pick (clamped to >= 1).",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_REBUILD_FUSE", "on",
+            "'on' fuses every signature group of a rebuild_ec_files_batch call into "
+            "one block-diagonal decode pipeline; 'off' runs one pipeline per group.",
+            _enum("on", "off"),
         ),
         EnvVar(
             "WEEDTPU_HEDGE_DELAY_MS", 0.0,

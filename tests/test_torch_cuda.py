@@ -468,3 +468,225 @@ def test_kernels_launch_from_threads_with_different_shared_memory(card, variant)
     for t in threads:
         t.join(120)
     assert not errors, errors[:5]
+
+
+# -- the remote, trace and fused rebuilds on the card -------------------------------
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("local", [1, 3, 4, 10, 14])
+def test_project_on_card_equals_cpu(card, rows, local):
+    """A holder's projection: an (R, L) matrix over its L local survivors,
+    one launch, equal to the CPU encoder's."""
+    rng = np.random.default_rng(rows * 100 + local)
+    coeffs = rng.integers(0, 256, (rows, local), np.uint8)
+    stack = rng.integers(0, 256, (local, 70_001), np.uint8)
+    gpu, cpu = rs_codec.Encoder(10, 4, device=card), rs_codec.Encoder(10, 4, device="cpu")
+    before = rs_cuda.launches
+    got = gpu.project(coeffs, stack)
+    assert rs_cuda.launches == before + 1
+    assert np.array_equal(got, cpu.project(coeffs, stack))
+    assert np.array_equal(got, gf8.gf_project(coeffs, stack))
+
+
+@pytest.mark.parametrize("groups", [1, 3, 14])
+def test_trace_combine_on_a_short_strided_batch(card, groups):
+    """The combine's input is a column slice of a pinned ring slot, not
+    contiguous when the batch is short: the all-ones (1 x G) launch equals
+    the CPU's on it, and equals the XOR of the rows."""
+    gpu, cpu = rs_codec.Encoder(10, 4, device=card), rs_codec.Encoder(10, 4, device="cpu")
+    ring = stripe._ring(gpu, 3, (groups, 2 * 65536))
+    for fill in range(3):  # every slot once, each a short batch
+        slot = ring.take()
+        slot[:] = np.random.default_rng(groups * 10 + fill).integers(0, 256, slot.shape, np.uint8)
+        view = slot[:, : 2 * 40_001]
+        assert view.flags.c_contiguous == (groups == 1)  # one row is contiguous
+        combine = np.ones((1, groups), dtype=np.uint8)
+        lazy = gpu.project_lazy(combine, view)
+        want = np.bitwise_xor.reduce(view, axis=0)[None]
+        assert np.array_equal(np.asarray(lazy), want)
+        assert np.array_equal(cpu.project(combine, view), want)
+
+
+@pytest.mark.parametrize("variant", rs_cuda.KERNELS)
+@pytest.mark.parametrize("offset", [0, 3, 4097])
+def test_reconstruct_block_on_card_equals_cpu(card, variant, offset):
+    """Three geometries side by side from column `offset` of one (20, W)
+    staging batch: one launch per block on a device column view (rows at
+    any byte), equal to the CPU on every block's wanted rows."""
+    encs = {k: rs_codec.Encoder(k, m, kind, device=card, variant=variant)
+            for k, m, kind in ((10, 4, "vandermonde"), (12, 3, "cauchy"), (20, 4, "cauchy"))}
+    cpus = {k: rs_codec.Encoder(e.data_shards, e.parity_shards, e.matrix_kind, device="cpu")
+            for k, e in encs.items()}
+    specs = ((10, [0, 5, 13]), (12, [14]), (20, [1, 2, 20, 23]))
+    staging = np.random.default_rng(offset).integers(0, 256, (20, offset + 3 * 65_537 + 9), np.uint8)
+
+    def blocks(table):
+        out, col = [], offset
+        for k, missing in specs:
+            enc = table[k]
+            surv = [s for s in range(enc.total_shards) if s not in missing][:k]
+            out.append({"encoder": enc, "survivors": surv, "wanted": missing,
+                        "col_start": col, "width": 65_537})
+            col += 65_537
+        return out
+
+    before = rs_cuda.launches_by_variant.get(variant, 0)
+    got = np.asarray(encs[10].reconstruct_block(staging, blocks(encs)))
+    assert rs_cuda.launches_by_variant[variant] == before + 3
+    want = np.asarray(cpus[10].reconstruct_block(staging, blocks(cpus)))
+    assert got.shape == want.shape == (4, staging.shape[1])
+    for b in blocks(cpus):
+        rows, c0 = len(b["wanted"]), b["col_start"]
+        assert np.array_equal(got[:rows, c0 : c0 + 65_537], want[:rows, c0 : c0 + 65_537])
+
+
+def _card_shard_set(d, size: int = 4_000_000):
+    """A 10+4 shard set of a .dat whose shards (409 600 bytes) are no
+    multiple of the rebuilds' spans; -> (base, {shard: bytes})."""
+    base = os.path.join(str(d), "21")
+    with open(base + ".dat", "wb") as f:
+        f.write(np.random.default_rng(21).integers(0, 256, size, np.uint8).tobytes())
+    stripe.write_ec_files(base, 65536, 16384, buffer_size=16384,
+                          encoder=rs_codec.Encoder(10, 4, device="cpu"))
+    golden = {}
+    for s in range(14):
+        with open(stripe.shard_file_name(base, s), "rb") as f:
+            golden[s] = f.read()
+    return base, golden
+
+
+def test_projection_rebuild_on_card_with_threaded_holder_projections(card, tmp_path):
+    """Three remote groups whose holder half projects on the card, four
+    fetch threads per group at once, plus a local group: the rebuilt shard
+    equals the original, and the launches are one projection per fetched
+    chunk, one per local window and one combine per batch."""
+    import threading
+
+    base, golden = _card_shard_set(tmp_path)
+    missing = [5]
+    os.unlink(stripe.shard_file_name(base, 5))
+    shard_size = len(golden[0])
+    gpu = rs_codec.new_encoder()
+    survivors = stripe.find_local_shards(base)[:10]
+    plan = gpu.repair_projection_plan(survivors, missing)
+    cols = lambda sids: np.stack([plan[s] for s in sids], axis=1)  # noqa: E731
+    fetches, lock = [], threading.Lock()
+
+    def holder(sids):
+        def fetch(offset, size):
+            actual = max(0, min(size, shard_size - offset))
+            stack = np.empty((len(sids), actual), np.uint8)
+            for i, s in enumerate(sids):
+                with open(stripe.shard_file_name(base, s), "rb") as f:
+                    stripe.read_padded_into(f, offset, stack[i])
+            with lock:
+                fetches.append(threading.get_ident())
+            return gpu.project(cols(sids), stack).tobytes()
+        return fetch
+
+    parts = (survivors[:3], survivors[3:6], survivors[6:9])
+    groups = [stripe.TraceSlabSource(f"h{i}", sids, 1, holder(sids), chunk_bytes=65536, fanout=4)
+              for i, sids in enumerate(parts)]
+    groups.append(stripe.LocalProjectionSource([stripe.shard_file_name(base, survivors[9])],
+                                               cols(survivors[9:]), gpu))
+    span = 3 * 65536
+    n0 = rs_cuda.launches
+    try:
+        assert stripe.rebuild_ec_files_from_projections(
+            base, groups, shard_size, missing, encoder=gpu, buffer_size=65536,
+            max_batch_bytes=10 * span) == missing
+    finally:
+        for g in groups:
+            g.close()
+    batches = -(-shard_size // span)
+    assert shard_size % span
+    assert rs_cuda.launches - n0 == len(fetches) + 2 * batches
+    assert len(set(fetches)) > 1
+    assert sum(g.bytes_fetched for g in groups) == 3 * shard_size
+    with open(stripe.shard_file_name(base, 5), "rb") as f:
+        assert f.read() == golden[5]
+
+
+def test_remote_rebuild_on_card_fails_over(card, tmp_path):
+    base, golden = _card_shard_set(tmp_path)
+    for s in (0, 5, 10, 13):
+        os.unlink(stripe.shard_file_name(base, s))
+    import threading
+
+    calls, lock = {"dead": 0}, threading.Lock()
+
+    def fetch_for(s):
+        def fetch(addr, offset, size):
+            if addr == "dead":
+                with lock:
+                    calls["dead"] += 1
+                    gone = calls["dead"] > 3
+                if gone:
+                    raise IOError("holder gone")
+            with open(stripe.shard_file_name(base, s), "rb") as f:
+                return os.pread(f.fileno(), size, offset)
+        return fetch
+
+    sources = {s: stripe.RemoteSlabSource(s, ["dead", "live"], fetch_for(s), stripe_bytes=65536)
+               for s in range(14) if s not in (0, 5, 10, 13)}
+    n0 = rs_cuda.launches
+    try:
+        assert stripe.rebuild_ec_files_from_sources(
+            base, sources, len(golden[0]), encoder=rs_codec.new_encoder(), buffer_size=65536,
+            max_batch_bytes=10 * 2 * 65536) == [0, 5, 10, 13]
+    finally:
+        for src in sources.values():
+            src.close()
+    assert rs_cuda.launches - n0 == -(-len(golden[0]) // (2 * 65536))
+    assert any(src.failovers == ["dead"] for src in sources.values())
+    for s in (0, 5, 10, 13):
+        with open(stripe.shard_file_name(base, s), "rb") as f:
+            assert f.read() == golden[s]
+
+
+def test_batch_rebuild_on_card_fused_equals_unfused(card, tmp_path):
+    """Three volumes of three geometries: fused (one pipeline, one launch
+    per block per batch) and unfused (one pipeline per signature) give the
+    original shards."""
+    specs = ((31, 700_001, (10, 4, "vandermonde"), [0, 5, 10, 13]),
+             (32, 500_003, (12, 3, "cauchy"), [0, 13, 14]),
+             (33, 300_007, (10, 4, "vandermonde"), [2, 11]))
+    vols = []
+    for vid, size, (k, m, kind), missing in specs:
+        base = os.path.join(str(tmp_path), str(vid))
+        with open(base + ".dat", "wb") as f:
+            f.write(np.random.default_rng(vid).integers(0, 256, size, np.uint8).tobytes())
+        stripe.write_ec_files(base, 65536, 16384, buffer_size=16384,
+                              encoder=rs_codec.Encoder(k, m, kind, device="cpu"))
+        golden = {}
+        for s in missing:
+            with open(stripe.shard_file_name(base, s), "rb") as f:
+                golden[s] = f.read()
+        vols.append((base, rs_codec.Encoder(k, m, kind, device=card), missing, golden))
+    for fuse in (True, False):
+        jobs = []
+        for base, enc, missing, _ in vols:
+            for s in missing:
+                os.unlink(stripe.shard_file_name(base, s))
+            present = [s for s in range(enc.total_shards) if s not in missing]
+            jobs.append({"base": base, "encoder": enc, "missing": missing,
+                         "shard_size": os.path.getsize(stripe.shard_file_name(base, present[0])),
+                         "sources": {s: stripe.LocalSlabSource(stripe.shard_file_name(base, s))
+                                     for s in present}})
+        n0 = rs_cuda.launches
+        try:
+            res = stripe.rebuild_ec_files_batch(jobs, buffer_size=65536,
+                                                max_batch_bytes=12 * 65536, fuse=fuse)
+        finally:
+            for job in jobs:
+                for src in job["sources"].values():
+                    src.close()
+        assert not res["errors"] and res["signature_groups"] == 3
+        assert res["dispatch_groups"] == (1 if fuse else 3)
+        assert rs_cuda.launches > n0
+        for base, _, missing, golden in vols:
+            assert res["rebuilt"][base] == missing
+            for s in missing:
+                with open(stripe.shard_file_name(base, s), "rb") as f:
+                    assert f.read() == golden[s], (fuse, base, s)
