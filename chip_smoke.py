@@ -1,7 +1,6 @@
 """Drive the port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py [--seed N] [--dat-gib G] [--second-gib G] [--variant-gib G]
-                          [--repair-gib G]
 
 Phases, one JSON line each:
   device   the card (nvidia-smi name and power limit); exits 1 without CUDA
@@ -14,17 +13,22 @@ Phases, one JSON line each:
            at the three main-path shapes and the degraded read's three
            bucketed shapes (degraded4k (1, 10, 4096), degraded64k (3, 10,
            65536), degraded1m (2, 10, 1 MiB), R = 1), kernel_ms (20 launches in a CUDA
-           graph, replayed between CUDA events, per launch), call_ms
+           graph, replayed between CUDA events, per launch, their inputs
+           rotated over as many buffers as take twice the L2 (at most 20,
+           so degraded4k's and degraded64k's take less than the L2)), call_ms
            (one eager call of the wrapper, its host time included), and
            bound_ms/bound_by (`measure.bound_ms`: bytes, or the product at
            the variant's own tensor-core rate, bf16 989e12 op/s); one case
            has rows that are not 16-byte aligned (offset 3), so that the
            dma kernel's masked producer path runs on the card; the repair
-           phase's three shapes are timed too: project (a holder's (1, 3)
-           projection of 4 MiB), combine (the all-ones (1, 4) over 4 MiB)
-           and fused_block (a 12+3 decode, R = 3, C = 12, on a device view
-           at column 3 of a (20, 4 MiB + 128) staging batch; the same at
-           column 0, fused_block_aligned, for what the offset costs)
+           phase's shapes are timed too: project (a holder's (1, 3)
+           projection of 4 MiB), project_local (the local group's (1, 1)
+           projection of 4 MiB), combine (the all-ones (1, 4) over 4 MiB),
+           fused_block (a 12+3 decode, R = 3, C = 12, on a device view at
+           column 3 of a (20, 4 MiB + 128) staging batch; the same at
+           column 0, fused_block_aligned, for what the offset costs) and
+           fused_block_v10 (the 10+4 volume's (2, 10) decode, on a view at
+           column 5)
   dma_ring the dma kernel's ring as it launches (`gf_dma_plan`: stages,
            columns per pass, shared memory, blocks per SM by the occupancy
            calculator) at the main path's shapes and at (32, 32), checked
@@ -66,12 +70,14 @@ Phases, one JSON line each:
            window with `Encoder.project` on the card, and one
            `LocalProjectionSource`, combined by one launch per batch; (c)
            fused: volume 2 (LOST), a 12+3 volume losing 0/13/14 and a 10+4
-           volume losing 2/11 (default 256 MiB each) through
+           volume losing 2/11 (REPAIR_GIB each) through
            `rebuild_ec_files_batch`, fused then unfused. Each rebuilt file's
            CRC must equal the .eci and its sha256 the local rebuild's; each
-           path's launches must equal its batches (trace: holder
-           projections + local projections + one combine per batch; fused:
-           one per block per batch); wall seconds and GB/s (survivor bytes)
+           path's launches, counted by matrix shape where they launch
+           (`rs_cuda.launches_by_shape`), must equal its batches (trace:
+           one (1, 3) projection per holder fetch, one (1, 1) local
+           projection and one (1, 4) combine per batch; fused: one per
+           block per batch); wall seconds and GB/s (survivor bytes)
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -104,7 +110,10 @@ TRACE_GROUPS = ((0, 1, 2), (3, 4, 6), (7, 8, 9))
 #: the fused batch's two extra volumes and their losses (volume 2 loses LOST)
 FUSED_LOST = {"c12": (0, 13, 14), "v10": (2, 11)}
 #: the kernel cases the repair phase launches at
-REPAIR_SHAPES = ("project", "combine", "fused_block", "fused_block_aligned")
+REPAIR_SHAPES = ("project", "project_local", "combine", "fused_block", "fused_block_aligned",
+                 "fused_block_v10")
+#: the size in GiB of each of the fused batch's two extra volumes
+REPAIR_GIB = 0.25
 
 
 def check(ok: bool, what) -> None:
@@ -162,11 +171,15 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
     plan = enc.repair_projection_plan(TRACE_SURVIVORS, (5,))
     cases += [
         ("project", np.stack([plan[s] for s in TRACE_GROUPS[0]], axis=1), (3, 4 << 20), True),
+        ("project_local", np.stack([plan[s] for s in TRACE_SURVIVORS[9:]], axis=1),
+         (1, 4 << 20), True),
         ("combine", np.ones((1, len(TRACE_GROUPS) + 1), np.uint8), (4, 4 << 20), True),
     ]
     rows: dict[str, list[dict]] = {v: [] for v in KERNELS}
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
 
     def compare(label, m, data, timed, contiguous=None, twin=None):
+        """`twin()`, where given, makes another input laid out as `data`."""
         outs = {}
         for v in KERNELS:
             got = rs_cuda.apply_matrix(m, data, variant=v)
@@ -179,10 +192,14 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
             if timed:
                 c, r, n = m.shape[1], m.shape[0], data.shape[-1]
                 batch = data.shape[0] if data.ndim == 3 else 1
-                # launches alternate: together > the 50 MB L2
-                bufs = (data, data.clone() if twin is None else twin)
+                # the graph's 20 launches rotate over inputs that together
+                # take twice the L2, so that no launch finds its input there
+                n_bufs = min(20, max(2, -(-2 * l2 // data.numel()) + 1))
+                bufs = [data] + [data.clone() if twin is None else twin()
+                                 for _ in range(n_bufs - 1)]
                 row["kernel_ms"] = measure.graph_ms(
-                    lambda i: rs_cuda.apply_matrix(m, bufs[i % 2], variant=v))
+                    lambda i: rs_cuda.apply_matrix(m, bufs[i % n_bufs], variant=v))
+                row["rotated_inputs"] = n_bufs
                 del bufs
                 row["call_ms"] = measure.eager_ms(lambda: rs_cuda.apply_matrix(m, data, variant=v), 50)
                 row["plain_ms"] = measure.eager_ms(lambda: rs_cuda.plain_apply(m, data, variant=v), 3)
@@ -205,18 +222,24 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
     view = slot[:, 3:8324]
     compare("unaligned", par, view, False, contiguous=view.contiguous())
     del slot, view
-    # a fused block as `Encoder.reconstruct_block` launches it: the 12+3
-    # decode of three lost shards on a device view at column 3 of a staging
-    # batch whose rows are 4 MiB + 128 bytes apart
+    # fused blocks as `Encoder.reconstruct_block` launches them: the 12+3
+    # decode of three lost shards and the 10+4 decode of two, on device
+    # views at columns 3, 0 and 5 of staging batches whose rows are
+    # 4 MiB + 128 bytes apart
     c12 = rs_codec.Encoder(12, 3, "cauchy", device="cuda")
     m12 = c12.reconstruction_matrix(list(range(1, 13)), FUSED_LOST["c12"])
-    slots = [torch.from_numpy(rng.integers(0, 256, (20, (4 << 20) + 128), dtype=np.uint8)).cuda()
-             for _ in range(2)]
-    for label, c0 in (("fused_block", 3), ("fused_block_aligned", 0)):  # the offset's cost
-        view = slots[0][:12, c0 : c0 + (4 << 20)]
-        compare(label, m12, view, True, contiguous=view.contiguous(),
-                twin=slots[1][:12, c0 : c0 + (4 << 20)])
-    del slots, view
+    lost10 = FUSED_LOST["v10"]
+    m10 = enc.reconstruction_matrix([s for s in range(14) if s not in lost10][:10], lost10)
+    slot_shape = (20, (4 << 20) + 128)
+    slot = torch.from_numpy(rng.integers(0, 256, slot_shape, dtype=np.uint8)).cuda()
+    for label, m, c0 in (("fused_block", m12, 3), ("fused_block_aligned", m12, 0),  # the offset's cost
+                         ("fused_block_v10", m10, 5)):
+        k, cols = m.shape[1], slice(c0, c0 + (4 << 20))
+        view = slot[:k, cols]
+        compare(label, m, view, True, contiguous=view.contiguous(),
+                twin=lambda k=k, cols=cols: torch.randint(
+                    0, 256, slot_shape, dtype=torch.uint8, device="cuda")[:k, cols])
+    del slot, view
     torch.cuda.empty_cache()
     return rows
 
@@ -634,16 +657,34 @@ def _crc_file(path: str) -> int:
     return crc
 
 
-def _check_rebuilt(base: str, shards, golden: dict, what: str) -> None:
+def _check_rebuilt(base: str, shards, golden: dict, what: str) -> dict:
     """Each rebuilt shard's CRC equals the .eci record, and its sha256 the
-    one taken of the locally rebuilt file before it was deleted."""
+    one taken of the locally rebuilt file before it was deleted; returns
+    {shard: sha256}."""
     from seaweedfs_tpu_torch.ec import stripe
 
     crcs = stripe.read_ec_info(base)["shard_crc32"]
+    shas = {}
     for s in shards:
         path = stripe.shard_file_name(base, s)
         check(_crc_file(path) == crcs[s], f"{what}: shard {s} crc differs from the .eci")
-        check(sha256_file(path) == golden[s], f"{what}: shard {s} differs from the local rebuild's")
+        shas[s] = sha256_file(path)
+        check(shas[s] == golden[s], f"{what}: shard {s} differs from the local rebuild's")
+    return shas
+
+
+def _shape_launches(before: dict) -> dict:
+    """Launches by matrix (R, C) since the `rs_cuda.launches_by_shape`
+    snapshot `before`."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    now = dict(rs_cuda.launches_by_shape)
+    return {k: n - before.get(k, 0) for k, n in now.items() if n > before.get(k, 0)}
+
+
+def _shape_keys(by_shape: dict) -> dict:
+    """{"RxC": n}: launches by shape as a JSON object."""
+    return {f"{r}x{c}": n for (r, c), n in sorted(by_shape.items())}
 
 
 def _stage_drain(recorded: list) -> dict:
@@ -686,21 +727,23 @@ def repair_remote(base: str, enc, golden: dict, on_card: bool) -> dict:
             stack.callback(os.close, fd)
             holders = ["dying" if s in (1, 6) else f"p{s}", f"b{s}"]
             sources[s] = stack.enter_context(stripe.RemoteSlabSource(s, holders, make_fetch(fd)))
-        n0 = rs_cuda.launches
+        n0, shape0 = rs_cuda.launches, dict(rs_cuda.launches_by_shape)
         with trace.collect() as spans:
             t0 = time.perf_counter()
             rebuilt = stripe.rebuild_ec_files_from_sources(base, sources, shard, encoder=enc)
             seconds = time.perf_counter() - t0
-        launches = rs_cuda.launches - n0
+        launches, by_shape = rs_cuda.launches - n0, _shape_launches(shape0)
     batches = sum(x["name"] == "rebuild.stage" for x in spans)
     failovers = {s: src.failovers for s, src in sources.items() if src.failovers}
     check(rebuilt == list(LOST), f"remote rebuilt {rebuilt}")
     _check_rebuilt(base, LOST, golden, "remote")
     check(sorted(failovers) in ([1], [6], [1, 6]) and served["dying"] > 3,
           f"no failover where the holder died: {failovers}, {served}")
-    check(launches == batches or not on_card, f"remote: {launches} launches for {batches} batches")
+    check(by_shape == ({(len(LOST), 10): batches} if on_card else {}),
+          f"remote: launches {by_shape} for {batches} batches")
     return {"shard_bytes": shard, "seconds": seconds, "gbps": 10 * shard / seconds / 1e9,
-            "batches": batches, "launches": launches, "failovers": failovers,
+            "batches": batches, "launches": launches,
+            "launches_by_shape": _shape_keys(by_shape), "failovers": failovers,
             "dying_fetches": served["dying"],
             "bytes_fetched": sum(src.bytes_fetched for src in sources.values()),
             "span_s": _stage_drain(spans)}
@@ -746,25 +789,29 @@ def repair_trace(base: str, enc, golden: dict, on_card: bool) -> dict:
         local = TRACE_SURVIVORS[9:]
         groups.append(stack.enter_context(stripe.LocalProjectionSource(
             [stripe.shard_file_name(base, s) for s in local], cols(local), enc)))
-        n0 = rs_cuda.launches
+        n0, shape0 = rs_cuda.launches, dict(rs_cuda.launches_by_shape)
         with trace.collect() as spans:
             t0 = time.perf_counter()
             rebuilt = stripe.rebuild_ec_files_from_projections(base, groups, shard, [5], encoder=enc)
             seconds = time.perf_counter() - t0
-        launches = rs_cuda.launches - n0
+        launches, by_shape = rs_cuda.launches - n0, _shape_launches(shape0)
     batches = sum(x["name"] == "rebuild.stage" for x in spans)
     wire = sum(g.bytes_fetched for g in groups)
     check(rebuilt == [5], f"trace rebuilt {rebuilt}")
     _check_rebuilt(base, [5], golden, "trace")
     check(wire == len(TRACE_GROUPS) * shard < 9 * shard, f"trace wire bytes {wire}")
-    # one launch per holder projection, per local window and per combine
-    combines = launches - projections["n"] - batches
-    check(combines == batches or not on_card,
-          f"trace: {launches} launches, {projections['n']} holder projections, {batches} batches")
+    # each kind launches at its own (R, C): a holder's (1, 3) projection per
+    # fetch, the local group's (1, 1) projection and the (1, 4) combine per
+    # batch
+    kinds = {"holder_projections": (1, 3), "local_projections": (1, 1), "combines": (1, 4)}
+    by_kind = {kind: by_shape.get(rc, 0) for kind, rc in kinds.items()}
+    want = {"holder_projections": projections["n"], "local_projections": batches,
+            "combines": batches}
+    check((by_kind == want and sum(by_kind.values()) == launches) if on_card else not by_shape,
+          f"trace: launches {by_shape} by shape, want {want}")
     return {"shard_bytes": shard, "seconds": seconds, "gbps": 10 * shard / seconds / 1e9,
-            "batches": batches, "launches": launches,
-            "launches_by_kind": {"holder_projections": projections["n"],
-                                 "local_projections": batches, "combines": combines},
+            "batches": batches, "launches": launches, "holder_fetches": projections["n"],
+            "launches_by_kind": by_kind,
             "wire_bytes": wire, "slab_wire_bytes": 9 * shard, "span_s": _stage_drain(spans)}
 
 
@@ -776,7 +823,7 @@ def repair_fused(vols: list, enc, goldens: dict, on_card: bool) -> dict:
     from seaweedfs_tpu_torch.obs import trace
     from seaweedfs_tpu_torch.ops import rs_cuda
 
-    runs = {}
+    runs, shas = {}, {}
     for fuse in (True, False):
         with contextlib.ExitStack() as stack:
             jobs = []
@@ -791,30 +838,34 @@ def repair_fused(vols: list, enc, goldens: dict, on_card: bool) -> dict:
                     "sources": {s: stack.enter_context(
                         stripe.LocalSlabSource(stripe.shard_file_name(base, s))) for s in present},
                 })
-            n0 = rs_cuda.launches
+            n0, shape0 = rs_cuda.launches, dict(rs_cuda.launches_by_shape)
             with trace.collect() as spans:
                 t0 = time.perf_counter()
                 res = stripe.rebuild_ec_files_batch(jobs, encoder=enc, fuse=fuse)
                 seconds = time.perf_counter() - t0
-            launches = rs_cuda.launches - n0
+            launches, by_shape = rs_cuda.launches - n0, _shape_launches(shape0)
         check(not res["errors"], f"fused={fuse}: {res['errors']}")
         check(res["signature_groups"] == 3 and res["dispatch_groups"] == (1 if fuse else 3), res)
         check(res["rebuilt"] == {b: list(lost) for b, lost in vols}, res["rebuilt"])
-        for base, lost in vols:
-            _check_rebuilt(base, lost, goldens[base], f"fused={fuse}")
-        # the launches each pipeline makes: one per block per batch fused,
-        # one per batch of each signature's own pipeline unfused
+        shas[fuse] = {b: _check_rebuilt(b, lost, goldens[b], f"fused={fuse}") for b, lost in vols}
+        # the launches each pipeline makes, at its volume's (len(lost), k):
+        # one per block per batch fused, one per batch of each signature's
+        # own pipeline unfused
         sizes = [j["shard_size"] for j in jobs]
         if fuse:
             span = _aligned_span(max(j["encoder"].data_shards for j in jobs))
             starts = np.cumsum([0] + sizes)
-            want = sum((b - 1) // span - a // span + 1 for a, b in zip(starts, starts[1:]))
+            per_volume = [(b - 1) // span - a // span + 1 for a, b in zip(starts, starts[1:])]
         else:
-            want = sum(-(-n // _aligned_span(j["encoder"].data_shards)) for n, j in zip(sizes, jobs))
-        check(launches == want or not on_card, f"fused={fuse}: {launches} launches, want {want}")
+            per_volume = [-(-n // _aligned_span(j["encoder"].data_shards))
+                          for n, j in zip(sizes, jobs)]
+        want = {(len(j["missing"]), j["encoder"].data_shards): n for j, n in zip(jobs, per_volume)}
+        check(by_shape == (want if on_card else {}) and sum(by_shape.values()) == launches,
+              f"fused={fuse}: launches {by_shape} by shape, want {want}")
         survivor_bytes = sum(j["encoder"].data_shards * j["shard_size"] for j in jobs)
         runs["fused" if fuse else "unfused"] = {
             "seconds": seconds, "gbps": survivor_bytes / seconds / 1e9, "launches": launches,
+            "launches_by_shape": _shape_keys(by_shape),
             "batches": sum(x["name"] == "rebuild.stage" for x in spans),
             "dispatch_groups": res["dispatch_groups"], "signature_groups": res["signature_groups"],
             "volumes_fused": res["volumes_fused"], "span_s": _stage_drain(spans),
@@ -823,7 +874,8 @@ def repair_fused(vols: list, enc, goldens: dict, on_card: bool) -> dict:
                         "geometry": stripe.geometry_from_info(stripe.read_ec_info(b)).family,
                         "shard_bytes": os.path.getsize(stripe.shard_file_name(b, lost[0]))}
                        for b, lost in vols]
-    runs["same_bytes"] = True  # both runs matched the same sha256s
+    check(shas[True] == shas[False], "the fused and unfused runs wrote different bytes")
+    runs["same_bytes"] = shas[True] == shas[False]
     return runs
 
 
@@ -832,7 +884,7 @@ def _aligned_span(k: int, buffer_size: int = 4 << 20, max_batch_bytes: int = 64 
     return max(1, max_batch_bytes // (k * buffer_size)) * buffer_size
 
 
-def run_repair(scratch: str, seed: int, card: str, extra_gib: float = 0.25,
+def run_repair(scratch: str, seed: int, card: str, extra_gib: float = REPAIR_GIB,
                device: str = "cuda") -> dict:
     """The repair phase over volumes 1 and 2 as `run_volume` left them
     (every shard present, the lost ones rebuilt locally): golden sha256s of
@@ -870,7 +922,6 @@ def main(argv=None) -> int:
     ap.add_argument("--dat-gib", type=float, default=4.0)
     ap.add_argument("--second-gib", type=float, default=1.0)
     ap.add_argument("--variant-gib", type=float, default=1.0)
-    ap.add_argument("--repair-gib", type=float, default=0.25)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -909,7 +960,7 @@ def main(argv=None) -> int:
         # .dat + 14 shards of the larger volume, then the decoded .dat, and
         # the repair phase's two volumes
         need = int(2.5 * (max(args.dat_gib, args.second_gib, args.variant_gib)
-                          + 2 * args.repair_gib) * (1 << 30))
+                          + 2 * REPAIR_GIB) * (1 << 30))
         free = shutil.disk_usage(SCRATCH).free
         check(free > need, f"{free} bytes free under {SCRATCH}, the e2e phase needs {need}")
         rs_cuda.reset_launches()  # the main path's run starts here
@@ -926,7 +977,7 @@ def main(argv=None) -> int:
         emit({"phase": "e2e", "card": card, "volumes": vols, "launches": main_launches})
         emit({"phase": "degraded_read", "card": card, "volumes": [r for r in reads if r]})
         # the repair path counts its own launches (reset inside, read after)
-        repair = run_repair(SCRATCH, args.seed, card, args.repair_gib)
+        repair = run_repair(SCRATCH, args.seed, card)
         emit({"phase": "repair", **repair})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)

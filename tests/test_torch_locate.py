@@ -212,13 +212,14 @@ def test_launch_counts_are_exact_under_threads():
     """The card path's counter (`rs_cuda.count_launch`, called once per
     kernel launch) from 16 threads at once: no increment is lost."""
     total0, by0 = rs_cuda.launches, dict(rs_cuda.launches_by_variant)
-    per, variants = 4000, ("int8", "dma")
+    shape0 = dict(rs_cuda.launches_by_shape)
+    per, variants, shapes = 4000, ("int8", "dma"), ((1, 3), (4, 10))
     start = threading.Barrier(16)
 
     def hammer(i):
         start.wait()
         for _ in range(per):
-            rs_cuda.count_launch(variants[i % 2])
+            rs_cuda.count_launch(variants[i % 2], shapes[i % 2])
 
     threads = [threading.Thread(target=hammer, args=(i,)) for i in range(16)]
     interval = sys.getswitchinterval()
@@ -234,5 +235,8 @@ def test_launch_counts_are_exact_under_threads():
     assert rs_cuda.launches == total0 + 16 * per
     for v in variants:
         assert rs_cuda.launches_by_variant[v] == by0.get(v, 0) + 8 * per
+    for shape in shapes:
+        assert rs_cuda.launches_by_shape[shape] == shape0.get(shape, 0) + 8 * per
     rs_cuda.reset_launches()
     assert rs_cuda.launches == 0 and rs_cuda.launches_by_variant == {}
+    assert rs_cuda.launches_by_shape == {}
