@@ -28,7 +28,11 @@ Phases, one JSON line each:
            column 3 of a (20, 4 MiB + 128) staging batch; the same at
            column 0, fused_block_aligned, for what the offset costs) and
            fused_block_v10 (the 10+4 volume's (2, 10) decode, on a view at
-           column 5)
+           column 5); and the ingest, convert and scrub phases' shapes:
+           delta_odd and delta_1m (an overwrite's parity column, R = 4,
+           C = 1, at 4113 bytes and at 1 MiB), encode_c12 and encode_m20
+           (the 12+3 and 20+4 parity products over 4 MiB) and rebuild_m20
+           (the 20+4 decode of three lost shards, (3, 20), over 4 MiB)
   dma_ring the dma kernel's ring as it launches (`gf_dma_plan`: stages,
            columns per pass, shared memory, blocks per SM by the occupancy
            calculator) at the main path's shapes and at (32, 32), checked
@@ -78,6 +82,34 @@ Phases, one JSON line each:
            one (1, 3) projection per holder fetch, one (1, 1) local
            projection and one (1, 4) combine per batch; fused: one per
            block per batch); wall seconds and GB/s (survivor bytes)
+  ingest   (the earlier volumes removed first) a 2 GiB volume laid out as
+           `make_volume` lays one out grows in 8 MiB appends, each followed
+           by `InlineStripeBuilder.poll()` (64 MiB large blocks, so rows 0-2
+           of 640 MiB encode inline), takes 64 seeded overwrites of 4 KiB to
+           1 MiB into encoded rows (every fourth across a block edge) through
+           `overwrite(..., mutate=...)`, and seals; every shard's sha256 and
+           the .eci must equal a warm `write_ec_files` of the final .dat,
+           and the launches by (R, C) must be the batches' (4, 10) plus one
+           (4, 1) per patched segment. An `IngestManager` over a stand-in
+           store then seals a 160 MiB volume on its worker and seal threads.
+           Seconds of the appends, polls, overwrites and seal against the
+           warm encode's
+  convert  the sealed volume, its .dat kept aside: (a) data shards 0 and 7
+           deleted, `convert_ec_files` to cauchy_12_3 (verify on); (b)
+           `cutover`, then the port's EcVolume reads 64 sampled needles with
+           shards 0, 5 and 13 away; (c) cauchy_12_3 -> merge_20_4 from the
+           healthy set, `cutover`, the same needles at 20+4. Each staged set
+           must equal a warm encode of the kept .dat at its family, every
+           needle the .dat's bytes, the (1, 10) launches the degraded runs
+           decoded and the parity launches the conversion's batches; the
+           degraded runs' reconstructs are timed (`reconstruct_s`)
+  scrub    on the 20+4 set: a byte flipped in shard 5, shard 9 one byte
+           short, shard 21 deleted; one unthrottled `Scrubber.run_cycle()`
+           (4 MiB chunks) whose findings quarantine on the EcVolume must be
+           exactly those three; needles on shard 5 read through
+           reconstruction; the three rebuilt by `rebuild_ec_files` (one
+           (3, 20) launch per batch), remounted, and `verify_ec_volume` all
+           ok with no quarantine entry left in the cursor
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -114,6 +146,21 @@ REPAIR_SHAPES = ("project", "project_local", "combine", "fused_block", "fused_bl
                  "fused_block_v10")
 #: the size in GiB of each of the fused batch's two extra volumes
 REPAIR_GIB = 0.25
+#: the kernel cases the ingest, convert and scrub phases launch at
+SLICE_SHAPES = ("delta_odd", "delta_1m", "encode_c12", "encode_m20", "rebuild_m20")
+#: the ingest phase's volume: .dat GiB, large block, append size, overwrites
+INGEST_GIB = 2.0
+INGEST_LARGE = 64 << 20
+INGEST_APPEND = 8 << 20
+OVERWRITES = 64
+#: the convert phase's lost source data shards, and the 12+3 set's lost
+#: shards while its needles are read
+CONVERT_LOST = (0, 7)
+C12_LOST = (0, 5, 13)
+#: the scrub phase's damage to the 20+4 set, by shard: its verdict
+SCRUB_DAMAGE = {5: "corrupt", 9: "truncated", 21: "missing"}
+#: needles sampled for the convert and scrub phases' reads
+NEEDLES = 64
 
 
 def check(ok: bool, what) -> None:
@@ -174,6 +221,19 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
         ("project_local", np.stack([plan[s] for s in TRACE_SURVIVORS[9:]], axis=1),
          (1, 4 << 20), True),
         ("combine", np.ones((1, len(TRACE_GROUPS) + 1), np.uint8), (4, 4 << 20), True),
+    ]
+    # the ingest, convert and scrub phases' launches: a delta's parity column
+    # (R = 4, C = 1) at an odd and a 1 MiB width, the 12+3 and 20+4 parity
+    # products, and the 20+4 decode of the scrub's three lost shards
+    m20 = rs_codec.Encoder(20, 4, "cauchy", device="cuda")
+    lost20 = tuple(SCRUB_DAMAGE)
+    cases += [
+        ("delta_odd", np.ascontiguousarray(par[:, 5:6]), (1, 4113), True),
+        ("delta_1m", np.ascontiguousarray(par[:, 5:6]), (1, 1 << 20), True),
+        ("encode_c12", gf8.parity_matrix(12, 3, "cauchy"), (12, 4 << 20), True),
+        ("encode_m20", m20.parity_matrix, (20, 4 << 20), True),
+        ("rebuild_m20", m20.reconstruction_matrix(
+            [s for s in range(24) if s not in lost20][:20], lost20), (20, 4 << 20), True),
     ]
     rows: dict[str, list[dict]] = {v: [] for v in KERNELS}
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
@@ -313,9 +373,12 @@ def run_sweep(seed: int) -> dict:
     }
 
 
-def make_volume(base: str, gib: float, seed: int) -> tuple[int, str]:
+def make_volume(base: str, gib: float, seed: int, on_append=None,
+                append_bytes: int = 64 << 20) -> tuple[int, str, list]:
     """A seeded .dat plus an .idx whose entries cover it (1 MiB needles, one
-    overwritten and one deleted); returns (size, sha256)."""
+    overwritten and one deleted); returns (size, sha256, keys). With
+    `on_append`, the .dat grows in `append_bytes` writes, each flushed and
+    followed by `on_append()` (the ingest phase's polls)."""
     size = int(gib * (1 << 30))
     rng = np.random.default_rng(seed)
     h = hashlib.sha256()
@@ -324,7 +387,12 @@ def make_volume(base: str, gib: float, seed: int) -> tuple[int, str]:
         left = size
         while left:
             b = rng.bytes(min(chunk, left))
-            f.write(b)
+            step = append_bytes if on_append is not None else len(b)
+            for i in range(0, len(b), step):
+                f.write(memoryview(b)[i: i + step])
+                if on_append is not None:
+                    f.flush()
+                    on_append()
             h.update(b)
             left -= len(b)
     span = 1 << 20
@@ -916,6 +984,388 @@ def run_repair(scratch: str, seed: int, card: str, extra_gib: float = REPAIR_GIB
     return out
 
 
+def _encode_batches(n_rows: int, block: int, buffer: int, max_batch: int, k: int) -> int:
+    """Batches (one launch each on a card) of one `_encode_rows` call: its
+    segments of `buffer` bytes per row, `max_batch // (k * buffer)` a batch."""
+    buffer = min(buffer, block)
+    return -(-n_rows * (block // buffer) // max(1, max_batch // (k * buffer)))
+
+
+def _convert_batches(dat_size: int, large: int, small: int, geom, buffer: int = 1 << 20,
+                     batch: int = 64 << 20, journal: int = 64 << 20) -> int:
+    """Launches of a conversion to `geom` at `convert_ec_files`' defaults: each
+    row tier in journal chunks of rows, one `_encode_rows` call per chunk."""
+    from seaweedfs_tpu_torch.ec import stripe
+
+    n_large, n_small = stripe.stripe_layout(dat_size, large, small, geom.data_shards)
+    total = 0
+    for block, rows in ((large, n_large), (small, n_small)):
+        per_chunk = max(1, journal // (block * geom.total_shards))
+        for row in range(0, rows, per_chunk):
+            total += _encode_batches(min(per_chunk, rows - row), block, buffer, batch,
+                                     geom.data_shards)
+    return total
+
+
+def _sha_set(base: str, total: int) -> list:
+    from seaweedfs_tpu_torch.ec import stripe
+
+    return [sha256_file(stripe.shard_file_name(base, s)) for s in range(total)]
+
+
+def _unlink_set(base: str, total: int) -> None:
+    from seaweedfs_tpu_torch.ec import stripe
+
+    for s in range(total):
+        os.remove(stripe.shard_file_name(base, s))
+    os.remove(base + ".eci")
+
+
+def _warm_oracle(kept: str, d: str, name: str, enc, large: int, small: int = 1 << 20) -> dict:
+    """sha256 of every shard and the .eci of a warm encode of the .dat
+    `kept` with `enc`, and its seconds; the files are removed after."""
+    from seaweedfs_tpu_torch.ec import stripe
+
+    ob = os.path.join(d, name)
+    os.link(kept, ob + ".dat")
+    t0 = time.perf_counter()
+    stripe.write_ec_files(ob, large, small, encoder=enc)
+    seconds = time.perf_counter() - t0
+    out = {"shards": _sha_set(ob, enc.total_shards), "eci": stripe.read_ec_info(ob),
+           "seconds": seconds}
+    _unlink_set(ob, enc.total_shards)
+    os.remove(ob + ".dat")
+    return out
+
+
+def run_ingest(scratch: str, seed: int, card: str, gib: float = INGEST_GIB,
+               large: int = INGEST_LARGE, append: int = INGEST_APPEND,
+               overwrites: int = OVERWRITES, manager_mib: int = 160,
+               device: str = "cuda") -> dict:
+    """The ingest phase (see the module doc). Returns its line, with the
+    volume's base, keys and size for the next phases under "_volume"."""
+    import threading
+
+    from seaweedfs_tpu_torch.ec import ingest, stripe
+    from seaweedfs_tpu_torch.ec.constants import EC_BUFFER_SIZE
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+
+    enc = rs_codec.new_encoder(device=device)
+    on_card = device == "cuda"
+    small, k = 1 << 20, enc.data_shards
+    d = os.path.join(scratch, "slice")
+    os.makedirs(d, exist_ok=True)
+    base = os.path.join(d, "1")
+    state = {"builder": None, "poll_s": 0.0, "polls": 0, "rows": []}
+
+    def on_append() -> None:
+        if state["builder"] is None:
+            state["builder"] = ingest.InlineStripeBuilder(base, enc, large, small)
+        t = time.perf_counter()
+        n = state["builder"].poll()
+        state["poll_s"] += time.perf_counter() - t
+        state["polls"] += 1
+        if n:
+            state["rows"].append(n)
+
+    rs_cuda.reset_launches()  # the ingest path's run starts here
+    t_grow = time.perf_counter()
+    size, _, keys = make_volume(base, gib, seed, on_append=on_append, append_bytes=append)
+    grow_s = time.perf_counter() - t_grow
+    b = state["builder"]
+    n_large, n_small = stripe.stripe_layout(size, large, small)
+    check(b.rows_done == n_large, f"ingest: {b.rows_done} rows inline, layout has {n_large}")
+    # overwrites into encoded rows; every fourth straddles a block edge
+    rng = np.random.default_rng(seed + 300)
+    limit = b.encoded_limit()
+    segments, patched = 0, 0
+    t0 = time.perf_counter()
+    with open(base + ".dat", "r+b") as f:
+        for i in range(overwrites):
+            length = int(rng.integers(4096, (1 << 20) + 1))
+            if i % 4 == 0:
+                off = int(rng.integers(1, limit // large)) * large - length // 2
+            else:
+                off = int(rng.integers(4096, limit - length))
+            f.seek(off)
+            old, new = f.read(length), rng.bytes(length)
+
+            def mutate(off=off, new=new) -> None:
+                f.seek(off)
+                f.write(new)
+                f.flush()
+
+            patched += b.overwrite(off, old, new, mutate=mutate)
+            segments += (off + length - 1) // large - off // large + 1
+    overwrite_s = time.perf_counter() - t0
+    delta = dict(b.delta_stats)
+    t0 = time.perf_counter()
+    info = b.seal()
+    seal_s = time.perf_counter() - t0
+    by_shape = _shape_launches({})
+    launches = dict(rs_cuda.launches_by_variant)
+    stripe.write_sorted_file_from_idx(base)
+    # the launches the phase predicts: a poll of n rows batches them under
+    # min(64 MiB, n rows); the seal encodes the small-row tail
+    want_batches = sum(_encode_batches(n, large, EC_BUFFER_SIZE, min(64 << 20, n * large * k), k)
+                       for n in state["rows"])
+    want_batches += _encode_batches(n_small, small, EC_BUFFER_SIZE, 64 << 20, k)
+    want = {(enc.parity_shards, k): want_batches, (enc.parity_shards, 1): segments}
+    check(by_shape == (want if on_card else {}), f"ingest: launches {by_shape}, want {want}")
+    check(delta["updates"] == overwrites and patched == delta["changed_bytes"],
+          f"ingest: delta stats {delta}, patched {patched}")
+    warm = _warm_oracle(base + ".dat", d, "warm", enc, large)
+    check(_sha_set(base, enc.total_shards) == warm["shards"],
+          "ingest: a sealed shard differs from the warm encode of the final .dat")
+    check(stripe.read_ec_info(base) == warm["eci"], "ingest: the .eci differs from the warm one")
+
+    # an IngestManager seals a small volume on its own threads: the worker
+    # polls, the seal trigger's thread seals, the main thread only appends
+    mbase = os.path.join(d, "m")
+    mlarge = 4 << 20
+
+    class _Vol:
+        base_path, dat_path, read_only, tiered = mbase, mbase + ".dat", False, False
+
+    class _Store:
+        encoder = enc
+
+        def get_volume(self, vid):
+            return _Vol()
+
+    sealed, threads, done = {}, set(), threading.Event()
+
+    def trigger(vid: int) -> None:
+        try:
+            threads.add(threading.current_thread().name)
+            sealed.update(mgr.seal_volume(vid, mbase))
+        finally:
+            done.set()
+
+    mgr = ingest.IngestManager(_Store(), seal_bytes=manager_mib << 20, large_block_size=mlarge,
+                               small_block_size=small, seal_trigger=trigger)
+    shape0, variant0 = dict(rs_cuda.launches_by_shape), dict(rs_cuda.launches_by_variant)
+    try:
+        t0 = time.perf_counter()
+        make_volume(mbase, manager_mib / 1024, seed + 301, on_append=lambda: mgr.on_write(2),
+                    append_bytes=append)
+        check(done.wait(300), "manager: the seal never finished")
+        manager_s = time.perf_counter() - t0
+    finally:
+        mgr.close()
+    manager_shape = _shape_launches(shape0)
+    for v, n in rs_cuda.launches_by_variant.items():
+        launches[v] = launches.get(v, 0) + n - variant0.get(v, 0)
+    check(sealed.get("mode") == "inline" and threads and "MainThread" not in threads,
+          f"manager: {sealed}, seal on {threads}")
+    check(sum(manager_shape.values()) > 0 or not on_card, "manager: no launch off the main thread")
+    mwarm = _warm_oracle(mbase + ".dat", d, "mwarm", enc, mlarge)
+    check(_sha_set(mbase, enc.total_shards) == mwarm["shards"], "manager: shards differ from warm")
+    _unlink_set(mbase, enc.total_shards)
+    for ext in (".dat", ".idx"):
+        os.remove(mbase + ext)
+    check(launches.get(enc.variant, 0) > 0 or not on_card,
+          f"the ingest path never launched {enc.variant}")
+    return {
+        "card": card, "variant": enc.variant, "dat_bytes": size, "large_block": large,
+        "append_bytes": append, "appends": state["polls"], "rows_inline": info["rows_inline"],
+        "rows_total": info["rows_total"], "small_rows": info["small_rows"],
+        "grow_s": grow_s, "poll_s": state["poll_s"], "overwrites": overwrites,
+        "overwrite_s": overwrite_s, "delta_updates": delta["updates"],
+        "delta_changed_bytes": delta["changed_bytes"], "delta_bytes": delta["accounted_bytes"],
+        "delta_segments": segments, "seal_s": seal_s, "warm_encode_s": warm["seconds"],
+        "launches_by_shape": _shape_keys(by_shape),
+        "manager": {"dat_bytes": manager_mib << 20, "mode": sealed["mode"],
+                    "seal_threads": sorted(threads), "seconds": manager_s,
+                    "launches_by_shape": _shape_keys(manager_shape)},
+        "launches": launches, "sha256_match": True, "eci_match": True,
+        "_volume": {"base": base, "keys": keys, "size": size, "large": large},
+    }
+
+
+def _sample_needles(keys: list, seed: int, n: int = NEEDLES) -> list:
+    rng = np.random.default_rng(seed + 400)
+    return sorted(int(i) for i in rng.choice(np.arange(1, len(keys) - 1),
+                                             min(n, len(keys) - 2), replace=False))
+
+
+def _read_needles(ev, keys: list, sample: list, kept: str) -> dict:
+    """Each sampled needle through `ev` against the kept .dat's bytes."""
+    from seaweedfs_tpu_torch.storage import types
+
+    record = types.actual_size((1 << 20) - 8)
+    t0 = time.perf_counter()
+    with open(kept, "rb") as f:
+        for i in sample:
+            check(ev.read_needle_blob(keys[i]) == _expected(f, 8 + i * (1 << 20), record),
+                  f"needle {keys[i]} differs from the .dat")
+    return {"needles": len(sample), "seconds": time.perf_counter() - t0}
+
+
+def run_convert(vol: dict, seed: int, card: str, device: str = "cuda") -> dict:
+    """The convert phase (see the module doc) on the sealed ingest volume."""
+    from seaweedfs_tpu_torch.ec import convert, ec_volume, stripe
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+
+    enc = rs_codec.new_encoder(device=device)
+    on_card = device == "cuda"
+    base, keys, size, large = vol["base"], vol["keys"], vol["size"], vol["large"]
+    d = os.path.dirname(base)
+    kept = os.path.join(d, "kept.dat")
+    os.replace(base + ".dat", kept)  # the conversions never read a .dat
+    sample = _sample_needles(keys, seed)
+    fams = ("cauchy_12_3", "merge_20_4")
+    oracles = {f: _warm_oracle(kept, d, f, rs_codec.new_encoder(family=f, device=device), large)
+               for f in fams}
+    rs_cuda.reset_launches()  # the convert path's run starts here
+    runs, run_s = [], []
+    reconstruct = enc.reconstruct
+
+    def counted(shards, **kw):  # a degraded run's reconstruct, synchronous: host bytes back
+        runs.append(kw.get("wanted"))
+        t = time.perf_counter()
+        rec = reconstruct(shards, **kw)
+        run_s.append(time.perf_counter() - t)
+        return rec
+
+    enc.reconstruct = counted
+    out = {"card": card, "variant": enc.variant, "dat_bytes": size}
+    for step, (fam, lost) in enumerate(((fams[0], CONVERT_LOST), (fams[1], ()))):
+        for s in lost:
+            os.remove(stripe.shard_file_name(base, s))
+        geom = rs_codec.geometry_for(fam)
+        shape0, n_runs = dict(rs_cuda.launches_by_shape), len(runs)
+        t0 = time.perf_counter()
+        res = convert.convert_ec_files(base, fam, encoder=enc)
+        seconds = time.perf_counter() - t0
+        by_shape = _shape_launches(shape0)
+        staged = convert.stage_base(base)
+        check(_sha_set(staged, geom.total_shards) == oracles[fam]["shards"],
+              f"convert to {fam}: a staged shard differs from the warm encode")
+        check(stripe.read_ec_info(staged) == oracles[fam]["eci"], f"convert to {fam}: .eci differs")
+        decoded = len(runs) - n_runs
+        decode_s = sum(run_s[n_runs:])
+        check((res["reconstructed_bytes"] > 0) == bool(lost) and bool(decoded) == bool(lost),
+              f"convert to {fam}: {res['reconstructed_bytes']} bytes from {decoded} runs")
+        want = {(geom.parity_shards, geom.data_shards): _convert_batches(size, large, 1 << 20, geom)}
+        if lost:
+            want[(1, 10)] = decoded
+        check(by_shape == (want if on_card else {}), f"convert to {fam}: {by_shape}, want {want}")
+        acct = convert.reencode_oracle_bytes(base, fam)
+        check(acct["total"] == 3 * size + res["bytes_written"], f"oracle bytes {acct}")
+        convert.cutover(base)
+        # (b) the 12+3 set read with three shards lost; (c) the 20+4 set whole
+        aside = C12_LOST if step == 0 else ()
+        for s in aside:
+            os.replace(stripe.shard_file_name(base, s), stripe.shard_file_name(base, s) + ".aside")
+        shape1 = dict(rs_cuda.launches_by_shape)
+        with ec_volume.EcVolume(base, encoder=enc, warm_on_mount=False) as ev:
+            check((ev.data_shards, ev.total_shards) == (geom.data_shards, geom.total_shards),
+                  f"mounted {ev.data_shards} of {ev.total_shards} after cut-over to {fam}")
+            reads = _read_needles(ev, keys, sample, kept)
+        for s in aside:
+            os.replace(stripe.shard_file_name(base, s) + ".aside", stripe.shard_file_name(base, s))
+        reads["lost"] = list(aside)
+        reads["launches_by_shape"] = _shape_keys(_shape_launches(shape1))
+        out[f"to_{fam}"] = {
+            "seconds": seconds, "dat_gbps": size / seconds / 1e9, "lost": list(lost),
+            "bytes_read": res["bytes_read"], "bytes_written": res["bytes_written"],
+            "reconstructed_bytes": res["reconstructed_bytes"], "degraded_runs": decoded,
+            "reconstruct_s": decode_s, "reconstruct_share": decode_s / seconds,
+            "launches_by_shape": _shape_keys(by_shape), "oracle_bytes": acct["total"],
+            "warm_oracle_s": oracles[fam]["seconds"], "reads": reads,
+        }
+    enc.reconstruct = reconstruct
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    check(out["launches"].get(enc.variant, 0) > 0 or not on_card,
+          f"the convert path never launched {enc.variant}")
+    out.update(sha256_match=True, needles_equal=True, _kept=kept, _sample=sample)
+    return out
+
+
+def run_scrub(vol: dict, kept: str, sample: list, card: str, device: str = "cuda") -> dict:
+    """The scrub phase (see the module doc) on the 20+4 set the convert
+    phase left."""
+    from seaweedfs_tpu_torch.ec import ec_volume, scrub, stripe
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+
+    enc = rs_codec.new_encoder(device=device)
+    on_card = device == "cuda"
+    base, keys = vol["base"], vol["keys"]
+    cursor = scrub.ScrubCursor(os.path.join(os.path.dirname(base), "scrub_cursor.json"))
+    with ec_volume.EcVolume(base, encoder=enc, warm_on_mount=False) as ev:
+        total = ev.total_shards
+        shard = os.path.getsize(stripe.shard_file_name(base, 0))
+        for s, verdict in SCRUB_DAMAGE.items():
+            path = stripe.shard_file_name(base, s)
+            if verdict == "corrupt":
+                with open(path, "r+b") as f:
+                    f.seek(shard // 2)
+                    byte = f.read(1)[0]
+                    f.seek(shard // 2)
+                    f.write(bytes([byte ^ 0x40]))
+            elif verdict == "truncated":
+                os.truncate(path, shard - 1)
+            else:
+                os.remove(path)
+        rs_cuda.reset_launches()  # the scrub path's run starts here
+
+        def on_finding(vid: int, s: int, verdict: str) -> None:
+            ev.quarantine_shard(s, verdict)
+            cursor.add_quarantine(vid, s, verdict)
+
+        scrubber = scrub.Scrubber(volumes=lambda: {1: ev}, on_finding=on_finding, cursor_path="",
+                                  cursor=cursor, rate_mb=0.0, chunk_bytes=4 << 20)
+        t0 = time.perf_counter()
+        found = scrubber.run_cycle()
+        scan_s = time.perf_counter() - t0
+        check({s: v for _, s, v in found["findings"]} == SCRUB_DAMAGE
+              and found["shards_ok"] == total - len(SCRUB_DAMAGE),
+              f"scrub findings {found['findings']}, {found['shards_ok']} ok")
+        # needles with an interval on the corrupt shard read through reconstruction
+        bad = next(s for s, v in SCRUB_DAMAGE.items() if v == "corrupt")
+        on_bad = [i for i in sample if any(
+            iv.to_shard_id_and_offset(ev.large, ev.small)[0] == bad
+            for iv in ev.locate_needle(keys[i])[2])]
+        check(on_bad, f"no sampled needle lies on shard {bad}")
+        shape0 = dict(rs_cuda.launches_by_shape)
+        reads = _read_needles(ev, keys, on_bad, kept)
+        reads["launches_by_shape"] = _shape_keys(_shape_launches(shape0))
+        check(bool(reads["launches_by_shape"]) or not on_card, "quarantined reads launched nothing")
+        # the repair: the quarantined files rebuilt by the stripe engine
+        for q in cursor.quarantine:
+            path = stripe.shard_file_name(base, q["shard"])
+            if os.path.exists(path):
+                os.remove(path)
+        shape1 = dict(rs_cuda.launches_by_shape)
+        t0 = time.perf_counter()
+        rebuilt = stripe.rebuild_ec_files(base, encoder=ev.encoder)
+        repair_s = time.perf_counter() - t0
+        repair_shape = _shape_launches(shape1)
+        check(rebuilt == sorted(SCRUB_DAMAGE), f"rebuilt {rebuilt}")
+        want = {(len(SCRUB_DAMAGE), ev.data_shards): -(-shard // _aligned_span(ev.data_shards))}
+        check(repair_shape == (want if on_card else {}), f"repair: {repair_shape}, want {want}")
+        for q in list(cursor.quarantine):
+            check(ev.mount_local_shard(q["shard"]), f"remount of shard {q['shard']}")
+            cursor.remove_quarantine(q["vid"], q["shard"])
+        verdicts, has_crcs = scrub.verify_ec_volume(ev)
+        check(has_crcs and set(verdicts.values()) == {scrub.OK} and len(verdicts) == total,
+              f"after repair: {verdicts}")
+    check(scrub.ScrubCursor(cursor.path).quarantine == [], "the cursor keeps quarantine entries")
+    launches = dict(rs_cuda.launches_by_variant)
+    check(launches.get(enc.variant, 0) > 0 or not on_card,
+          f"the scrub path never launched {enc.variant}")
+    return {
+        "card": card, "variant": enc.variant, "shards": total, "shard_bytes": shard,
+        "scanned_bytes": found["scanned_bytes"], "scan_s": scan_s,
+        "scan_gbps": found["scanned_bytes"] / scan_s / 1e9,
+        "findings": {str(s): v for _, s, v in found["findings"]},
+        "quarantined_reads": reads, "repair_s": repair_s, "rebuilt": rebuilt,
+        "repair_launches_by_shape": _shape_keys(repair_shape), "verified": True,
+        "launches": launches,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -958,9 +1408,11 @@ def main(argv=None) -> int:
         sweep = run_sweep(args.seed)
         emit({"phase": "sweep", "card": card, **sweep})
         # .dat + 14 shards of the larger volume, then the decoded .dat, and
-        # the repair phase's two volumes
-        need = int(2.5 * (max(args.dat_gib, args.second_gib, args.variant_gib)
-                          + 2 * REPAIR_GIB) * (1 << 30))
+        # the repair phase's two volumes; the earlier volumes are removed
+        # before the ingest phase, whose peak is the .dat, its partials, a
+        # warm oracle set and a staged set
+        need = int(max(2.5 * (max(args.dat_gib, args.second_gib, args.variant_gib)
+                              + 2 * REPAIR_GIB), 5.1 * INGEST_GIB) * (1 << 30))
         free = shutil.disk_usage(SCRATCH).free
         check(free > need, f"{free} bytes free under {SCRATCH}, the e2e phase needs {need}")
         rs_cuda.reset_launches()  # the main path's run starts here
@@ -979,6 +1431,18 @@ def main(argv=None) -> int:
         # the repair path counts its own launches (reset inside, read after)
         repair = run_repair(SCRATCH, args.seed, card)
         emit({"phase": "repair", **repair})
+        for name in os.listdir(SCRATCH):  # the earlier volumes, before the slice's peak
+            if os.path.isfile(os.path.join(SCRATCH, name)):
+                os.remove(os.path.join(SCRATCH, name))
+        # the ingest, convert and scrub paths each count their own launches
+        slice_lines = {"ingest": run_ingest(SCRATCH, args.seed, card)}
+        vol = slice_lines["ingest"].pop("_volume")
+        emit({"phase": "ingest", **slice_lines["ingest"]})
+        slice_lines["convert"] = run_convert(vol, args.seed, card)
+        kept, sample = slice_lines["convert"].pop("_kept"), slice_lines["convert"].pop("_sample")
+        emit({"phase": "convert", **slice_lines["convert"]})
+        slice_lines["scrub"] = run_scrub(vol, kept, sample, card)
+        emit({"phase": "scrub", **slice_lines["scrub"]})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     idle = [v for v in KERNELS if not main_launches.get(v)]
@@ -1012,6 +1476,10 @@ def main(argv=None) -> int:
                 c["shape"]: {k: c[k] for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms",
                                                "bound_by")}
                 for c in rows if c["shape"] in REPAIR_SHAPES}},
+            "slice": {"launches": {p: line["launches"].get(v, 0) for p, line in slice_lines.items()},
+                      **{c["shape"]: {k: c[k] for k in ("kernel_ms", "call_ms", "plain_ms",
+                                                        "bound_ms", "bound_by")}
+                         for c in rows if c["shape"] in SLICE_SHAPES}},
         })
     emit({"kernels": table})
     print(card)

@@ -117,8 +117,22 @@ class _StagingRing:
         return buf
 
 
-def _ring(enc: Encoder, slots: int, shape: tuple) -> _StagingRing:
-    return _StagingRing(slots, shape, pinned=enc.device.type == "cuda")
+def _ring_for(cache: Optional[dict], enc: Encoder, slots: int, shape: tuple) -> _StagingRing:
+    """A staging ring of the requested geometry, kept across calls in the
+    caller's `cache` dict where one is given (an ingest builder's polls, a
+    conversion's chunks), so a poll does not pay a fresh pinned allocation.
+    The cache holds two geometries and evicts the oldest. Reuse is safe
+    because every `_encode_rows` call drains its batches before it returns."""
+    pinned = enc.device.type == "cuda"
+    if cache is None:
+        return _StagingRing(slots, shape, pinned=pinned)
+    key = (slots, shape, pinned)
+    ring = cache.get(key)
+    if ring is None:
+        while len(cache) >= 2:
+            cache.pop(next(iter(cache)))
+        ring = cache[key] = _StagingRing(slots, shape, pinned=pinned)
+    return ring
 
 
 def _aligned(width: int, align: int) -> int:
@@ -164,11 +178,13 @@ def _encode_rows(
     max_batch_bytes: int,
     pipeline_depth: Optional[int] = None,
     crcs: Optional[list] = None,
+    ring_cache: Optional[dict] = None,
 ) -> None:
     """Encode `n_rows` rows of `block_size` blocks as a stream of flat
     (k, width) dispatches over the staging ring; outputs receive bytes in
     row-major order. Data shards stream to disk at fill time; parity is
-    written FIFO as each batch drains (`np.asarray`, the sync point)."""
+    written FIFO as each batch drains (`np.asarray`, the sync point).
+    `ring_cache` (a caller-owned dict) keeps the ring across calls."""
     if n_rows <= 0:
         return
     if buffer_size > block_size:
@@ -181,7 +197,7 @@ def _encode_rows(
     segs_per_row = block_size // buffer_size
     batch_cap = max(1, max_batch_bytes // (k * buffer_size))
     span = _aligned(batch_cap * buffer_size, align)
-    ring = _ring(enc, depth + 1, (k, span))
+    ring = _ring_for(ring_cache, enc, depth + 1, (k, span))
     inflight: deque = deque()  # FIFO of (parity_handle, width)
 
     def drain_one() -> None:
@@ -868,7 +884,7 @@ def rebuild_ec_files_from_projections(
     chunks_per_batch = max(1, max_batch_bytes // (enc.data_shards * buffer_size))
     span = chunks_per_batch * buffer_size
     combine = np.ones((1, len(groups)), dtype=np.uint8)  # GF sum == XOR
-    ring = _ring(enc, depth + 1, (len(groups), rows * span))
+    ring = _ring_for(None, enc, depth + 1, (len(groups), rows * span))
     crcs = {s: 0 for s in missing}
     batches = _batch_windows(shard_size, span, buffer_size)
     try:
@@ -957,7 +973,7 @@ def rebuild_ec_files_from_sources(
     align = enc.width_align
     chunks_per_batch = max(1, max_batch_bytes // (enc.data_shards * buffer_size))
     span = _aligned(chunks_per_batch * buffer_size, align)
-    ring = _ring(enc, depth + 1, (enc.data_shards, span))
+    ring = _ring_for(None, enc, depth + 1, (enc.data_shards, span))
     crcs = {s: 0 for s in missing}
     batches = _batch_windows(shard_size, span, buffer_size)
     try:
@@ -1155,7 +1171,7 @@ def _rebuild_fused(
     align = max(e.width_align for e in encs)
     chunks_per_batch = max(1, max_batch_bytes // (max_k * buffer_size))
     span = _aligned(chunks_per_batch * buffer_size, align)
-    ring = _ring(encs[0], depth + 1, (max_k, span))
+    ring = _ring_for(None, encs[0], depth + 1, (max_k, span))
     flat = [(gi, job) for gi, members in enumerate(groups) for job in members]
     crcs = [{s: 0 for s in job["missing"]} for _, job in flat]
     failed: dict[int, str] = {}  # group index -> error
@@ -1261,7 +1277,7 @@ def _rebuild_group(
     missing = list(members[0]["missing"])
     chunks_per_batch = max(1, max_batch_bytes // (enc.data_shards * buffer_size))
     span = _aligned(chunks_per_batch * buffer_size, enc.width_align)
-    ring = _ring(enc, depth + 1, (enc.data_shards, span))
+    ring = _ring_for(None, enc, depth + 1, (enc.data_shards, span))
     crcs = [{s: 0 for s in missing} for _ in members]
     batches = _pack_segments([int(job["shard_size"]) for job in members], span)
     with ExitStack() as stack:

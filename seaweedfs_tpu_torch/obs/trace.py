@@ -27,6 +27,10 @@ SPAN_NAMES: dict[str, str] = {
     "ec.decode": "GF decode dispatch (backend + batch width in attrs)",
     "cache.hit": "interval served from the decoded-interval cache (no fan-out)",
     "cache.miss": "decoded-interval cache consulted and empty for this interval",
+    "ingest.encode": "inline-EC encode of newly final large rows (one poll)",
+    "ingest.seal": "inline-EC seal of one volume",
+    "scrub.cycle": "one full integrity pass over the mounted shards",
+    "convert.chunk": "one journaled chunk of a geometry conversion",
 }
 
 
@@ -98,6 +102,29 @@ def collect(klass: str = "healthy") -> Iterator[list]:
         yield root.collector.spans
     finally:
         _cv.reset(tok)
+
+
+@contextlib.contextmanager
+def start(kind: str, klass: str = "healthy") -> Iterator[_NullSpan]:
+    """A root span for background work (an ingest poll, a scrub cycle). A
+    root begins a trace of its own, and the trace ring that would keep it
+    belongs to the serving stack: until that exists, the root takes
+    attributes and records nothing, and the spans under it are no-ops."""
+    if kind not in SPAN_NAMES:
+        raise ValueError(f"unregistered span name {kind!r}")
+    tok = _cv.set(None)
+    try:
+        yield _NULL
+    finally:
+        _cv.reset(tok)
+
+
+def ensure(kind: str, klass: str = "maint"):
+    """A span under the ambient one when there is one, else a fresh root
+    (`start`): maintenance paths nest when a caller collects."""
+    if _cv.get() is not None:
+        return span(kind)
+    return start(kind, klass=klass)
 
 
 def current() -> Optional[Span]:

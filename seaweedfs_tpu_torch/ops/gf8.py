@@ -54,6 +54,14 @@ def gf_mul(a: int, b: int) -> int:
     return int(GF_MUL_TABLE[a & 0xFF, b & 0xFF])
 
 
+def gf_div(a: int, b: int) -> int:
+    if b == 0:
+        raise ZeroDivisionError("GF(2^8) division by zero")
+    if a == 0:
+        return 0
+    return int(GF_EXP[(GF_LOG[a] - GF_LOG[b]) % 255])
+
+
 def gf_inv(a: int) -> int:
     if a == 0:
         raise ZeroDivisionError("GF(2^8) inverse of zero")
@@ -220,3 +228,15 @@ def gf_project_bits(coeffs: np.ndarray, stack: np.ndarray) -> np.ndarray:
     return np.packbits(
         out_bits.astype(np.uint8).reshape(8 * r_n, -1), axis=0, bitorder="little"
     ).reshape(r_n, -1)
+
+
+def gf_delta_parity(coeffs: np.ndarray, delta: np.ndarray) -> np.ndarray:
+    """Small-write parity maintenance, host golden: the parity rows' change
+    when one data shard's bytes change. With generator column
+    c = G_parity[:, d] and delta = old ^ new over the touched columns,
+    parity' = parity ^ gf_delta_parity(c, delta), byte-exact against a
+    re-encode of the stripe (parity is linear in each data shard).
+    coeffs: (P,) uint8; delta: (n,) uint8 -> (P, n) uint8."""
+    coeffs = np.asarray(coeffs, dtype=np.uint8).ravel()
+    delta = np.asarray(delta, dtype=np.uint8).ravel()
+    return GF_MUL_TABLE[coeffs[:, None], delta[None, :]]

@@ -279,6 +279,44 @@ class Encoder:
             raise ValueError(f"want (B, {self.data_shards}, N), got {shape}")
         return self._apply_lazy(self.parity_matrix, data, donate=donate)
 
+    # -- delta parity (the small-write / inline-ingest seam) ------------------
+
+    def parity_delta(self, shard_index: int, old_block, new_block) -> np.ndarray:
+        """The (parity_shards, n) change to XOR into the stored parity
+        columns covering a data shard's changed byte range: the generator
+        column of `shard_index` applied to old ^ new through the encoder's
+        one dispatch point, so a delta runs the encoder's kernel at (P, 1)
+        (`gf8.gf_delta_parity` is the host golden)."""
+        if not 0 <= int(shard_index) < self.data_shards:
+            raise ValueError(
+                f"shard_index {shard_index} out of range 0..{self.data_shards - 1}"
+            )
+        old = np.asarray(old_block, dtype=np.uint8).ravel()
+        new = np.asarray(new_block, dtype=np.uint8).ravel()
+        if old.shape != new.shape:
+            raise ValueError(
+                f"old/new blocks disagree on length: {old.shape} vs {new.shape}"
+            )
+        col = np.ascontiguousarray(
+            self.parity_matrix[:, int(shard_index) : int(shard_index) + 1]
+        )  # (P, 1)
+        return np.asarray(self._apply_lazy(col, (old ^ new)[None, :]))
+
+    def update_parity(self, parity, shard_index: int, old_block, new_block) -> np.ndarray:
+        """The parity of the stripe once data shard `shard_index`'s bytes
+        change old -> new, from the stored parity columns `parity`
+        ((parity_shards, n), the same byte range as the blocks): byte-exact
+        against a re-encode, at O(changed bytes)."""
+        parity = np.asarray(parity, dtype=np.uint8)
+        old = np.asarray(old_block, dtype=np.uint8).ravel()
+        if parity.ndim != 2 or parity.shape[0] != self.parity_shards:
+            raise ValueError(f"want ({self.parity_shards}, n) parity, got {parity.shape}")
+        if parity.shape[1] != old.size:
+            raise ValueError(
+                f"parity covers {parity.shape[1]} bytes but the block changes {old.size}"
+            )
+        return parity ^ self.parity_delta(shard_index, old, new_block)
+
     def _pick_survivors(self, shards: Sequence[Optional[np.ndarray]]) -> list[int]:
         present = [i for i, s in enumerate(shards) if s is not None]
         if len(present) < self.data_shards:

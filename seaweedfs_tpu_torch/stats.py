@@ -1,4 +1,4 @@
-"""The metrics the degraded-read path ticks, with the reference's names
+"""The metrics the degraded read, inline ingest, conversion and scrub tick, with the reference's names
 and methods (`inc`, `observe`, `set`, `labels(...)`), kept in process for
 the tests and scripts to read. There is no exposition format: that belongs
 to the serving stack."""
@@ -152,4 +152,40 @@ DegradedReadErrors = Counter(
     "degraded reads failed, by typed error class (EcNoViableHolders, "
     "EcDegradedReadTimeout, EcShardCorrupt, HedgeMismatch)",
     ("class",),
+)
+ScrubBytesScanned = Counter(
+    "weedtpu_scrub_bytes_scanned_total", "EC shard bytes CRC-verified by the scrubber",
+)
+ScrubCorruptionsFound = Counter(
+    "weedtpu_scrub_corruptions_found_total",
+    "shard integrity failures found by scrub/verify, by class (corrupt, truncated, missing)",
+    ("class",),
+)
+ScrubCycles = Counter(
+    "weedtpu_scrub_cycles_total", "completed full passes of the scrubber",
+)
+InlineEcRows = Counter(
+    "weedtpu_inline_ec_rows_total", "large stripe rows encoded by inline-EC ingest",
+)
+InlineEcBytes = Counter(
+    "weedtpu_inline_ec_bytes_total", "volume data bytes whose parity was computed at ingest",
+)
+InlineEcDeltaUpdates = Counter(
+    "weedtpu_inline_ec_delta_updates_total",
+    "delta parity updates applied to already-encoded inline rows",
+)
+InlineEcDeltaBytes = Counter(
+    "weedtpu_inline_ec_delta_bytes_total",
+    "bytes computed and moved by inline delta parity updates "
+    "(changed bytes x (2 + 2 x parity shards))",
+)
+InlineEcSeals = Counter(
+    "weedtpu_inline_ec_seals_total",
+    "volume seals by how the shard files were produced (inline, resumed, warm)",
+    ("mode",),
+)
+EcConvertBytes = Counter(
+    "weedtpu_ec_convert_bytes_total",
+    "bytes the geometry converter moved, by direction (read, written)",
+    ("direction",),
 )

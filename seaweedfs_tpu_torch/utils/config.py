@@ -118,6 +118,49 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             "estimate in the suspicion registry.",
             float,
         ),
+        EnvVar(
+            "WEEDTPU_INLINE_EC_SEAL_BYTES", 0,
+            "Auto-seal threshold for inline-EC ingest: an IngestManager seals a "
+            "volume whose .dat crosses this many bytes (0 = never auto-seal).",
+            _at_least(0),
+        ),
+        EnvVar(
+            "WEEDTPU_INLINE_EC_LARGE_BLOCK", 1024 * 1024 * 1024,
+            "Large stripe-block size (bytes) the inline-EC builders encode with; "
+            "must match the seal-time geometry (clamped to >= 4096).",
+            _at_least(4096),
+        ),
+        EnvVar(
+            "WEEDTPU_INLINE_EC_SMALL_BLOCK", 1024 * 1024,
+            "Small (tail) stripe-block size (bytes) for inline-EC ingest "
+            "(clamped to >= 512).",
+            _at_least(512),
+        ),
+        EnvVar(
+            "WEEDTPU_INLINE_EC_DELTA", True,
+            "Delta parity updates for overwrites inside already-encoded inline "
+            "rows (parity' = parity ^ G_col * (old ^ new)); off = such an "
+            "overwrite breaks the builder and the seal re-encodes warm.",
+            _flag,
+        ),
+        EnvVar(
+            "WEEDTPU_CONVERT_BATCH", 64 * 1024 * 1024,
+            "Device-batch budget (bytes) of the geometry-conversion pipeline "
+            "(clamped to >= 1 MiB).",
+            _at_least(1024 * 1024),
+        ),
+        EnvVar(
+            "WEEDTPU_CONVERT_JOURNAL_MB", 64.0,
+            "MB of converted output between fsync'd .ecc journal watermarks "
+            "(clamped to > 0).",
+            lambda raw: max(0.001, float(raw)),
+        ),
+        EnvVar(
+            "WEEDTPU_CONVERT_VERIFY", True,
+            "Re-read every converted shard from disk against the streamed CRCs "
+            "before cut-over may retire the old geometry.",
+            _flag,
+        ),
     )
 }
 

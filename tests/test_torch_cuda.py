@@ -495,7 +495,7 @@ def test_trace_combine_on_a_short_strided_batch(card, groups):
     contiguous when the batch is short: the all-ones (1 x G) launch equals
     the CPU's on it, and equals the XOR of the rows."""
     gpu, cpu = rs_codec.Encoder(10, 4, device=card), rs_codec.Encoder(10, 4, device="cpu")
-    ring = stripe._ring(gpu, 3, (groups, 2 * 65536))
+    ring = stripe._ring_for(None, gpu, 3, (groups, 2 * 65536))
     for fill in range(3):  # every slot once, each a short batch
         slot = ring.take()
         slot[:] = np.random.default_rng(groups * 10 + fill).integers(0, 256, slot.shape, np.uint8)
@@ -690,3 +690,216 @@ def test_batch_rebuild_on_card_fused_equals_unfused(card, tmp_path):
             for s in missing:
                 with open(stripe.shard_file_name(base, s), "rb") as f:
                     assert f.read() == golden[s], (fuse, base, s)
+
+
+# -- inline ingest, conversion and scrub on the card ---------------------------------
+
+
+@pytest.mark.parametrize("variant", rs_codec.FUSED_VARIANTS)
+@pytest.mark.parametrize("n", [1, 17, 4113, 1 << 20])
+def test_parity_delta_on_card_equals_plain_and_golden(card, variant, n):
+    """The delta's (4, 1) launch at odd and wide widths, every variant."""
+    enc = rs_codec.Encoder(10, 4, device=card, variant=variant)
+    rng = np.random.default_rng(n)
+    old, new = rng.integers(0, 256, (2, n), dtype=np.uint8)
+    for shard in (0, 9):
+        before = rs_cuda.launches_by_shape.get((4, 1), 0)
+        got = enc.parity_delta(shard, old, new)
+        assert rs_cuda.launches_by_shape.get((4, 1), 0) == before + 1
+        col = np.ascontiguousarray(enc.parity_matrix[:, shard: shard + 1])
+        delta = torch.from_numpy(old ^ new)[None].to(card)
+        plain = rs_cuda.plain_apply(col, delta, variant=variant).cpu().numpy()
+        assert got.shape == (4, n)
+        assert np.array_equal(got, plain)
+        assert np.array_equal(got, gf8.gf_delta_parity(enc.parity_matrix[:, shard], old ^ new))
+
+
+def _ingest_with_overwrites(base: str, enc, data: bytes, large: int, small: int) -> dict:
+    """Appends with a poll each, three overwrites into encoded rows (one
+    across a block boundary), then the seal; -> the seal's accounting."""
+    from seaweedfs_tpu_torch.ec import ingest
+
+    b = ingest.InlineStripeBuilder(base, enc, large, small, buffer_size=4096)
+    final = bytearray(data)
+    with open(base + ".dat", "wb") as f:
+        for off in range(0, len(data), 50_000):
+            f.write(data[off: off + 50_000])
+            f.flush()
+            b.poll()
+    rng = np.random.default_rng(len(data))
+    for off, length in ((large * 3 - 7, 4113), (11, 1), (large * 10 + 5, 700)):
+        new = rng.integers(0, 256, length, np.uint8).tobytes()
+
+        def mutate(off=off, new=new):
+            with open(base + ".dat", "r+b") as f:
+                f.seek(off)
+                f.write(new)
+
+        assert b.overwrite(off, bytes(final[off: off + length]), new, mutate=mutate) > 0
+        final[off: off + length] = new
+    return b.seal()
+
+
+def test_ingest_with_overwrites_on_card_equals_cpu(card, tmp_path):
+    large, small = 16384, 4096
+    data = np.random.default_rng(8).integers(0, 256, large * 10 * 3 + 77_777, np.uint8).tobytes()
+    shas = {}
+    for dev in ("cpu", card):
+        base = os.path.join(str(tmp_path), str(dev), "7")
+        os.makedirs(os.path.dirname(base))
+        enc = rs_codec.Encoder(10, 4, device=dev)
+        rs_cuda.reset_launches()
+        info = _ingest_with_overwrites(base, enc, data, large, small)
+        assert info["rows_inline"] == 3 and info["delta_updates"] == 3
+        shas[str(dev)] = [open(stripe.shard_file_name(base, s), "rb").read() for s in range(14)]
+        shas[str(dev)].append(open(base + ".eci", "rb").read())
+        if dev == card:
+            by_shape = dict(rs_cuda.launches_by_shape)
+            assert by_shape.get((4, 10), 0) > 0 and by_shape.get((4, 1), 0) == 4  # 4 segments
+    assert shas["cpu"] == shas[str(card)]
+
+
+def test_conversion_chain_on_card_from_degraded_source_equals_cpu(card, tmp_path):
+    """10+4 (shards 0 and 7 lost) -> 12+3 -> 20+4, on the card and on the
+    CPU: the same staged and cut-over bytes; the degraded runs launch at
+    (1, 10)."""
+    from seaweedfs_tpu_torch.ec import convert
+
+    data = np.random.default_rng(9).integers(0, 256, 2 * 4096 * 10 + 5 * 512 * 10 + 99,
+                                             np.uint8).tobytes()
+    out = {}
+    for dev in ("cpu", card):
+        base = os.path.join(str(tmp_path), str(dev), "1")
+        os.makedirs(os.path.dirname(base))
+        with open(base + ".dat", "wb") as f:
+            f.write(data)
+        stripe.write_ec_files(base, 4096, 512, buffer_size=512,
+                              encoder=rs_codec.Encoder(10, 4, device="cpu"))
+        os.unlink(base + ".dat")
+        for s in (0, 7):
+            os.unlink(stripe.shard_file_name(base, s))
+        enc = rs_codec.Encoder(10, 4, device=dev)
+        runs, reconstruct = [], enc.reconstruct
+        enc.reconstruct = lambda shards, **kw: runs.append(kw) or reconstruct(shards, **kw)
+        rs_cuda.reset_launches()
+        res = convert.convert_ec_files(base, "cauchy_12_3", encoder=enc, buffer_size=512)
+        assert res["reconstructed_bytes"] > 0 and runs
+        convert.cutover(base)
+        res2 = convert.convert_ec_files(base, "merge_20_4", encoder=enc, buffer_size=512)
+        assert res2["reconstructed_bytes"] == 0
+        convert.cutover(base)
+        if dev == card:
+            by_shape = dict(rs_cuda.launches_by_shape)
+            assert by_shape.get((1, 10), 0) == len(runs)  # one per degraded run
+            assert by_shape.get((3, 12), 0) > 0 and by_shape.get((4, 20), 0) > 0
+        out[str(dev)] = [open(stripe.shard_file_name(base, s), "rb").read() for s in range(24)]
+    assert out["cpu"] == out[str(card)]
+
+
+def test_scrub_quarantine_repair_on_card_ec_volume(card, tmp_path):
+    from seaweedfs_tpu_torch.ec import ec_volume, scrub
+
+    base = os.path.join(str(tmp_path), "9")
+    with open(base + ".dat", "wb") as f:
+        f.write(np.random.default_rng(3).integers(0, 256, 600_000, np.uint8).tobytes())
+    open(base + ".idx", "wb").close()
+    enc = rs_codec.Encoder(10, 4, device=card)
+    stripe.write_ec_files(base, 16384, 4096, encoder=enc)
+    stripe.write_sorted_file_from_idx(base)
+    golden = [open(stripe.shard_file_name(base, s), "rb").read() for s in range(14)]
+    with ec_volume.EcVolume(base, encoder=enc, warm_on_mount=False) as ev:
+        # damage under the mounted volume
+        with open(stripe.shard_file_name(base, 5), "r+b") as f:
+            f.seek(1000)
+            f.write(bytes([golden[5][1000] ^ 1]))
+        os.truncate(stripe.shard_file_name(base, 9), len(golden[9]) - 1)
+        os.unlink(stripe.shard_file_name(base, 12))
+        found = []
+
+        def on_finding(vid, shard, verdict):
+            found.append((shard, verdict))
+            ev.quarantine_shard(shard, verdict)
+
+        scrub.Scrubber(volumes=lambda: {9: ev}, on_finding=on_finding,
+                       cursor_path=str(tmp_path / "c.json"), rate_mb=0.0).run_cycle()
+        assert sorted(found) == [(5, "corrupt"), (9, "truncated"), (12, "missing")]
+        n0 = rs_cuda.launches
+        assert ev._read_shard_interval(5, 900, 300).tobytes() == golden[5][900:1200]
+        assert rs_cuda.launches > n0
+        for s in (5, 9):
+            os.unlink(stripe.shard_file_name(base, s))
+        before = rs_cuda.launches_by_shape.get((3, 10), 0)
+        assert stripe.rebuild_ec_files(base, encoder=enc) == [5, 9, 12]
+        assert rs_cuda.launches_by_shape.get((3, 10), 0) > before
+        for s in (5, 9, 12):
+            assert ev.mount_local_shard(s)
+        verdicts, has_crcs = scrub.verify_ec_volume(ev)
+        assert has_crcs and set(verdicts.values()) == {"ok"}
+    assert [open(stripe.shard_file_name(base, s), "rb").read() for s in range(14)] == golden
+
+
+def test_ingest_manager_seal_on_threads_beside_degraded_reads(card, tmp_path):
+    """A manager's worker polls and its seal thread seal one volume on the
+    card while the main thread reads another volume degraded on the card;
+    both agree with the CPU."""
+    import threading
+
+    from seaweedfs_tpu_torch.ec import ec_volume, ingest
+
+    enc = rs_codec.Encoder(10, 4, device=card)
+    large, small = 16384, 4096
+    base = os.path.join(str(tmp_path), "ing", "7")
+    os.makedirs(os.path.dirname(base))
+    data = np.random.default_rng(5).integers(0, 256, large * 10 * 4 + 1234, np.uint8).tobytes()
+
+    class _Vol:
+        base_path, dat_path, read_only, tiered = base, base + ".dat", False, False
+
+    class _Store:
+        encoder = enc
+
+        def get_volume(self, vid):
+            return _Vol()
+
+    sealed, threads, done = {}, set(), threading.Event()
+
+    def trigger(vid):
+        try:
+            threads.add(threading.current_thread().name)
+            sealed.update(mgr.seal_volume(vid, base))
+        finally:
+            done.set()
+
+    mgr = ingest.IngestManager(_Store(), seal_bytes=len(data), large_block_size=large,
+                               small_block_size=small, buffer_size=4096, seal_trigger=trigger)
+    rbase = os.path.join(str(tmp_path), "rd", "9")
+    os.makedirs(os.path.dirname(rbase))
+    with open(rbase + ".dat", "wb") as f:
+        f.write(data[::-1])
+    open(rbase + ".idx", "wb").close()
+    stripe.write_ec_files(rbase, large, small, encoder=rs_codec.Encoder(10, 4, device="cpu"))
+    stripe.write_sorted_file_from_idx(rbase)
+    golden3 = open(stripe.shard_file_name(rbase, 3), "rb").read()
+    os.unlink(stripe.shard_file_name(rbase, 3))
+    try:
+        with ec_volume.EcVolume(rbase, encoder=enc, warm_on_mount=False) as ev:
+            with open(base + ".dat", "wb") as f:
+                for off in range(0, len(data), 40_000):
+                    f.write(data[off: off + 40_000])
+                    f.flush()
+                    mgr.on_write(7)
+                    got = ev._read_shard_interval(3, off % (len(golden3) - 500), 500).tobytes()
+                    assert got == golden3[off % (len(golden3) - 500):][:500]
+            assert done.wait(60)
+    finally:
+        mgr.close()
+    assert sealed.get("mode") == "inline" and threads and "MainThread" not in threads
+    wbase = os.path.join(str(tmp_path), "warm", "7")
+    os.makedirs(os.path.dirname(wbase))
+    with open(wbase + ".dat", "wb") as f:
+        f.write(data)
+    stripe.write_ec_files(wbase, large, small, buffer_size=4096,
+                          encoder=rs_codec.Encoder(10, 4, device="cpu"))
+    for s in range(14):
+        assert open(stripe.shard_file_name(base, s), "rb").read() == open(
+            stripe.shard_file_name(wbase, s), "rb").read()

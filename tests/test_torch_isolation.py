@@ -45,6 +45,7 @@ def test_port_has_modules_for_every_layer():
                  "utils/config.py", "obs/trace.py", "__main__.py", "ops/measure.py",
                  "scripts/kernel_sweep.py", "scripts/device_window.py", "ec/ec_volume.py",
                  "ec/read_planner.py", "ec/locate.py", "ec/suspicion.py", "ec/convert.py",
+                 "ec/ingest.py", "ec/scrub.py",
                  "stats.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh"):
