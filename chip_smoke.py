@@ -110,6 +110,22 @@ Phases, one JSON line each:
            reconstruction; the three rebuilt by `rebuild_ec_files` (one
            (3, 20) launch per batch), remounted, and `verify_ec_volume` all
            ok with no quarantine entry left in the cursor
+  store    on an emptied scratch directory, upstream's `weed benchmark`
+           volume (1 048 576 files of 1 KiB, collection benchmark,
+           replication 000) through the port's `Store`: every needle written
+           (needles/s), a seeded tenth deleted, a seeded sample of 4096 read
+           with cookies (live ones equal their data, deleted ones not found);
+           `fix` from the .dat alone (the rebuilt .idx replays to the same
+           map), `export` (one line per live needle), `compact`, and a
+           fresh `Store.load()` with the memory map and twice with the
+           sorted_file map (the first builds the .sdx), the sample read after
+           each; then `command.local.encode` on the card, shards 0/5/10/13
+           and the .dat/.idx removed, and a fresh load that must discover
+           the EC volume with its 10 shards and serve the sample: p50/p99 by
+           class (local, degraded), one (1, 10) launch per lost shard a
+           needle's intervals touch (predicted from the .ecx and `ec.locate`),
+           every reconstruct at a `RECONSTRUCT_BUCKETS` width; the compiled
+           CRC32C must be the one loaded
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -161,6 +177,13 @@ C12_LOST = (0, 5, 13)
 SCRUB_DAMAGE = {5: "corrupt", 9: "truncated", 21: "missing"}
 #: needles sampled for the convert and scrub phases' reads
 NEEDLES = 64
+#: the store phase: upstream's `weed benchmark` volume (-n 1048576 -size
+#: 1024), a seeded tenth deleted, a seeded sample of reads, and its volume id
+STORE_FILES = 1 << 20
+STORE_SIZE = 1024
+STORE_DELETE = 0.10
+STORE_SAMPLE = 4096
+STORE_VID = 1
 
 
 def check(ok: bool, what) -> None:
@@ -1366,6 +1389,217 @@ def run_scrub(vol: dict, kept: str, sample: list, card: str, device: str = "cuda
     }
 
 
+def _timed_reads(st, vid: int, sample: list, data, cookies: list, deleted: set) -> dict:
+    """Each sampled needle through `Store.read_needle` with its cookie: a
+    live one must equal its data, a deleted one raise not-found."""
+    ms = []
+    for nid in sample:
+        t = time.perf_counter()
+        try:
+            n = st.read_needle(vid, nid, cookie=cookies[nid - 1])
+        except KeyError:
+            check(nid in deleted, f"live needle {nid} not found")
+            continue
+        ms.append((time.perf_counter() - t) * 1e3)
+        check(nid not in deleted, f"deleted needle {nid} read back")
+        check(n.data == data[(nid - 1) * STORE_SIZE: nid * STORE_SIZE], f"needle {nid} differs")
+    return {"live": len(ms), "deleted": len(sample) - len(ms), "seconds": sum(ms) / 1e3,
+            "p50_ms": _pct(ms, 0.5), "p99_ms": _pct(ms, 0.99)}
+
+
+def _lost_intervals(base: str, sample: list, lost: tuple) -> dict:
+    """{needle id: distinct lost shards its intervals lie on}, for the
+    sampled needles the .ecx holds, from the .ecx, the .eci and
+    `ec.locate` alone: a degraded read launches once per such shard."""
+    from seaweedfs_tpu_torch.ec import locate, stripe
+    from seaweedfs_tpu_torch.storage import idx, types
+
+    info = stripe.read_ec_info(base)
+    with open(base + ".ecx", "rb") as f:
+        index = idx.index_entries_array(f.read())
+    out = {}
+    for nid in sample:
+        pos = int(np.searchsorted(index["key"], np.uint64(nid)))
+        if pos == len(index) or int(index["key"][pos]) != nid:
+            continue
+        size = int(index["size"][pos])
+        ivs = locate.locate_data(info["large_block_size"], info["small_block_size"],
+                                 info["dat_size"], types.offset_to_actual(int(index["offset"][pos])),
+                                 types.actual_size(size), 10)
+        out[nid] = len({s for s in (iv.to_shard_id_and_offset(
+            info["large_block_size"], info["small_block_size"])[0] for iv in ivs) if s in lost})
+    return out
+
+
+def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
+              device: str = "cuda") -> dict:
+    """The store phase (see the module doc): upstream's `weed benchmark`
+    volume through the port's `Store`, its maintenance commands and both
+    needle maps, then EC-encoded with four shards lost and read degraded."""
+    from seaweedfs_tpu_torch.command import local
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.storage import needle, needle_map, store
+    from seaweedfs_tpu_torch.utils import native
+
+    check(native.crc32c_impl() == "library", "the compiled CRC32C did not load")
+    on_card = device == "cuda"
+    d = os.path.join(scratch, "store")
+    os.makedirs(d)
+    rs_cuda.reset_launches()  # the store path's run starts here
+    enc = rs_codec.new_encoder(device=device)
+    rng = np.random.default_rng(seed + 500)
+    data = rng.bytes(files * STORE_SIZE)
+    cookies = rng.integers(0, 1 << 32, files, dtype=np.uint64).tolist()
+    deleted = set((rng.choice(files, int(files * STORE_DELETE), replace=False) + 1).tolist())
+    sample = sorted((rng.choice(files, min(STORE_SAMPLE, files), replace=False) + 1).tolist())
+    out = {"card": card, "source": "weed/command/benchmark.go: -n 1048576 -size 1024 "
+           "-collection benchmark -replication 000",
+           "reduced": [f"{len(deleted)} seeded deletes added (upstream -deletePercent 0)",
+                       f"reads cut to a seeded sample of {len(sample)} of {files}"],
+           "files": files, "file_bytes": STORE_SIZE, "crc32c": native.crc32c_impl()}
+
+    # 1-2: write every needle, delete the seeded tenth, read the sample back
+    st = store.Store([d], encoder=enc)
+    v = st.create_volume(STORE_VID, collection="benchmark", replication="000")
+    base = v.base_path
+    t0 = time.perf_counter()
+    for i in range(files):
+        st.write_needle(STORE_VID, needle.Needle(cookie=cookies[i], id=i + 1,
+                                                 data=data[i * STORE_SIZE: (i + 1) * STORE_SIZE]))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for nid in sorted(deleted):
+        check(st.delete_needle(STORE_VID, nid), f"delete of {nid}")
+    out["write"] = {"seconds": write_s, "needles_per_s": files / write_s,
+                    "delete_seconds": time.perf_counter() - t0, "dat_bytes": v.content_size(),
+                    "garbage_ratio": v.garbage_ratio()}
+    out["reads_written"] = _timed_reads(st, STORE_VID, sample, data, cookies, deleted)
+    check(st.unmount_volume(STORE_VID), "unmount")
+
+    # 3: fix rebuilds the .idx from the .dat alone
+    os.replace(base + ".idx", base + ".idx.orig")
+    t0 = time.perf_counter()
+    fixed = local.fix(base)
+    fix_s = time.perf_counter() - t0
+    maps = []
+    for path in (base + ".idx.orig", base + ".idx"):
+        db = needle_map.MemDb()
+        db.load_from_idx(path)
+        maps.append(list(db.ascending_visit()))
+    check(maps[0] == maps[1], "the rebuilt .idx replays to another map")
+    check(fixed["records"] == files + len(deleted), f"fix counted {fixed['records']} records")
+    with open(base + ".idx.orig", "rb") as a, open(base + ".idx", "rb") as b:
+        same_bytes = a.read() == b.read()
+    os.remove(base + ".idx.orig")
+    out["fix"] = {"seconds": fix_s, "records": fixed["records"],
+                  "live": len(maps[1]), "idx_bytes_equal": same_bytes}
+
+    # 4: export the live needles
+    t0 = time.perf_counter()
+    lines = 0
+    with open(os.path.join(scratch, "store_export.jsonl"), "w") as f:
+        for rec in local.export(base):
+            f.write(json.dumps(rec) + "\n")
+            lines += 1
+    check(lines == files - len(deleted), f"export wrote {lines} lines")
+    out["export"] = {"seconds": time.perf_counter() - t0, "lines": lines,
+                     "bytes": os.path.getsize(os.path.join(scratch, "store_export.jsonl"))}
+    os.remove(os.path.join(scratch, "store_export.jsonl"))
+
+    # 5: compact drops the tombstones and the deleted needles
+    t0 = time.perf_counter()
+    compacted = local.compact(base)
+    out["compact"] = {"seconds": time.perf_counter() - t0, "bytes_before": compacted["bytes_before"],
+                      "bytes_after": compacted["bytes_after"]}
+    check(compacted["bytes_after"] < compacted["bytes_before"], f"compact {compacted}")
+    check(st.mount_volume(STORE_VID), "remount after compact")
+    out["reads_compacted"] = _timed_reads(st, STORE_VID, sample, data, cookies, deleted)
+    st.close()
+
+    # 6: a fresh load with each needle-map kind (sorted_file twice: the first
+    # mount builds the .sdx, the second maps it)
+    out["mounts"] = []
+    for kind in ("memory", "sorted_file", "sorted_file"):
+        t0 = time.perf_counter()
+        st = store.Store([d], encoder=enc, needle_map_kind=kind)
+        st.load()
+        mount_s = time.perf_counter() - t0
+        nm = st.get_volume(STORE_VID).nm
+        out["mounts"].append({"kind": kind, "seconds": mount_s,
+                              "rebuilt_full": getattr(nm, "rebuilt_full", None),
+                              "reads": _timed_reads(st, STORE_VID, sample, data, cookies, deleted)})
+        st.close()
+    check(out["mounts"][1]["rebuilt_full"] and not out["mounts"][2]["rebuilt_full"],
+          "the sorted_file mounts did not build the .sdx once")
+
+    # 7: EC-encode on the card, lose four shards and the .dat, load, read
+    t0 = time.perf_counter()
+    encoded = local.encode(base, device=device)
+    out["ec_encode"] = {"seconds": time.perf_counter() - t0, "dat_bytes": encoded["dat_bytes"],
+                        "shard_bytes": encoded["shard_bytes"]}
+    for ext in (".dat", ".idx", ".sdx", ".sdx.meta"):
+        if os.path.exists(base + ext):
+            os.remove(base + ext)
+    for s in LOST:
+        os.remove(stripe.shard_file_name(base, s))
+    lost_on = _lost_intervals(base, sample, LOST)
+    check(set(lost_on) == set(sample) - deleted, "the .ecx holds another set of sampled needles")
+    widths = []
+    dispatch = enc._apply_lazy
+
+    def recorded(m, shards, donate=False, width=None):  # every launch's (R, C, N)
+        widths.append((m.shape[0], m.shape[1], int(width or shards.shape[-1])))
+        return dispatch(m, shards, donate=donate, width=width)
+
+    enc._apply_lazy = recorded
+    try:
+        st = store.Store([d], encoder=enc)
+        st.load()
+        ev = st.get_ec_volume(STORE_VID)
+        check(ev is not None and ev.encoder is enc, "the load did not mount the EC volume")
+        if ev.warm_thread is not None:
+            ev.warm_thread.join()
+        infos = [i.to_dict() for i in st.ec_volume_infos()]
+        check(len(infos) == 1 and infos[0]["shard_bits"]
+              == sum(1 << s for s in range(14) if s not in LOST), f"ec_volume_infos {infos}")
+        warm = len(widths)
+        shape0 = dict(rs_cuda.launches_by_shape)
+        by_class = {"local": [], "degraded": []}
+        for nid in sample:
+            t = time.perf_counter()
+            try:
+                n = st.read_needle(STORE_VID, nid, cookie=cookies[nid - 1])
+            except KeyError:
+                check(nid in deleted, f"live needle {nid} not found in the EC volume")
+                continue
+            by_class["degraded" if lost_on[nid] else "local"].append(
+                (time.perf_counter() - t) * 1e3)
+            check(n.data == data[(nid - 1) * STORE_SIZE: nid * STORE_SIZE],
+                  f"EC needle {nid} differs")
+        by_shape = _shape_launches(shape0)
+        st.close()
+    finally:
+        enc._apply_lazy = dispatch
+    predicted = sum(lost_on.values())
+    check(by_shape == ({(1, 10): predicted} if on_card else {}),
+          f"EC reads launched {by_shape}, predicted (1, 10) x {predicted}")
+    check(all(n in enc.RECONSTRUCT_BUCKETS for _, _, n in widths) or not on_card,
+          f"a reconstruct launched off the buckets: {sorted(set(widths))}")
+    out["ec_reads"] = {
+        "infos": infos, "lost": list(LOST),
+        **{f"{k}_{q}": v for k, xs in by_class.items()
+           for q, v in (("reads", len(xs)), ("p50_ms", _pct(xs, 0.5)), ("p99_ms", _pct(xs, 0.99)))},
+        "one_lost_interval": sum(1 for x in lost_on.values() if x == 1),
+        "launches_by_shape": _shape_keys(by_shape), "predicted_1x10": predicted,
+        "warm_launches": warm, "widths": sorted({n for _, _, n in widths}),
+    }
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    check(out["launches"].get(enc.variant, 0) > 0 or not on_card,
+          f"the store path never launched {enc.variant}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1443,6 +1677,10 @@ def main(argv=None) -> int:
         emit({"phase": "convert", **slice_lines["convert"]})
         slice_lines["scrub"] = run_scrub(vol, kept, sample, card)
         emit({"phase": "scrub", **slice_lines["scrub"]})
+        shutil.rmtree(SCRATCH)  # the store phase starts on an empty directory
+        os.makedirs(SCRATCH)
+        slice_lines["store"] = run_store(SCRATCH, args.seed, card)
+        emit({"phase": "store", **slice_lines["store"]})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     idle = [v for v in KERNELS if not main_launches.get(v)]

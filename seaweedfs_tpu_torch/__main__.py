@@ -1,4 +1,4 @@
-"""`python -m seaweedfs_tpu_torch <command>`: the local EC commands."""
+"""`python -m seaweedfs_tpu_torch <command>`: the local volume commands."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from seaweedfs_tpu_torch.command import commands
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="seaweedfs_tpu_torch",
-        description="SeaweedFS-class erasure coding on PyTorch and CUDA",
+        description="SeaweedFS-class volumes and erasure coding on PyTorch and CUDA",
     )
     sub = parser.add_subparsers(dest="command", metavar="command")
     for cmd in commands().values():

@@ -118,6 +118,16 @@ def _reconstruction_matrix(
     return out
 
 
+def decode_matrix_cache_info():
+    """The decode-matrix cache's (hits, misses, maxsize, currsize): it must
+    stay bounded under loss-pattern churn."""
+    return _reconstruction_matrix.cache_info()
+
+
+def clear_decode_matrix_cache() -> None:
+    _reconstruction_matrix.cache_clear()
+
+
 class LazyResult:
     """A dispatched GF application whose bytes stay on the device until
     `np.asarray(result)`, the one synchronisation point. Holds the host
@@ -219,24 +229,40 @@ class Encoder:
 
     # -- kernel dispatch ----------------------------------------------------
 
-    def _apply_lazy(self, m: np.ndarray, shards, donate: bool = False) -> LazyResult:
+    def _apply_lazy(self, m: np.ndarray, shards, donate: bool = False,
+                    width: Optional[int] = None) -> LazyResult:
         """Apply GF matrix m to a (C, N) or (B, C, N) stack without waiting
         for the result: the ONE dispatch point. Host input is copied to the
         device asynchronously on the current stream (asynchronous only from
         pinned memory), so the copy and the kernel are ordered on one
-        stream. `donate` is accepted for the reference's signature and has
-        no effect: the device copy is freed with the result."""
-        dev, src = self._to_device(shards)
+        stream. `width` > N launches at that width over zero columns past
+        N (a bucketed reconstruct). `donate` is accepted for the
+        reference's signature and has no effect: the device copy is freed
+        with the result."""
+        dev, src = self._to_device(shards, width)
         return LazyResult(rs_cuda.apply_matrix(m, dev, self.tile, self.variant), source=src)
 
-    def _to_device(self, shards) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(the shards on the encoder's device, the host tensor the copy
-        reads, which the result must hold until it is read; None on the
-        CPU, where the shards are used in place)."""
+    def _to_device(self, shards, width: Optional[int] = None
+                   ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the shards on the encoder's device, `width` columns wide with
+        zeros past N when given, and the host tensor the copy reads, which
+        the result must hold until it is read; None on the CPU, where the
+        shards are used in place unless padded). On the card the zero
+        columns are written there: only the N real ones cross the bus."""
         src = _host_tensor(shards)
+        n = src.shape[-1]
+        pad = width is not None and width != n
         if self.device.type == "cpu":
-            return src, None
-        dev = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
+            if not pad:
+                return src, None
+            dev = torch.zeros(src.shape[:-1] + (width,), dtype=torch.uint8)
+            dev[..., :n] = src
+            return dev, None
+        if pad:
+            full = torch.zeros(src.shape[:-1] + (width,), dtype=torch.uint8, device=self.device)
+            dev = full[..., :n]
+        else:
+            full = dev = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
         if src.ndim == 2 and not src.is_contiguous() and src.stride(1) == 1:
             # a column slice of a staging slot: row by row, each row a
             # contiguous run of the (pinned) slot, so every copy stays
@@ -246,7 +272,7 @@ class Encoder:
                 dev[i].copy_(src[i], non_blocking=True)
         else:
             dev.copy_(src, non_blocking=True)
-        return dev, src
+        return full, src
 
     def _apply(self, m: np.ndarray, shards) -> np.ndarray:
         return np.asarray(self._apply_lazy(m, shards))
@@ -351,7 +377,7 @@ class Encoder:
         survivors = self._pick_survivors(shards)
         m = self.reconstruction_matrix(survivors, wanted)
         stack = np.stack([np.asarray(shards[i], dtype=np.uint8) for i in survivors])
-        out = self._apply(m, stack)
+        out = self._apply_bucketed(m, stack)
         for k, w in enumerate(wanted):
             shards[w] = out[k]
         return shards
@@ -498,9 +524,7 @@ class Encoder:
         b = self._bucket_for(n)
         if b is None or b == n:
             return self._apply(m, stack)
-        padded = np.zeros(stack.shape[:-1] + (b,), dtype=np.uint8)
-        padded[..., :n] = stack
-        return self._apply(m, padded)[..., :n]
+        return np.asarray(self._apply_lazy(m, stack, width=b))[..., :n]
 
     def warm_reconstruct(
         self, wanted_counts: Sequence[int] = (1,), buckets: Optional[Sequence[int]] = None

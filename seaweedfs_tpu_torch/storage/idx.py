@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator
+from typing import BinaryIO, Callable, Iterable, Iterator
 
 import numpy as np
 
@@ -19,6 +19,17 @@ def walk_index_buffer(buf: bytes) -> Iterator[tuple[int, int, int]]:
         yield types.unpack_index_entry(buf, i * types.NEEDLE_MAP_ENTRY_SIZE)
 
 
+def walk_index_file(f: BinaryIO | str, fn: Callable[[int, int, int], None]) -> None:
+    """Call fn(key, offset, size) for each entry of a file or open handle."""
+    if isinstance(f, str):
+        with open(f, "rb") as fh:
+            data = fh.read()
+    else:
+        data = f.read()
+    for key, off, size in walk_index_buffer(data):
+        fn(key, off, size)
+
+
 def index_entries_array(buf: bytes) -> np.ndarray:
     """Every complete entry as a structured array with native key, offset
     and size columns."""
@@ -27,7 +38,12 @@ def index_entries_array(buf: bytes) -> np.ndarray:
     return be.astype(_NATIVE_ENTRY_DTYPE)
 
 
-def write_entries(entries: Iterable[tuple[int, int, int]], path: str) -> None:
-    with open(path, "wb") as sink:
-        for key, off, size in entries:
-            sink.write(types.pack_index_entry(key, off, size))
+def write_entries(entries: Iterable[tuple[int, int, int]], out: BinaryIO | str) -> None:
+    """Write (key, stored_offset, size) triples as 16-byte records to a
+    path (created or truncated) or an open handle (left open)."""
+    if isinstance(out, str):
+        with open(out, "wb") as sink:
+            write_entries(entries, sink)
+        return
+    for key, off, size in entries:
+        out.write(types.pack_index_entry(key, off, size))

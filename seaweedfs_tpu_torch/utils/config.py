@@ -71,6 +71,10 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             "LRU cap on cached decode matrices.",
         ),
         EnvVar(
+            "WEEDTPU_V", 0,
+            "glog verbosity level: glog.V(n) call sites with n <= this emit.",
+        ),
+        EnvVar(
             "WEEDTPU_READ_CACHE_MB", 64.0,
             "Byte budget (MiB) of the process-wide decoded-interval read cache; "
             "0 disables it (no lookups, no counters). Clamped to >= 0.",

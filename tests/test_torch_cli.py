@@ -1,6 +1,6 @@
 """`python -m seaweedfs_tpu_torch encode|rebuild|decode|verify --device cpu`
-against `python -m seaweedfs_tpu` on one small volume: identical files and
-identical JSON keys, command by command."""
+and `fix|compact|export` against `python -m seaweedfs_tpu` on one small
+volume: identical files and identical JSON, command by command."""
 
 import json
 import os
@@ -126,3 +126,105 @@ def test_python_dash_m_entry_point(twin):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["shards"] == 14 and out["encoded"] == port
     assert len(stripe.find_local_shards(port)) == 14
+
+
+# -- fix, compact, export ---------------------------------------------------------
+
+
+def _lines(main, argv, capsys) -> tuple[int, list]:
+    rc = main(argv)
+    return rc, [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+
+
+def _maintenance(port, ref, capsys, cmd, *extra) -> list:
+    """Run `cmd` through both CLIs; the JSON lines must be equal once the
+    base path is named alike, and so must the volume's files."""
+    rc_p, got = _lines(port_main, [cmd, port, *extra], capsys)
+    rc_r, want = _lines(ref_main, [cmd, ref, *extra], capsys)
+    assert rc_p == rc_r == 0, (cmd, rc_p, rc_r)
+    assert json.dumps(got).replace(port, "B") == json.dumps(want).replace(ref, "B")
+    assert _files(port) == _files(ref)
+    return got
+
+
+@pytest.mark.parametrize("steps", [
+    ("fix",), ("compact",), ("export",), ("export --data",), ("fix", "compact", "export --data"),
+    ("compact", "fix", "export"),
+])
+def test_fix_compact_export_identical(twin, capsys, steps):
+    port, ref = twin
+    for step in steps:
+        cmd, *extra = step.split()
+        if cmd == "fix":
+            os.remove(port + ".idx")
+            os.remove(ref + ".idx")
+        out = _maintenance(port, ref, capsys, cmd, *extra)
+        if cmd == "fix":
+            assert out == [{"fixed": port + ".idx", "records": out[0]["records"]}]
+        elif cmd == "compact":
+            assert out[0]["bytes_after"] < out[0]["bytes_before"]
+        else:
+            assert {int(r["id"], 16) for r in out} == set(range(1, 12)) - {3}
+            assert all(("data" in r) == bool(extra) for r in out)
+
+
+def _volume_pair(tmp_path, build) -> tuple[str, str]:
+    for side in ("port", "ref"):
+        os.makedirs(tmp_path / side)
+        v = Volume(str(tmp_path / side), 9, "")
+        build(v)
+        v.close()
+    with open(tmp_path / "ref" / "9.dat", "rb") as f:
+        dat = f.read()
+    with open(tmp_path / "port" / "9.dat", "wb") as f:
+        f.write(dat)  # one history: the append stamps of the reference's
+    shutil.copy(tmp_path / "ref" / "9.idx", tmp_path / "port" / "9.idx")
+    return str(tmp_path / "port" / "9"), str(tmp_path / "ref" / "9")
+
+
+def test_fix_keeps_a_live_empty_needle_like_the_reference(tmp_path, capsys):
+    def build(v):
+        v.write_needle(Needle(cookie=0xAA, id=1, data=b""))
+        v.write_needle(Needle(cookie=0xBB, id=2, data=b"live"))
+        v.delete_needle(2)
+
+    port, ref = _volume_pair(tmp_path, build)
+    os.remove(port + ".idx")
+    os.remove(ref + ".idx")
+    assert _maintenance(port, ref, capsys, "fix")[0]["records"] == 3
+    out = _maintenance(port, ref, capsys, "export", "--data")
+    assert out == [{"id": "1", "cookie": "000000aa", "offset": 8, "size": 5, "name": "",
+                    "mime": "", "data_size": 0, "data": ""}]
+
+
+def test_compact_of_a_fully_deleted_volume_reclaims_like_the_reference(tmp_path, capsys):
+    def build(v):
+        for i in (1, 2, 3):
+            v.write_needle(Needle(cookie=i, id=i, data=b"z" * 500))
+        for i in (1, 2, 3):
+            v.delete_needle(i)
+
+    port, ref = _volume_pair(tmp_path, build)
+    out = _maintenance(port, ref, capsys, "compact")
+    assert out[0]["bytes_after"] == 8
+    assert _maintenance(port, ref, capsys, "export") == []
+
+
+def test_compact_heals_a_lost_index_instead_of_wiping_like_the_reference(twin, capsys):
+    port, ref = twin
+    os.remove(port + ".idx")
+    os.remove(ref + ".idx")
+    out = _maintenance(port, ref, capsys, "compact")
+    assert out[0]["bytes_after"] > 8
+
+
+def test_maintenance_errors_exit_1_like_the_reference(twin, capsys, tmp_path):
+    port, ref = twin
+    for side, main in ((port, port_main), (ref, ref_main)):
+        assert main(["compact", os.path.join(os.path.dirname(side), "nope")]) == 1
+        with open(side + ".dat", "r+b") as f:  # a size field that overruns the file
+            f.seek(8 + 12)
+            f.write((0x7FFF0000).to_bytes(4, "big"))
+        assert main(["fix", side]) == 1
+        assert not os.path.exists(side + ".idx.tmp")
+    capsys.readouterr()

@@ -218,3 +218,62 @@ def test_card_encoder_takes_32_by_32_and_names_the_way_around_the_row_limit(monk
     with pytest.raises(ValueError, match=r"at most 32 rows per call.*device='cpu'"):
         rs_codec.rs_cuda.check_shape(40, 32)
     rs_codec.rs_cuda.check_shape(32, 32)
+
+
+@pytest.mark.parametrize("n, bucket", [(32, 4096), (1000, 4096), (4096, 4096), (5000, 65536),
+                                       ((1 << 20) + 1, (1 << 20) + 1)])
+def test_single_interval_reconstruct_dispatches_at_a_bucket_on_the_card_rule(monkeypatch, n, bucket):
+    """`reconstruct` (the degraded read's one-interval path) pads to the
+    next of `RECONSTRUCT_BUCKETS` under the card's rule, as the reference's
+    device backends do; a CPU encoder given the card's backend name
+    dispatches through the plain version, so the widths show here. The
+    bytes equal the reference's `jax` backend and the unpadded decode."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    enc = rs_codec.Encoder(10, 4, device="cpu")
+    monkeypatch.setattr(enc, "backend", "cuda")
+    shapes = []
+    real = rs_cuda.apply_matrix
+
+    def spy(m, shards, tile=None, variant="int8"):
+        shapes.append(tuple(shards.shape))
+        return real(m, shards, tile, variant)
+
+    monkeypatch.setattr(rs_cuda, "apply_matrix", spy)
+    data = list(np.random.default_rng(0).integers(0, 256, (10, n), np.uint8))
+    full = rs_codec.Encoder(10, 4, device="cpu").encode(data)
+    shapes.clear()
+    lost = [None if i == 3 else s for i, s in enumerate(full)]
+    got = enc.reconstruct(list(lost), wanted=[3])
+    assert shapes == [(10, bucket)]
+    assert got[3].shape == (n,) and np.array_equal(got[3], full[3])
+    if n <= 5000:
+        want = ref_codec.Encoder(10, 4, backend="jax").reconstruct(list(lost), wanted=[3])
+        assert np.array_equal(got[3], want[3])
+
+
+def test_decode_matrix_cache_is_bounded():
+    """Churning more loss patterns than the cap (flapping holders, rolling
+    repairs on a long-lived server) evicts: the cache never outgrows its
+    cap, as the reference's does not."""
+    import itertools
+
+    enc = rs_codec.Encoder(10, 4, device="cpu")
+    rs_codec.clear_decode_matrix_cache()
+    try:
+        info = rs_codec.decode_matrix_cache_info()
+        assert info.currsize == 0 and info.maxsize == ref_codec.decode_matrix_cache_info().maxsize
+        n_patterns = 0
+        for survivors in itertools.combinations(range(1, 14), 10):
+            for wanted in (w for w in range(14) if w not in survivors):
+                enc.reconstruction_matrix(survivors, (wanted,))
+                n_patterns += 1
+            if n_patterns > info.maxsize + 50:
+                break
+        assert n_patterns > info.maxsize, "the churn must overflow the cap"
+        info = rs_codec.decode_matrix_cache_info()
+        assert info.currsize <= info.maxsize and info.maxsize >= 16
+        assert info.misses >= n_patterns
+    finally:
+        rs_codec.clear_decode_matrix_cache()
+    assert rs_codec.decode_matrix_cache_info().currsize == 0

@@ -903,3 +903,74 @@ def test_ingest_manager_seal_on_threads_beside_degraded_reads(card, tmp_path):
     for s in range(14):
         assert open(stripe.shard_file_name(base, s), "rb").read() == open(
             stripe.shard_file_name(wbase, s), "rb").read()
+
+
+# -- the storage engine on the card -------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [32, 1000])
+def test_single_interval_reconstruct_launches_at_the_4k_bucket(card, monkeypatch, n):
+    """`Encoder.reconstruct` (a degraded read's one lost interval) launches
+    at the 4 KiB bucket, the shape `warm_reconstruct` prepares at mount, and
+    trims back to N bytes equal to the plain version's."""
+    gpu, cpu = rs_codec.Encoder(10, 4, device=card), rs_codec.Encoder(10, 4, device="cpu")
+    full = cpu.encode(list(np.random.default_rng(n).integers(0, 256, (10, n), np.uint8)))
+    shapes = []
+    real = rs_cuda.apply_matrix
+
+    def spy(m, shards, tile=None, variant="int8"):
+        shapes.append(tuple(shards.shape))
+        return real(m, shards, tile, variant)
+
+    monkeypatch.setattr(rs_cuda, "apply_matrix", spy)
+    lost = [None if i == 5 else s for i, s in enumerate(full)]
+    got = gpu.reconstruct(list(lost), wanted=[5])
+    assert shapes == [(10, 4096)]
+    assert got[5].shape == (n,) and np.array_equal(got[5], full[5])
+
+
+def test_card_store_serves_a_degraded_ec_volume_equal_to_the_cpu_store(card, tmp_path):
+    """A `Store` with the factory's encoder (the card) loads an EC volume
+    with shards 0, 5, 10 and 13 lost and serves every needle as a CPU
+    `Store` does, each degraded read one (1, 10) launch."""
+    from seaweedfs_tpu_torch.storage import needle, store
+
+    d = str(tmp_path / "store")
+    cpu = rs_codec.Encoder(10, 4, device="cpu")
+    s1 = store.Store([d], encoder=cpu)
+    v = s1.create_volume(6, collection="benchmark")
+    rng = np.random.default_rng(6)
+    for i in range(1, 301):
+        s1.write_needle(6, needle.Needle(cookie=i, id=i, data=rng.bytes(1024)))
+    for i in range(5, 301, 10):
+        s1.delete_needle(6, i)
+    s1.close()
+    stripe.write_ec_files(v.base_path, 1 << 16, 4096, buffer_size=4096, encoder=cpu)
+    stripe.write_sorted_file_from_idx(v.base_path)
+    for ext in (".dat", ".idx"):
+        os.unlink(v.base_path + ext)
+    for s in (0, 5, 10, 13):
+        os.unlink(stripe.shard_file_name(v.base_path, s))
+    plain, gpu = store.Store([d], encoder=cpu), store.Store([d])
+    try:
+        plain.load()
+        gpu.load()
+        ev = gpu.get_ec_volume(6)
+        assert ev.encoder.device.type == "cuda"
+        ev.warm_thread.join()
+        assert [i.to_dict() for i in gpu.ec_volume_infos()] == [
+            i.to_dict() for i in plain.ec_volume_infos()]
+        shape0 = dict(rs_cuda.launches_by_shape)
+        for i in range(1, 301):
+            if i % 10 == 5:
+                with pytest.raises(KeyError):
+                    gpu.read_needle(6, i)
+                continue
+            got, want = gpu.read_needle(6, i, cookie=i), plain.read_needle(6, i, cookie=i)
+            assert (got.data, got.append_at_ns) == (want.data, want.append_at_ns)
+        launched = {k: v - shape0.get(k, 0) for k, v in rs_cuda.launches_by_shape.items()
+                    if v != shape0.get(k, 0)}
+        assert set(launched) == {(1, 10)} and launched[(1, 10)] > 0
+    finally:
+        plain.close()
+        gpu.close()

@@ -45,10 +45,12 @@ def test_port_has_modules_for_every_layer():
                  "utils/config.py", "obs/trace.py", "__main__.py", "ops/measure.py",
                  "scripts/kernel_sweep.py", "scripts/device_window.py", "ec/ec_volume.py",
                  "ec/read_planner.py", "ec/locate.py", "ec/suspicion.py", "ec/convert.py",
-                 "ec/ingest.py", "ec/scrub.py",
+                 "ec/ingest.py", "ec/scrub.py", "ec/shard_bits.py", "storage/needle.py",
+                 "storage/super_block.py", "storage/file_id.py", "storage/scan.py",
+                 "storage/volume.py", "storage/store.py", "utils/glog.py", "utils/native.py",
                  "stats.py"):
         assert want in rel, want
-    for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh"):
+    for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
 
 
