@@ -3,7 +3,9 @@
     python3 chip_smoke.py [--seed N] [--dat-gib G] [--second-gib G] [--variant-gib G]
 
 Phases, one JSON line each:
-  device   the card (nvidia-smi name and power limit); exits 1 without CUDA
+  device   the card (nvidia-smi name and power limit), the torch and CUDA
+           versions, and whether grpc and google.protobuf import (their
+           versions, or null); exits 1 without CUDA
   build    compiles every kernel library from seaweedfs_tpu_torch/csrc/
   kernel_checks
            each of the five kernels (variants int8, bf16, u8, mplane, dma)
@@ -126,6 +128,22 @@ Phases, one JSON line each:
            needle's intervals touch (predicted from the .ecx and `ec.locate`),
            every reconstruct at a `RECONSTRUCT_BUCKETS` width; the compiled
            CRC32C must be the one loaded
+  obs      the store phase's EC volume loaded again: its sample read twice
+           through `Store.read_needle`, each pass from a cleared decoded-
+           interval cache, first with WEEDTPU_TRACE=off, then with every read
+           inside a `trace.start("http.read")` root (the volume server's GET)
+           into a `TraceRing(sample=1.0, seed=--seed)` that keeps every root.
+           Both passes must launch the store phase's predicted (1, 10) count,
+           and `weedtpu_ec_reconstruct_seconds_count` on the served /metrics
+           (`stats.start_metrics_server`) must rise by the same; the ring must
+           hold every traced read, every degraded one with `ec.recover` over
+           `ec.gather` and `ec.decode`, as many `ec.decode` spans as launches,
+           and `attribute_stages` summing to each root's duration; then one
+           unthrottled `Scrubber.run_cycle()` over the volume's shards (its
+           `scrub.cycle` root lands in the ring), and /debug/traces (a
+           `utils/httpd` server over `trace.debug_payload`) must report every
+           root kept. Prints p50/p99 by class (local, degraded) for both
+           passes and their difference, with no limit on them
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -1597,7 +1615,192 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     out["launches"] = dict(rs_cuda.launches_by_variant)
     check(out["launches"].get(enc.variant, 0) > 0 or not on_card,
           f"the store path never launched {enc.variant}")
+    # the obs phase reads the same EC volume and sample again
+    out["_obs"] = {"dir": d, "encoder": enc, "sample": sample, "data": data, "cookies": cookies,
+                   "deleted": deleted, "lost_on": lost_on}
     return out
+
+
+def _fetch(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        check(r.status == 200, f"GET {url}: {r.status}")
+        return r.read()
+
+
+def _reconstruct_count(metrics_url: str) -> int:
+    """`weedtpu_ec_reconstruct_seconds_count` as the /metrics endpoint
+    exposes it."""
+    for line in _fetch(metrics_url).decode().splitlines():
+        if line.startswith("weedtpu_ec_reconstruct_seconds_count "):
+            return int(float(line.split()[-1]))
+    raise RuntimeError("/metrics has no weedtpu_ec_reconstruct_seconds_count")
+
+
+def _obs_pass(st, state: dict, traced: bool, metrics_url: str) -> dict:
+    """One pass of the sample through `Store.read_needle` from a cold
+    decoded-interval cache; traced: each read inside the `http.read` root the
+    volume server's GET opens. -> latencies by class, (1, 10) launches, and
+    the rise of the exposed reconstruct count."""
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.obs import trace
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    data, cookies, deleted, lost_on = (state[k] for k in ("data", "cookies", "deleted", "lost_on"))
+    os.environ["WEEDTPU_TRACE"] = "on" if traced else "off"
+    read_planner.CACHE.clear()  # both passes decode the same intervals
+    count0, shape0 = _reconstruct_count(metrics_url), dict(rs_cuda.launches_by_shape)
+    by_class = {"local": [], "degraded": []}
+    for nid in state["sample"]:
+        t = time.perf_counter()
+        try:
+            with trace.start("http.read", klass="healthy") if traced else contextlib.nullcontext():
+                n = st.read_needle(STORE_VID, nid, cookie=cookies[nid - 1])
+        except KeyError:
+            check(nid in deleted, f"live needle {nid} not found")
+            continue
+        by_class["degraded" if lost_on[nid] else "local"].append((time.perf_counter() - t) * 1e3)
+        check(n.data == data[(nid - 1) * STORE_SIZE: nid * STORE_SIZE], f"needle {nid} differs")
+    return {"by_class": {k: {"reads": len(xs), "p50_ms": _pct(xs, 0.5), "p99_ms": _pct(xs, 0.99)}
+                         for k, xs in by_class.items()},
+            "launches_by_shape": _shape_launches(shape0),
+            "count_rise": _reconstruct_count(metrics_url) - count0}
+
+
+def run_obs(state: dict, seed: int, card: str, device: str = "cuda") -> dict:
+    """The obs phase (see the module doc): the store phase's EC volume read
+    twice, tracing off then on into a ring that keeps every root, one scrub
+    cycle traced, and both endpoints served and read over loopback."""
+    import threading
+
+    from seaweedfs_tpu_torch import stats
+    from seaweedfs_tpu_torch.ec import scrub
+    from seaweedfs_tpu_torch.obs import trace
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.storage import store
+    from seaweedfs_tpu_torch.utils import httpd
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    sample, lost_on, deleted = state["sample"], state["lost_on"], state["deleted"]
+    live = [n for n in sample if n not in deleted]
+    predicted = sum(lost_on[n] for n in live)
+    ring = trace.TraceRing(capacity=len(sample) + 8, slowest_n=len(sample) + 8, sample=1.0,
+                           seed=seed, errors_cap=len(sample) + 8)
+
+    class DebugTraces(httpd.QuietHandler):
+        def do_GET(self):  # noqa: N802 — the /debug/traces surface of the servers
+            body = json.dumps(trace.debug_payload(self.path, ring=ring)).encode()
+            self.send_reply(200, body, "application/json")
+
+    metrics = stats.start_metrics_server(0)
+    debug = httpd.ThreadingHTTPServer(("127.0.0.1", 0), DebugTraces)
+    threading.Thread(target=debug.serve_forever, daemon=True).start()
+    metrics_url = f"http://127.0.0.1:{metrics.server_address[1]}/metrics"
+    debug_url = f"http://127.0.0.1:{debug.server_address[1]}/debug/traces"
+    saved_ring, saved_env = trace.RING, os.environ.get("WEEDTPU_TRACE")
+    trace.RING = ring  # the process ring: the scrub cycle's root lands here too
+    rs_cuda.reset_launches()  # the obs path's run starts here
+    st = store.Store([state["dir"]], encoder=state["encoder"])
+    try:
+        st.load()
+        ev = st.get_ec_volume(STORE_VID)
+        check(ev is not None, "the load did not mount the EC volume")
+        if ev.warm_thread is not None:
+            ev.warm_thread.join()
+        passes = {"off": _obs_pass(st, state, False, metrics_url)}
+        check(ring.stats()["offered"] == 0, f"tracing off offered {ring.stats()}")
+        passes["on"] = _obs_pass(st, state, True, metrics_url)
+        for name, p in passes.items():
+            want = {(1, 10): predicted} if on_card else {}
+            check(p["launches_by_shape"] == want,
+                  f"{name} pass launched {p['launches_by_shape']}, predicted (1, 10) x {predicted}")
+            check(p["count_rise"] == predicted,
+                  f"{name} pass: reconstruct count rose {p['count_rise']}, predicted {predicted}")
+            p["launches_by_shape"] = _shape_keys(p["launches_by_shape"])
+
+        # the ring holds every traced read, each tree as the reference records it
+        reads = ring.snapshot(kind="http.read", limit=10 * len(sample))
+        check(len(reads) == len(sample) == ring.stats()["kept"] == ring.stats()["offered"],
+              f"{len(reads)} traced reads retained of {len(sample)}: {ring.stats()}")
+        decodes, by_class, worst = 0, {}, 0.0
+        for t in reads:
+            spans = list(trace.iter_spans(t))
+            decodes += sum(s["name"] == "ec.decode" for s in spans)
+            by_class[t["class"]] = by_class.get(t["class"], 0) + 1
+            if t["class"] == "degraded":
+                recovers = [s for s in spans if s["name"] == "ec.recover"]
+                check(recovers and all({c["name"] for c in s.get("spans", ())}
+                                       == {"ec.gather", "ec.decode"} for s in recovers),
+                      f"degraded trace {t['trace_id']} lacks ec.recover over gather and decode")
+            worst = max(worst, abs(sum(trace.attribute_stages(t).values()) - t["duration_s"]))
+        check(worst < 1e-9, f"attribute_stages misses a root's duration by {worst} s")
+        check(decodes == predicted, f"{decodes} ec.decode spans, predicted {predicted}")
+        check(by_class.get("degraded", 0) == sum(1 for n in live if lost_on[n]),
+              f"classes {by_class}")
+
+        # one unthrottled scrub cycle over the volume's shards, traced
+        t0 = time.perf_counter()
+        cycle = scrub.Scrubber(volumes=lambda: {STORE_VID: ev}, on_finding=lambda *a: None,
+                               cursor_path="", rate_mb=0.0).run_cycle()
+        scrub_s = time.perf_counter() - t0
+        check(cycle["findings"] == [] and cycle["shards_ok"] == 14 - len(LOST),
+              f"scrub cycle {cycle['findings']}, {cycle['shards_ok']} ok")
+        [root] = ring.snapshot(kind="scrub.cycle")
+        check(root["class"] == "scrub" and root["root"]["attrs"] == {
+            "scanned_bytes": cycle["scanned_bytes"], "shards_ok": cycle["shards_ok"],
+            "findings": 0}, f"scrub root {root['root']}")
+
+        # both endpoints, over loopback
+        t0 = time.perf_counter()
+        payload = json.loads(_fetch(f"{debug_url}?limit={10 * len(sample)}"))
+        fetch_s = time.perf_counter() - t0
+        roots = len(sample) + 1
+        check(payload["enabled"] and payload["stats"]["kept"] == roots == len(payload["traces"]),
+              f"/debug/traces kept {payload['stats']}, {len(payload['traces'])} traces")
+        slow = json.loads(_fetch(f"{debug_url}?kind=http.read&class=degraded&limit=5"))["traces"]
+        check(len(slow) == 5 and all(t["class"] == "degraded" for t in slow)
+              and [t["duration_s"] for t in slow] == sorted(
+                  (t["duration_s"] for t in slow), reverse=True), "the slowest degraded reads")
+        exposed = _fetch(metrics_url).decode()
+        check(exposed.count("# TYPE ") == 50, "/metrics lacks families")
+    finally:
+        st.close()
+        metrics.shutdown()
+        metrics.server_close()
+        debug.shutdown()
+        debug.server_close()
+        trace.RING = saved_ring
+        if saved_env is None:
+            os.environ.pop("WEEDTPU_TRACE", None)
+        else:
+            os.environ["WEEDTPU_TRACE"] = saved_env
+    cost = {k: {q: (passes["on"]["by_class"][k][q] - passes["off"]["by_class"][k][q])
+                for q in ("p50_ms", "p99_ms")} for k in ("local", "degraded")}
+    return {
+        "card": card, "sample": len(sample), "live": len(live), "predicted_1x10": predicted,
+        "passes": passes, "tracing_cost_ms": cost, "decode_spans": decodes,
+        "classes": by_class, "attribution_max_err_s": worst,
+        "slowest_degraded_ms": [round(t["duration_s"] * 1e3, 3) for t in slow],
+        "scrub": {"seconds": scrub_s, "scanned_bytes": cycle["scanned_bytes"],
+                  "spans": sorted({s["name"] for s in trace.iter_spans(root)})},
+        "debug_traces": {"kept": payload["stats"]["kept"], "fetch_s": fetch_s},
+        "metrics_bytes": len(exposed), "seconds": time.perf_counter() - t_phase,
+        "launches": dict(rs_cuda.launches_by_variant),
+    }
+
+
+def _version_if_importable(name: str) -> str | None:
+    """A reading for the device line: the module's version where it imports
+    on this machine, else None. Nothing here depends on it: the card's path
+    needs neither grpc nor protobuf (only the transport would)."""
+    import importlib
+
+    try:
+        return str(getattr(importlib.import_module(name), "__version__", "unknown"))
+    except ImportError:
+        return None
 
 
 def main(argv=None) -> int:
@@ -1616,7 +1819,8 @@ def main(argv=None) -> int:
     card = measure.card_line()
     emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "grpc": _version_if_importable("grpc"),
+          "protobuf": _version_if_importable("google.protobuf")})
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -1680,7 +1884,11 @@ def main(argv=None) -> int:
         shutil.rmtree(SCRATCH)  # the store phase starts on an empty directory
         os.makedirs(SCRATCH)
         slice_lines["store"] = run_store(SCRATCH, args.seed, card)
+        obs_state = slice_lines["store"].pop("_obs")
         emit({"phase": "store", **slice_lines["store"]})
+        slice_lines["obs"] = run_obs(obs_state, args.seed, card)
+        del obs_state
+        emit({"phase": "obs", **slice_lines["obs"]})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     idle = [v for v in KERNELS if not main_launches.get(v)]

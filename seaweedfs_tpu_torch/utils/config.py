@@ -165,6 +165,45 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             "before cut-over may retire the old geometry.",
             _flag,
         ),
+        EnvVar(
+            "WEEDTPU_WIRE", "json",
+            "Process-wide RPC wire selection: `proto` flips every unary JSON "
+            "method in the pinned schema to binary protobuf; anything else means "
+            "JSON. All processes of a cluster must agree.",
+            lambda raw: "proto" if raw.strip().lower() == "proto" else "json",
+        ),
+        EnvVar(
+            "WEEDTPU_TRACE", "on",
+            "Request tracing: `on` records context-local span trees into the "
+            "bounded per-process ring and propagates trace ids across RPC "
+            "metadata and the X-Weedtpu-Trace HTTP header; `off` collapses every "
+            "trace call site to a no-op.",
+            _enum("on", "off"),
+        ),
+        EnvVar(
+            "WEEDTPU_TRACE_SAMPLE", 1.0,
+            "Probability a completed non-tail trace enters the sampled ring "
+            "(error traces and the N slowest per (kind, class) are always "
+            "retained). Clamped to [0, 1].",
+            lambda raw: min(1.0, max(0.0, float(raw))),
+        ),
+        EnvVar(
+            "WEEDTPU_TRACE_RING", 256,
+            "Capacity of the per-process sampled-trace FIFO (error and slowest "
+            "traces live in their own bounded structures). Clamped to >= 8.",
+            _at_least(8),
+        ),
+        EnvVar(
+            "WEEDTPU_TRACE_SLOWEST", 5,
+            "How many slowest traces per (kind, class) the ring always retains, "
+            "independent of sampling (clamped to >= 1).",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_TRACE_SEED", 0,
+            "Seed for the trace-sampling RNG (deterministic retention for tests "
+            "and replays); 0 = OS entropy.",
+        ),
     )
 }
 

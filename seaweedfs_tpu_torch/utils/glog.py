@@ -3,9 +3,9 @@ gating on top of stdlib logging, so call sites read `glog.V(3).infof(...)`.
 Verbosity comes from set_verbosity() or the WEEDTPU_V knob.
 
 Every line takes a ` trace=<id>` suffix when the calling thread has a
-current trace id (the serving stack's trace ring brings them; until
-then the suffix is empty). `kv(...)` formats extra context pairs in the
-same grep-stable shape."""
+current trace id (`obs.trace`: a root from `start`, an RPC's continued
+id, or `collect`). `kv(...)` formats extra context pairs in the same
+grep-stable shape."""
 
 from __future__ import annotations
 
@@ -44,8 +44,7 @@ def _ctx_suffix() -> str:
     try:
         from seaweedfs_tpu_torch.obs import trace as _trace
 
-        current = getattr(_trace, "current_trace_id", None)
-        tid = current() if current is not None else None
+        tid = _trace.current_trace_id()
     except Exception:  # noqa: BLE001 — logging must never raise
         return ""
     return f" trace={tid}" if tid else ""

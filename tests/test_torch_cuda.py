@@ -384,6 +384,48 @@ def _card_volume(d, records_seed: int = 9):
     return base, {k: rec for k, (_, _, rec) in records.items()}
 
 
+def _reconstruct_count() -> float:
+    from seaweedfs_tpu_torch import stats
+
+    return next(float(line.split()[-1]) for line in stats.REGISTRY.expose().splitlines()
+                if line.startswith("weedtpu_ec_reconstruct_seconds_count "))
+
+
+def test_traced_degraded_read_on_card_records_a_decode_span_per_launch(card, tmp_path,
+                                                                        monkeypatch):
+    """Every read of a degraded volume on the card inside the `http.read`
+    root the volume server opens: the ring keeps every root, each degraded
+    one with `ec.recover` over `ec.gather` and `ec.decode`; the `ec.decode`
+    spans equal the kernel launches, and the exposition's reconstruct count
+    rises by as many; the stages sum to each root's duration."""
+    from seaweedfs_tpu_torch.ec import ec_volume
+    from seaweedfs_tpu_torch.obs import trace
+
+    base, records = _card_volume(tmp_path)
+    monkeypatch.setenv("WEEDTPU_READ_CACHE_MB", "0")  # every read decodes
+    monkeypatch.setenv("WEEDTPU_TRACE", "on")
+    ring = trace.TraceRing(capacity=64, slowest_n=64, sample=1.0, seed=0)
+    with ec_volume.EcVolume(base, encoder=rs_codec.new_encoder()) as ev:
+        ev.warm_thread.join()
+        n0, c0 = rs_cuda.launches, _reconstruct_count()
+        for k, rec in records.items():
+            with trace.start("http.read", klass="healthy", ring=ring):
+                assert ev.read_needle_blob(k)[: len(rec)] == rec
+        launches, rise = rs_cuda.launches - n0, _reconstruct_count() - c0
+    snap = ring.snapshot(limit=1000)
+    assert len(snap) == len(records) == ring.stats()["kept"]
+    spans = [s for t in snap for s in trace.iter_spans(t)]
+    assert launches > 0 and sum(s["name"] == "ec.decode" for s in spans) == launches == rise
+    degraded = [t for t in snap if t["class"] == "degraded"]
+    assert degraded
+    for t in degraded:
+        recovers = [s for s in trace.iter_spans(t) if s["name"] == "ec.recover"]
+        assert recovers and all({c["name"] for c in s["spans"]} == {"ec.gather", "ec.decode"}
+                                for s in recovers)
+    for t in snap:
+        assert abs(sum(trace.attribute_stages(t).values()) - t["duration_s"]) < 1e-9
+
+
 def test_card_ec_volume_reads_equal_cpu_serially_and_from_threads(card, tmp_path, monkeypatch):
     import threading
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from seaweedfs_tpu.ec import ingest as ref_ingest
+from seaweedfs_tpu.obs import trace as ref_trace
 from seaweedfs_tpu.ops import gf8 as ref_gf8
 from seaweedfs_tpu.ops import rs_codec as ref_codec
 from seaweedfs_tpu.utils import config as ref_config
@@ -745,29 +746,46 @@ def test_inline_knobs_match_reference(monkeypatch, name, raw):
     assert value(config) == value(ref_config)
 
 
-def test_poll_root_records_nothing_and_seal_nests_under_a_collector(tmp_path):
-    """`trace.start` (a poll's root) has no reader yet: it takes attributes,
-    records nothing, and hides its children even from an outer collector;
-    `trace.ensure` (the seal's span) records under an ambient collector."""
-    base = str(tmp_path / "5")
+def test_poll_root_records_nothing_and_seal_nests_under_a_collector(tmp_path, monkeypatch):
+    """A poll's root (`trace.start("ingest.encode")`) lands in the trace
+    ring with its encode spans under it, as the reference's does, and an
+    outer collector sees none of them (the root is a trace of its own);
+    `trace.ensure` (the seal's span) records under an ambient collector
+    and roots a trace of its own without one; an unregistered name records
+    instead of raising. (The name dates from when a root recorded nothing.)"""
     data = np.random.default_rng(5).integers(0, 256, LARGE * 10 + 3000, dtype=np.uint8)
-    with open(base + ".dat", "wb") as f:
-        f.write(data.tobytes())
-    b = ingest.InlineStripeBuilder(base, ENC, LARGE, SMALL)
+    monkeypatch.setenv("WEEDTPU_TRACE", "on")
+    rings, builders = {}, {}
+    for name, mod, tmod, enc in (("port", ingest, trace, ENC),
+                                 ("ref", ref_ingest, ref_trace, REF)):
+        ring = rings[name] = tmod.TraceRing(capacity=64, slowest_n=8, sample=1.0, seed=1)
+        monkeypatch.setattr(tmod, "RING", ring)
+        base = str(tmp_path / name)
+        with open(base + ".dat", "wb") as f:
+            f.write(data.tobytes())
+        b = builders[name] = mod.InlineStripeBuilder(base, enc, LARGE, SMALL)
+        with trace.collect() as spans:
+            assert b.poll() == 1
+        assert spans == []
+    for name in rings:
+        [t] = rings[name].snapshot()
+        assert (t["kind"], t["class"], t["error"]) == ("ingest.encode", "ingest", None)
+        assert t["root"]["attrs"] == {"rows": 1, "row_start": 0}
+        assert [s["name"] for s in t["root"]["spans"]] == [
+            s["name"] for s in rings["ref"].snapshot()[0]["root"]["spans"]]
+        assert {s["name"] for s in ref_trace.iter_spans(t)} == {
+            "ingest.encode", "encode.stage", "encode.drain"}
+    ring = rings["port"]
+    ring.clear()
     with trace.collect() as spans:
-        assert b.poll() == 1
-        with trace.start("ingest.encode") as root:
-            root.annotate(rows=1)
-            with trace.span("encode.stage"):
-                pass
-    assert spans == []
-    with trace.collect() as spans:
-        b.seal()  # the seal encodes the small-row tail under its span
+        builders["port"].seal()  # the seal encodes the small-row tail under its span
     assert spans[-1]["name"] == "ingest.seal"
     assert {s["name"] for s in spans[:-1]} == {"encode.stage", "encode.drain"}
-    with trace.ensure("scrub.cycle") as root:  # no collector: a silent root
+    assert ring.snapshot() == []
+    with trace.ensure("scrub.cycle") as root:  # no ambient trace: a root of its own
         root.annotate(shards=1)
-    with pytest.raises(ValueError):
-        with trace.start("ingest.unknown"):
-            pass
-
+    [t] = ring.snapshot()
+    assert (t["kind"], t["class"], t["root"]["attrs"]) == ("scrub.cycle", "maint", {"shards": 1})
+    with trace.start("ingest.unknown"), trace.span("encode.unknown"):
+        pass
+    assert {t["kind"] for t in ring.snapshot()} == {"scrub.cycle", "ingest.unknown"}

@@ -1,6 +1,8 @@
 """The port stands alone: no module of `seaweedfs_tpu_torch/`, nor
 `chip_smoke.py`, imports `jax` or anything of the JAX package, and
-importing the whole port leaves neither in `sys.modules`."""
+importing the whole port leaves neither in `sys.modules`. The card's path
+needs neither `grpc` nor `google.protobuf`: only `rpc`, `pb.wire` and
+`security.tls` import them, and `chip_smoke.py` imports none of those."""
 
 import ast
 import os
@@ -48,10 +50,15 @@ def test_port_has_modules_for_every_layer():
                  "ec/ingest.py", "ec/scrub.py", "ec/shard_bits.py", "storage/needle.py",
                  "storage/super_block.py", "storage/file_id.py", "storage/scan.py",
                  "storage/volume.py", "storage/store.py", "utils/glog.py", "utils/native.py",
-                 "stats.py"):
+                 "stats/__init__.py", "utils/httpd.py", "security/__init__.py",
+                 "security/jwt.py", "security/guard.py", "security/tls.py", "pb/__init__.py",
+                 "pb/wire.py", "rpc.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
+    for art in ("contracts.proto", "contracts.desc"):
+        assert os.path.exists(os.path.join(PORT, "pb", art)), art
+    assert not os.path.exists(os.path.join(PORT, "stats.py"))  # the package replaced the shim
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -72,6 +79,78 @@ def test_importing_the_port_loads_neither():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: the port's only importers of grpc / google.protobuf
+WIRE_MODULES = ("seaweedfs_tpu_torch.rpc", "seaweedfs_tpu_torch.pb.wire",
+                "seaweedfs_tpu_torch.security.tls")
+
+
+def _port_imports(path: str) -> set[str]:
+    """Every `seaweedfs_tpu_torch...` module a file imports, at any depth
+    of its code (`from pkg import mod` counts as pkg.mod)."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names if a.name.startswith("seaweedfs_tpu_torch")}
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0 and node.module
+              and node.module.startswith("seaweedfs_tpu_torch")):
+            for a in node.names:
+                sub = f"{node.module}.{a.name}"
+                is_mod = os.path.exists(os.path.join(ROOT, *sub.split(".")) + ".py") or \
+                    os.path.isdir(os.path.join(ROOT, *sub.split(".")))
+                out.add(sub if is_mod else node.module)
+    return out
+
+
+def test_chip_smoke_imports_no_wire_module():
+    got = _port_imports(os.path.join(ROOT, "chip_smoke.py"))
+    assert "seaweedfs_tpu_torch.obs.trace" in got and "seaweedfs_tpu_torch.stats" in got
+    assert not got & set(WIRE_MODULES), sorted(got & set(WIRE_MODULES))
+    assert not _imported_roots(os.path.join(ROOT, "chip_smoke.py")) & {"grpc", "google"}
+
+
+def test_card_path_imports_without_grpc_or_protobuf():
+    """With `grpc` and `google.protobuf` unimportable (as they may be on the
+    card's machine), every port module `chip_smoke.py` imports, the trace
+    ring, the stats registry, the HTTP plumbing and JWT/guard still import,
+    and so does `chip_smoke.py`; the wire modules fail loudly."""
+    mods = sorted(_port_imports(os.path.join(ROOT, "chip_smoke.py")) | {
+        "seaweedfs_tpu_torch.obs.trace", "seaweedfs_tpu_torch.stats",
+        "seaweedfs_tpu_torch.utils.httpd", "seaweedfs_tpu_torch.security",
+        "seaweedfs_tpu_torch.security.jwt", "seaweedfs_tpu_torch.security.guard",
+        "seaweedfs_tpu_torch.pb"})
+    code = (
+        "import importlib, sys\n"
+        "for blocked in ('grpc', 'google.protobuf'):\n"
+        "    sys.modules[blocked] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from seaweedfs_tpu_torch.pb import wire\n"
+        "try:\n"
+        "    wire.WireCodec()\n"
+        "    sys.exit('the codec built without protobuf')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        f"for m in {WIRE_MODULES[::2]!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "        sys.exit(m + ' imported without grpc')\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        "bad = [m for m in sys.modules if (m.split('.')[0] == 'grpc'\n"
+        "       or m.startswith('google.protobuf')) and sys.modules[m] is not None]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
