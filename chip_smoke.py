@@ -144,6 +144,27 @@ Phases, one JSON line each:
            `utils/httpd` server over `trace.debug_payload`) must report every
            root kept. Prints p50/p99 by class (local, degraded) for both
            passes and their difference, with no limit on them
+  cluster  the users' EC path over real gRPC and HTTP on loopback, in this
+           process: a port MasterServer and three VolumeServers A, B, C
+           (racks rack0/rack1/rack0, heartbeat 0.4 s, each on the factory's
+           encoder); A serves the store phase's compacted volume (hard-linked
+           after its compact). Volume 1 marked read-only, then 4096 seeded
+           1 KiB needles assigned and uploaded through `MasterClient` (upstream
+           `weed benchmark`'s write path; the master grows new volumes) and
+           read back; `VolumeEcShardsGenerate` on A must launch what the store
+           phase's encode launched, and its .ecx and the ten shards the store
+           phase kept must equal that phase's; B pulls 5-9 and C 10-13
+           (`VolumeEcShardsCopy`), A drops them and the volume, all mount; LOST
+           are lost (0 on A, 5 on B, 10 and 13 on C); the store phase's sample
+           through `MasterClient.read` (HTTP GET on A), serially without
+           hedging (the (1, 10) launches the store phase predicted, each at a
+           bucket width; p50/p99 by class: local, remote, degraded), then with
+           the default hedging; B rebuilds LOST with `remote: true` over the
+           slab stream (one (4, 10) launch per batch, the sha256s of
+           generate), then loses shard 5 again and rebuilds it from holder
+           projections (`trace_mode: on`; the holders project on the card;
+           launches by (R, C) as the plan's groups, wire bytes against the
+           slab path's); `VolumeEcShardsVerify` all ok on every holder
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -1425,10 +1446,9 @@ def _timed_reads(st, vid: int, sample: list, data, cookies: list, deleted: set) 
             "p50_ms": _pct(ms, 0.5), "p99_ms": _pct(ms, 0.99)}
 
 
-def _lost_intervals(base: str, sample: list, lost: tuple) -> dict:
-    """{needle id: distinct lost shards its intervals lie on}, for the
-    sampled needles the .ecx holds, from the .ecx, the .eci and
-    `ec.locate` alone: a degraded read launches once per such shard."""
+def _needle_shards(base: str, sample: list) -> dict:
+    """{needle id: the shards its intervals lie on}, for the sampled
+    needles the .ecx holds, from the .ecx, the .eci and `ec.locate` alone."""
     from seaweedfs_tpu_torch.ec import locate, stripe
     from seaweedfs_tpu_torch.storage import idx, types
 
@@ -1444,9 +1464,15 @@ def _lost_intervals(base: str, sample: list, lost: tuple) -> dict:
         ivs = locate.locate_data(info["large_block_size"], info["small_block_size"],
                                  info["dat_size"], types.offset_to_actual(int(index["offset"][pos])),
                                  types.actual_size(size), 10)
-        out[nid] = len({s for s in (iv.to_shard_id_and_offset(
-            info["large_block_size"], info["small_block_size"])[0] for iv in ivs) if s in lost})
+        out[nid] = {iv.to_shard_id_and_offset(info["large_block_size"],
+                                              info["small_block_size"])[0] for iv in ivs}
     return out
+
+
+def _lost_intervals(base: str, sample: list, lost: tuple) -> dict:
+    """{needle id: distinct lost shards its intervals lie on}: a degraded
+    read launches once per such shard."""
+    return {nid: len(shards & set(lost)) for nid, shards in _needle_shards(base, sample).items()}
 
 
 def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
@@ -1531,6 +1557,15 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     out["compact"] = {"seconds": time.perf_counter() - t0, "bytes_before": compacted["bytes_before"],
                       "bytes_after": compacted["bytes_after"]}
     check(compacted["bytes_after"] < compacted["bytes_before"], f"compact {compacted}")
+    # the cluster phase serves this compacted volume from its first server
+    cluster_srv0 = os.path.join(scratch, "cluster", "srv0")
+    os.makedirs(cluster_srv0)
+    for ext in (".dat", ".idx"):
+        dst = os.path.join(cluster_srv0, os.path.basename(base) + ext)
+        try:
+            os.link(base + ext, dst)
+        except OSError:
+            shutil.copyfile(base + ext, dst)
     check(st.mount_volume(STORE_VID), "remount after compact")
     out["reads_compacted"] = _timed_reads(st, STORE_VID, sample, data, cookies, deleted)
     st.close()
@@ -1553,9 +1588,12 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
 
     # 7: EC-encode on the card, lose four shards and the .dat, load, read
     t0 = time.perf_counter()
+    shape0 = dict(rs_cuda.launches_by_shape)
     encoded = local.encode(base, device=device)
+    encode_shape = _shape_launches(shape0)
     out["ec_encode"] = {"seconds": time.perf_counter() - t0, "dat_bytes": encoded["dat_bytes"],
-                        "shard_bytes": encoded["shard_bytes"]}
+                        "shard_bytes": encoded["shard_bytes"],
+                        "launches_by_shape": _shape_keys(encode_shape)}
     for ext in (".dat", ".idx", ".sdx", ".sdx.meta"):
         if os.path.exists(base + ext):
             os.remove(base + ext)
@@ -1602,6 +1640,8 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     predicted = sum(lost_on.values())
     check(by_shape == ({(1, 10): predicted} if on_card else {}),
           f"EC reads launched {by_shape}, predicted (1, 10) x {predicted}")
+    check(len(widths) - warm == predicted or not on_card,
+          f"{len(widths) - warm} recorded reconstructs for {predicted} launches")
     check(all(n in enc.RECONSTRUCT_BUCKETS for _, _, n in widths) or not on_card,
           f"a reconstruct launched off the buckets: {sorted(set(widths))}")
     out["ec_reads"] = {
@@ -1615,9 +1655,11 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     out["launches"] = dict(rs_cuda.launches_by_variant)
     check(out["launches"].get(enc.variant, 0) > 0 or not on_card,
           f"the store path never launched {enc.variant}")
-    # the obs phase reads the same EC volume and sample again
+    # the obs and cluster phases read the same volume and sample again
     out["_obs"] = {"dir": d, "encoder": enc, "sample": sample, "data": data, "cookies": cookies,
-                   "deleted": deleted, "lost_on": lost_on}
+                   "deleted": deleted, "lost_on": lost_on, "base": base,
+                   "encode_shape": encode_shape,
+                   "cluster_dir": os.path.dirname(cluster_srv0)}
     return out
 
 
@@ -1791,6 +1833,355 @@ def run_obs(state: dict, seed: int, card: str, device: str = "cuda") -> dict:
     }
 
 
+#: the cluster phase: new 1 KiB needles written through the master, the
+#: servers' racks, where the generated volume's shards go (A keeps 0-4, B
+#: pulls 5-9, C pulls 10-13), and which server loses which shards (LOST)
+CLUSTER_WRITES = 4096
+CLUSTER_RACKS = ("rack0", "rack1", "rack0")
+CLUSTER_SPREAD = ((0, 1, 2, 3, 4), (5, 6, 7, 8, 9), (10, 11, 12, 13))
+CLUSTER_LOSS = ((0,), (5,), (10, 13))
+
+
+def _cluster_wait(cond, what: str, timeout: float = 60.0) -> float:
+    """Poll `cond` until it holds (-> seconds waited); fail after `timeout`."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"timed out waiting for {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _cluster_join_warm(servers: list) -> None:
+    """Wait for every mounted EC volume's warm-up launches, so that the
+    counts that follow are the step's own."""
+    for vs in servers:
+        ev = vs.store.get_ec_volume(STORE_VID)
+        if ev is not None and ev.warm_thread is not None:
+            ev.warm_thread.join()
+
+
+def _cluster_reads(client, state: dict, shards_of: dict, local: set, lost: set) -> dict:
+    """The store phase's sample through `MasterClient.read` (the HTTP GET on
+    the first holder the master names): live needles equal their data,
+    deleted ones are not found; ms by class: local (every interval on the
+    serving server's shards), remote (one on another server's shard),
+    degraded (one on a lost shard)."""
+    from seaweedfs_tpu_torch.cluster.client import ClusterError
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    data, cookies, deleted = state["data"], state["cookies"], state["deleted"]
+    by_class = {"local": [], "remote": [], "degraded": []}
+    for nid in state["sample"]:
+        fid = str(FileId(STORE_VID, nid, cookies[nid - 1]))
+        t = time.perf_counter()
+        try:
+            body = client.read(fid)
+        except ClusterError:
+            check(nid in deleted, f"live needle {nid} not found through the cluster")
+            continue
+        ms = (time.perf_counter() - t) * 1e3
+        check(nid not in deleted, f"deleted needle {nid} read back through the cluster")
+        check(body == data[(nid - 1) * STORE_SIZE: nid * STORE_SIZE], f"needle {nid} differs")
+        klass = ("degraded" if shards_of[nid] & lost else
+                 "local" if shards_of[nid] <= local else "remote")
+        by_class[klass].append(ms)
+    return {k: {"reads": len(xs), "p50_ms": _pct(xs, 0.5), "p99_ms": _pct(xs, 0.99)}
+            for k, xs in by_class.items()}
+
+
+def _cluster_stages(ring, klass: str) -> dict:
+    """Where a class's reads spent their time on the serving server: the
+    median ms of each stage (`trace.attribute_stages`) over the `http.read`
+    roots of that class in the ring (which keeps every root of a pass)."""
+    from seaweedfs_tpu_torch.obs import trace
+
+    reads = ring.snapshot(kind="http.read", klass=klass, limit=1 << 20)
+    per = [trace.attribute_stages(t) for t in reads]
+    names = sorted({k for st in per for k in st})
+    return {"traces": len(per), "median_ms": {
+        k: _pct([st.get(k, 0.0) * 1e3 for st in per], 0.5) for k in names}}
+
+
+def _cluster_batches(ring) -> int:
+    """`rebuild.stage` spans, one per batch, of the one `rebuild.run` root
+    the ring holds."""
+    from seaweedfs_tpu_torch.obs import trace
+
+    runs = ring.snapshot(kind="rebuild.run")
+    check(len(runs) == 1, f"{len(runs)} rebuild.run traces in the ring")
+    return sum(sp["name"] == "rebuild.stage" for sp in trace.iter_spans(runs[0]))
+
+
+def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict:
+    """The cluster phase (see the module doc): the users' EC path through a
+    master and three volume servers over gRPC and HTTP on loopback."""
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.cluster.client import MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import read_planner, stripe
+    from seaweedfs_tpu_torch.obs import trace
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    root, coll = state["cluster_dir"], "benchmark"
+    # the servers' roots land here: every read pass's (its HTTP reads and
+    # the holders' RPCs) and each rebuild's
+    ring = trace.TraceRing(capacity=1 << 14, slowest_n=4, sample=1.0, seed=seed)
+    saved_ring, saved_hedge = trace.RING, os.environ.get("WEEDTPU_HEDGE_READS")
+    trace.RING = ring
+    rs_cuda.reset_launches()  # the cluster path's run starts here
+    master = MasterServer(port=0, reap_interval=3600)
+    servers, clients = [], []
+    out = {"card": card, "writes": CLUSTER_WRITES, "racks": list(CLUSTER_RACKS)}
+
+    def call(vs, method: str, req: dict, timeout: float = 600) -> dict:
+        with rpc.RpcClient(vs.grpc_address) as c:
+            return c.call(VOLUME_SERVICE, method, {"volume_id": STORE_VID, "collection": coll,
+                                                   **req}, timeout=timeout)
+
+    def ec_holders() -> dict:
+        return master.topology.lookup_ec_shards(STORE_VID)
+
+    try:
+        # 1: the master and servers A, B, C; A loads the store phase's volume
+        t0 = time.perf_counter()
+        master.start()
+        for i, rack in enumerate(CLUSTER_RACKS):
+            d = os.path.join(root, f"srv{i}")
+            os.makedirs(d, exist_ok=True)
+            vs = VolumeServer([d], master.address, heartbeat_interval=0.4, rack=rack,
+                              encoder=rs_codec.new_encoder(device=device))
+            vs.start()
+            servers.append(vs)
+        a, b, c = servers
+        check(a.store.get_volume(STORE_VID) is not None, "server A did not load the volume")
+        _cluster_wait(lambda: master.topology.lookup(STORE_VID, coll), "the master to list volume 1")
+        out["start_s"] = time.perf_counter() - t0
+
+        # 2: volume 1 read-only; upstream `weed benchmark`'s write path (one
+        # assign and one upload per file) into new volumes the master grows
+        call(a, "VolumeMarkReadonly", {})
+        _cluster_wait(lambda: all(vi.read_only for n in master.topology.nodes.values()
+                                  for v, vi in n.volumes.items() if v == STORE_VID),
+                      "the master to see volume 1 read-only")
+        client = MasterClient(master.address)
+        clients.append(client)
+        rng = np.random.default_rng(seed + 900)
+        blobs = rng.bytes(CLUSTER_WRITES * STORE_SIZE)
+        fids, ms = [], []
+        t0 = time.perf_counter()
+        for i in range(CLUSTER_WRITES):
+            t = time.perf_counter()
+            fid = client.assign(collection=coll).fid
+            client.upload(fid, blobs[i * STORE_SIZE: (i + 1) * STORE_SIZE])
+            ms.append((time.perf_counter() - t) * 1e3)
+            fids.append(fid)
+        write_s = time.perf_counter() - t0
+        check(all(int(f.split(",")[0]) != STORE_VID for f in fids), "a write went to volume 1")
+        rms = []
+        t0 = time.perf_counter()
+        for i, fid in enumerate(fids):
+            t = time.perf_counter()
+            check(client.read(fid) == blobs[i * STORE_SIZE: (i + 1) * STORE_SIZE],
+                  f"written needle {fid} differs")
+            rms.append((time.perf_counter() - t) * 1e3)
+        read_s = time.perf_counter() - t0
+        out["client"] = {"write_s": write_s, "writes_per_s": CLUSTER_WRITES / write_s,
+                         "write_p50_ms": _pct(ms, 0.5), "write_p99_ms": _pct(ms, 0.99),
+                         "read_s": read_s, "reads_per_s": CLUSTER_WRITES / read_s,
+                         "read_p50_ms": _pct(rms, 0.5), "read_p99_ms": _pct(rms, 0.99),
+                         "volumes": len({f.split(",")[0] for f in fids})}
+
+        # 3: EC generate on A: the store phase's 16 (4, 10) batches; the .ecx
+        # and the shards the store phase kept must equal its own
+        base_a = a.store.get_volume(STORE_VID).base_path
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t0 = time.perf_counter()
+        gen = call(a, "VolumeEcShardsGenerate", {})
+        gen_s = time.perf_counter() - t0
+        gen_shape = _shape_launches(shape0)
+        check(gen["shard_ids"] == list(range(14)) and gen["mode"] == "warm", f"generate {gen}")
+        check(gen_shape == (state["encode_shape"] if on_card else {}),
+              f"generate launched {gen_shape}, the store phase's encode {state['encode_shape']}")
+        shas = {s: sha256_file(stripe.shard_file_name(base_a, s)) for s in range(14)}
+        store_base = state["base"]
+        for s in range(14):
+            if s not in LOST:
+                check(shas[s] == sha256_file(stripe.shard_file_name(store_base, s)),
+                      f"generated shard {s} differs from the store phase's")
+        check(sha256_file(base_a + ".ecx") == sha256_file(store_base + ".ecx"),
+              "the generated .ecx differs from the store phase's")
+        shard_bytes = os.path.getsize(stripe.shard_file_name(base_a, 0))
+        out["generate"] = {"seconds": gen_s, "dat_bytes": os.path.getsize(base_a + ".dat"),
+                           "shard_bytes": shard_bytes, "launches_by_shape": _shape_keys(gen_shape),
+                           "equal_to_store_phase": True, "sha256": shas}
+
+        # 4: the spread (test_cluster.py's plan): B and C pull, A drops the
+        # rest and the volume, all three mount
+        t0 = time.perf_counter()
+        for vs, sids in zip((b, c), CLUSTER_SPREAD[1:]):
+            call(vs, "VolumeEcShardsCopy", {"shard_ids": list(sids),
+                                            "source_data_node": a.grpc_address})
+        call(a, "VolumeEcShardsDelete", {"shard_ids": [s for s in range(14)
+                                                       if s not in CLUSTER_SPREAD[0]]})
+        call(a, "VolumeDelete", {})
+        for vs in servers:
+            call(vs, "VolumeEcShardsMount", {})
+        _cluster_wait(lambda: len(ec_holders()) == 14 and not master.topology.lookup(STORE_VID, coll),
+                      "the master to list 14 shards")
+        out["spread"] = {"seconds": time.perf_counter() - t0,
+                         "bytes_copied": shard_bytes * 9}
+
+        # 5: lose LOST: 0 on A, 5 on B, 10 and 13 on C
+        for vs, sids in zip(servers, CLUSTER_LOSS):
+            call(vs, "VolumeEcShardsUnmount", {})
+            call(vs, "VolumeEcShardsDelete", {"shard_ids": list(sids)})
+        _cluster_wait(lambda: len(ec_holders()) == 10, "the master to list 10 shards")
+        shards_of = _needle_shards(base_a, state["sample"])
+        lost_on = {nid: len(sh & set(LOST)) for nid, sh in shards_of.items()}
+        check(lost_on == state["lost_on"], "the cluster's .ecx places the sample otherwise")
+        locations = client.lookup(STORE_VID, refresh=True)
+        check(locations and locations[0].url == a.url, "the master names A first")
+        local = set(CLUSTER_SPREAD[0]) - set(LOST)
+        predicted = sum(lost_on.values())
+
+        # 6-7: the sample through the cluster, serially without hedging
+        # (launches = the store phase's prediction, each at a bucket), then
+        # with the default hedging
+        passes = {}
+        for name, hedge in (("serial", "off"), ("hedged", None)):
+            if hedge is None:
+                os.environ.pop("WEEDTPU_HEDGE_READS", None)
+            else:
+                os.environ["WEEDTPU_HEDGE_READS"] = hedge
+            read_planner.CACHE.clear()
+            _cluster_join_warm(servers)
+            shape0 = dict(rs_cuda.launches_by_shape)
+            widths = []
+            encoders = {id(vs.store.encoder): vs.store.encoder for vs in servers}.values()
+            dispatch = {id(e): e._apply_lazy for e in encoders}
+
+            def recording(inner):  # every launch's width, on whichever server
+                def recorded(m, shards, donate=False, width=None):
+                    widths.append(int(width or shards.shape[-1]))
+                    return inner(m, shards, donate=donate, width=width)
+                return recorded
+
+            for e in encoders:
+                e._apply_lazy = recording(dispatch[id(e)])
+            ring.clear()
+            try:
+                t0 = time.perf_counter()
+                by_class = _cluster_reads(client, state, shards_of, local, set(LOST))
+                seconds = time.perf_counter() - t0
+            finally:
+                for e in encoders:
+                    e._apply_lazy = dispatch[id(e)]
+            by_shape = _shape_launches(shape0)
+            passes[name] = {"seconds": seconds, "by_class": by_class,
+                            "launches_by_shape": _shape_keys(by_shape),
+                            "widths": sorted(set(widths)),
+                            "degraded_stages": _cluster_stages(ring, "degraded")}
+            if name == "serial":
+                check(by_shape == ({(1, 10): predicted} if on_card else {}),
+                      f"serial reads launched {by_shape}, predicted (1, 10) x {predicted}")
+                check(len(widths) == predicted or not on_card,
+                      f"{len(widths)} recorded reconstructs for {predicted} launches")
+                check(all(w in a.store.encoder.RECONSTRUCT_BUCKETS for w in widths)
+                      or not on_card, f"a reconstruct launched off the buckets: {set(widths)}")
+        out["reads"] = {"predicted_1x10": predicted, **passes}
+
+        # 8: B rebuilds LOST over the slab stream: A's 1-4, its own 6-9, C's
+        # 11-12; one (4, 10) launch per batch
+        ring.clear()
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t0 = time.perf_counter()
+        rb = call(b, "VolumeEcShardsRebuild", {"remote": True, "trace_mode": "off"})
+        rb_s = time.perf_counter() - t0
+        rb_shape = _shape_launches(shape0)
+        batches = _cluster_batches(ring)
+        base_b = b._base_path_for(STORE_VID, coll)
+        check(rb["rebuilt_shard_ids"] == list(LOST) and rb["mode"] == "slab", f"rebuild {rb}")
+        check(rb_shape == ({(4, 10): batches} if on_card else {}),
+              f"remote rebuild launched {rb_shape} for {batches} batches")
+        for s in LOST:
+            check(sha256_file(stripe.shard_file_name(base_b, s)) == shas[s],
+                  f"remote rebuild: shard {s} differs")
+        call(b, "VolumeEcShardsMount", {})
+        _cluster_wait(lambda: len(ec_holders()) == 14, "the master to list the rebuilt shards")
+        survivor_bytes = 10 * shard_bytes
+        out["remote_rebuild"] = {
+            "seconds": rb_s, "gbps": survivor_bytes / rb_s / 1e9, "batches": batches,
+            "launches_by_shape": _shape_keys(rb_shape), "wire_bytes": rb["wire_bytes"],
+            "local_survivors": rb["local_survivors"], "remote_survivors": rb["remote_survivors"]}
+
+        # 9: B loses shard 5 again and rebuilds it from projections: each
+        # holder projects its window on its card, B its local group, one
+        # combine per batch
+        call(b, "VolumeEcShardsUnmount", {})
+        call(b, "VolumeEcShardsDelete", {"shard_ids": [5]})
+        _cluster_wait(lambda: len(ec_holders()) == 13, "the master to drop shard 5")
+        _cluster_join_warm(servers)
+        ring.clear()
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t0 = time.perf_counter()
+        tr = call(b, "VolumeEcShardsRebuild", {"remote": True, "trace_mode": "on"})
+        tr_s = time.perf_counter() - t0
+        tr_shape = _shape_launches(shape0)
+        tbatches = _cluster_batches(ring)
+        check(tr["rebuilt_shard_ids"] == [5] and tr["mode"] == "trace", f"trace rebuild {tr}")
+        check(sha256_file(stripe.shard_file_name(base_b, 5)) == shas[5],
+              "trace rebuild: shard 5 differs")
+        groups = [len(label.split("=", 1)[1].split("+")) for label in tr["trace_groups"]]
+        want: dict = {(1, len(groups)): tbatches}  # the combine
+        for k in groups:  # each group's projection, one per batch window
+            want[(1, k)] = want.get((1, k), 0) + tbatches
+        chosen = sum(groups)
+        check(chosen == 10 and len(tr["remote_survivors"]) + len(tr["local_survivors"]) == 10,
+              f"the trace plan covers {chosen} survivors")
+        check(tr_shape == (want if on_card else {}),
+              f"trace rebuild launched {tr_shape}, the plan wants {want}")
+        slab_wire = len(tr["remote_survivors"]) * shard_bytes
+        check(tr["wire_bytes"] == (len(groups) - 1) * shard_bytes < slab_wire,
+              f"trace wire bytes {tr['wire_bytes']}")
+        call(b, "VolumeEcShardsMount", {})
+        out["trace_rebuild"] = {
+            "seconds": tr_s, "gbps": survivor_bytes / tr_s / 1e9, "batches": tbatches,
+            "groups": tr["trace_groups"], "launches_by_shape": _shape_keys(tr_shape),
+            "wire_bytes": tr["wire_bytes"], "slab_wire_bytes": slab_wire}
+
+        # 10: every holder's shards verify against the .eci
+        t0 = time.perf_counter()
+        verified = {}
+        for name, vs in zip("ABC", servers):
+            v = call(vs, "VolumeEcShardsVerify", {})
+            check(v["has_crcs"] and v["verdicts"] and all(x == "ok" for x in v["verdicts"].values()),
+                  f"verify on {name}: {v['verdicts']}")
+            verified[name] = sorted(int(s) for s in v["verdicts"])
+        check(sorted(s for sids in verified.values() for s in sids) == list(range(14)),
+              f"verified shards {verified}")
+        out["verify"] = {"seconds": time.perf_counter() - t0, "shards": verified}
+    finally:
+        for cl in clients:
+            cl.close()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+        trace.RING = saved_ring
+        if saved_hedge is None:
+            os.environ.pop("WEEDTPU_HEDGE_READS", None)
+        else:
+            os.environ["WEEDTPU_HEDGE_READS"] = saved_hedge
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    check(out["launches"].get(a.store.encoder.variant, 0) > 0 or not on_card,
+          "the cluster path never launched the factory's kernel")
+    return out
+
+
 def _version_if_importable(name: str) -> str | None:
     """A reading for the device line: the module's version where it imports
     on this machine, else None. Nothing here depends on it: the card's path
@@ -1887,8 +2278,10 @@ def main(argv=None) -> int:
         obs_state = slice_lines["store"].pop("_obs")
         emit({"phase": "store", **slice_lines["store"]})
         slice_lines["obs"] = run_obs(obs_state, args.seed, card)
-        del obs_state
         emit({"phase": "obs", **slice_lines["obs"]})
+        slice_lines["cluster"] = run_cluster(obs_state, args.seed, card)
+        del obs_state
+        emit({"phase": "cluster", **slice_lines["cluster"]})
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     idle = [v for v in KERNELS if not main_launches.get(v)]

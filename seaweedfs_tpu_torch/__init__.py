@@ -1,5 +1,10 @@
 """seaweedfs_tpu_torch: the PyTorch/CUDA port of seaweedfs_tpu.
 
-This slice carries the local erasure-coding path (encode, rebuild, decode,
-verify) down to a hand-written CUDA kernel for the GF(2^8) bit-plane
-product. It imports torch, numpy and the standard library only."""
+The erasure-coding data path (encode, rebuild, degraded read, repair,
+ingest, conversion, scrub) runs down to hand-written CUDA kernels for the
+GF(2^8) bit-plane product; around it sit the storage engine, the
+transport, and the master and volume servers. The EC and storage layers
+import torch, numpy and the standard library only; the transport and the
+servers also import grpc."""
+
+__version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""`python -m seaweedfs_tpu_torch <command>`: the local volume commands."""
+"""`python -m seaweedfs_tpu_torch <command>`: the local volume commands and
+the servers (`version`, `master`, `volume`, `server`)."""
 
 from __future__ import annotations
 

@@ -64,11 +64,11 @@ def exact_float32():
 
 
 def _operand(lift: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """The lift as the product's operand: int32 on the CPU, float32 on a
-    card (int32 matmul does not run on CUDA; every partial sum is an
-    integer <= 8C <= 256 < 2^24, which float32 holds exactly)."""
-    dtype = torch.float32 if data.is_cuda else torch.int32
-    return lift.to(device=data.device, dtype=dtype)
+    """The lift as the product's operand, float32 on every device: every
+    partial sum is an integer <= 8C <= 256 < 2^24, which float32 holds
+    exactly. (int32 matmul does not run on CUDA, and on the CPU it has no
+    BLAS path, so it is far slower there than float32.)"""
+    return lift.to(device=data.device, dtype=torch.float32)
 
 
 def _matmul(b: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -158,8 +158,7 @@ def gf_apply(b_bits: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     Returns (R, N) / (B, R, N) uint8 on data's device.
 
     The sum over K = 8C bit products must not wrap: K reaches 160 for a
-    20-shard decode, past int8, so the product accumulates in int32. int32
-    matmul does not run on CUDA, so there the product is taken in float32
+    20-shard decode, past int8. The product is taken in float32, on a card
     with TF32 off for the call only (`exact_float32`): every partial sum is
     an integer <= 160 < 2^24, which float32 holds exactly, so the result is
     bit-exact. Columns go through in chunks of `CHUNK`, bounding the 4- and

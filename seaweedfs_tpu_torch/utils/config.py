@@ -1,12 +1,45 @@
 """The port's WEEDTPU_* environment registry: only the knobs this package
 reads, with the reference defaults and clamps. Unknown names raise, so a
-typo'd knob fails loudly instead of reading as its default forever."""
+typo'd knob fails loudly instead of reading as its default forever.
+
+Also the servers' TOML configuration (weed/util/config.go): named files
+(security.toml, ...) searched in `.`, `~/.seaweedfs_tpu/` and
+`/etc/seaweedfs_tpu/`, parsed with the standard library's tomllib."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import tomllib
 from typing import Any, Callable, Optional
+
+SEARCH_PATHS = [".", "~/.seaweedfs_tpu", "/etc/seaweedfs_tpu"]
+
+
+def load_configuration(name: str, required: bool = False) -> dict[str, Any]:
+    """`<name>.toml` from the first search path that has it; {} when none
+    does (or FileNotFoundError when `required`)."""
+    fname = name if name.endswith(".toml") else name + ".toml"
+    for d in SEARCH_PATHS:
+        path = os.path.join(os.path.expanduser(d), fname)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return tomllib.load(f)
+    if required:
+        raise FileNotFoundError(
+            f"{fname} not found in {[os.path.expanduser(d) for d in SEARCH_PATHS]}"
+        )
+    return {}
+
+
+def get_nested(conf: dict, dotted: str, default: Any = None) -> Any:
+    """conf lookup by an 'a.b.c' path."""
+    cur: Any = conf
+    for part in dotted.split("."):
+        if not isinstance(cur, dict) or part not in cur:
+            return default
+        cur = cur[part]
+    return cur
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +197,119 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             "Re-read every converted shard from disk against the streamed CRCs "
             "before cut-over may retire the old geometry.",
             _flag,
+        ),
+        EnvVar(
+            "WEEDTPU_INLINE_EC", "off",
+            "Inline-EC ingest (encode-on-write): `on` polls every volume's "
+            "stripe builder after each acked append, so a sealing volume is "
+            "born EC'd; `off` keeps EC a warm-storage conversion.",
+            _enum("on", "off"),
+        ),
+        EnvVar(
+            "WEEDTPU_INLINE_EC_SPREAD", "off",
+            "Inline-ingest parity spreading: `on` streams each parity shard's "
+            "encoded rows to its placement-planned holder while the volume "
+            "still ingests; any spread failure keeps that shard local. "
+            "Requires WEEDTPU_INLINE_EC=on.",
+            _enum("on", "off"),
+        ),
+        EnvVar(
+            "WEEDTPU_LOOKUP_RETRIES", 2,
+            "Bounded retries (decorrelated jitter) of the single-flight master "
+            "shard-location lookup before it fails its waiters (clamped to >= 0).",
+            _at_least(0),
+        ),
+        EnvVar(
+            "WEEDTPU_PLACEMENT_MAX_PER_DOMAIN", 0,
+            "Override of the failure-domain placement cap (shards of one "
+            "stripe a rack may hold); 0 = the volume's parity count m.",
+            _at_least(0),
+        ),
+        EnvVar(
+            "WEEDTPU_REBUILD_MAX_INFLIGHT", 8,
+            "Token gate on concurrent VolumeEcShardSlabRead rebuild streams per "
+            "volume server (clamped to >= 1): a rebuild storm queues instead "
+            "of starving foreground interval reads.",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_REBUILD_YIELD_MS", 0.0,
+            "Yield (ms) a rebuild slab stream sleeps between chunks, ceding "
+            "the GIL and the disk to foreground reads. 0 = off.",
+            float,
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR", "off",
+            "Master-side fleet repair scheduler: `on` drives batched remote "
+            "rebuilds of under-replicated stripes (not in this package yet: "
+            "the master raises); `off` leaves repair to the operator.",
+            _enum("on", "off"),
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR_REPORT_FAILURES", 3,
+            "Consecutive unreachable-peer failures on the degraded-read and "
+            "rebuild paths before a volume server names that peer in its "
+            "heartbeat (clamped to >= 1; a success resets the count).",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_SCRUB", "off",
+            "Background shard scrubber: `on` starts a per-volume-server thread "
+            "that CRC32-verifies every mounted EC shard against its .eci "
+            "record, quarantines failures and repairs them; `off` leaves "
+            "verification to VolumeEcShardsVerify.",
+            _enum("on", "off"),
+        ),
+        EnvVar(
+            "WEEDTPU_SCRUB_RATE_MB", 64.0,
+            "Scrub read-rate cap in MB/s per volume server (rolling 1 s "
+            "window); 0 = unthrottled.",
+            float,
+        ),
+        EnvVar(
+            "WEEDTPU_SCRUB_CHUNK", 4 * 1024 * 1024,
+            "Scrub chunk size in bytes, the unit of admission-gated, rate-"
+            "metered CRC folding (clamped to >= 64 KiB).",
+            _at_least(64 * 1024),
+        ),
+        EnvVar(
+            "WEEDTPU_SCRUB_INTERVAL", 30.0,
+            "Seconds the scrubber sleeps between full passes over the mounted "
+            "EC volumes.",
+            float,
+        ),
+        EnvVar(
+            "WEEDTPU_SCRUB_CURSOR", "",
+            "Path of the fsync'd scrub cursor file (scan progress and pending "
+            "quarantine entries). Empty = `.scrub_cursor.json` in the server's "
+            "first storage directory.",
+            str,
+        ),
+        EnvVar(
+            "WEEDTPU_SCRUB_REPAIR_BACKOFF", 5.0,
+            "Base backoff in seconds between repair attempts for one "
+            "quarantined shard (doubles per failure, capped at 12x the base).",
+            float,
+        ),
+        EnvVar(
+            "WEEDTPU_SCRUB_MAX_REPAIRS", 1,
+            "Concurrent automatic shard repairs per volume server (clamped to "
+            ">= 1).",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_TRACE_REPAIR", "auto",
+            "Trace-repair projections for distributed rebuilds: `on` fetches "
+            "projections wherever holders advertise them, `off` forces full "
+            "survivor slabs (and stops serving projections), `auto` also "
+            "declines them when the plan would not move fewer bytes.",
+            _enum("on", "off", "auto"),
+        ),
+        EnvVar(
+            "WEEDTPU_BENCH_RPC_DELAY_MS", 0.0,
+            "Per-RPC server-side sleep (ms) on the EC read and slab streams, "
+            "modelling network RTT on loopback hosts. 0 = off.",
+            float,
         ),
         EnvVar(
             "WEEDTPU_WIRE", "json",

@@ -1016,3 +1016,109 @@ def test_card_store_serves_a_degraded_ec_volume_equal_to_the_cpu_store(card, tmp
     finally:
         plain.close()
         gpu.close()
+
+
+# -- the master and volume servers on the card ----------------------------------------
+
+
+def _card_cluster_run(root, encoder, monkeypatch) -> dict:
+    """A port master and three volume servers on `encoder()`: 40 needles
+    with fixed fids (the needle clock pinned), VolumeEcShardsGenerate on the
+    owner, the spread (0-4 / 5-9 / 10-13), LOST lost, every needle read
+    through the cluster, and LOST rebuilt remotely on B -> what came out."""
+    import hashlib
+    import itertools
+    import time
+    import types
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.cluster.client import MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.storage import needle
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    it = itertools.count(1_700_000_000_000_000_000, 1_000)
+    shim = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time) if not k.startswith("_")})
+    shim.time_ns = lambda: next(it)
+    monkeypatch.setattr(needle, "time", shim)
+
+    def sha(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    def call(vs, method, req):
+        with rpc.RpcClient(vs.grpc_address) as c:
+            return c.call(VOLUME_SERVICE, method, {"volume_id": vid, **req}, timeout=120)
+
+    def wait(cond):
+        deadline = time.monotonic() + 30
+        while not cond():
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    servers = []
+    try:
+        for i in range(3):
+            d = root / f"srv{i}"
+            d.mkdir(parents=True)
+            vs = VolumeServer([str(d)], master.address, heartbeat_interval=0.3,
+                              rack=f"rack{i % 2}", encoder=encoder())
+            vs.start()
+            servers.append(vs)
+        client = MasterClient(master.address)
+        vid = int(client.assign().fid.split(",")[0])
+        rng = np.random.default_rng(13)
+        blobs = {}
+        for key in range(1, 41):
+            fid = str(FileId(vid, key, 0x2000 + key))
+            blobs[fid] = rng.bytes(int(rng.integers(500, 6000)))
+            client.upload(fid, blobs[fid])
+        owner = next(s for s in servers if s.store.get_volume(vid) is not None)
+        b, c = [s for s in servers if s is not owner]
+        call(owner, "VolumeMarkReadonly", {})
+        call(owner, "VolumeEcShardsGenerate", {"large_block_size": 4096, "small_block_size": 512})
+        base = owner._base_path_for(vid)
+        out = {"generated": {s: sha(stripe.shard_file_name(base, s)) for s in range(14)}}
+        call(b, "VolumeEcShardsCopy", {"shard_ids": [5, 6, 7, 8, 9],
+                                       "source_data_node": owner.grpc_address})
+        call(c, "VolumeEcShardsCopy", {"shard_ids": [10, 11, 12, 13],
+                                       "source_data_node": owner.grpc_address})
+        call(owner, "VolumeEcShardsDelete", {"shard_ids": list(range(5, 14))})
+        call(owner, "VolumeDelete", {})
+        for vs in servers:
+            call(vs, "VolumeEcShardsMount", {})
+        for vs, lost in ((owner, [0]), (b, [5]), (c, [10, 13])):
+            call(vs, "VolumeEcShardsDelete", {"shard_ids": lost})
+        wait(lambda: len(master.topology.lookup_ec_shards(vid)) == 10)
+        out["reads"] = {fid: client.read(fid) for fid in blobs}
+        assert out["reads"] == blobs
+        out["rebuild"] = call(b, "VolumeEcShardsRebuild", {"remote": True, "trace_mode": "off"})
+        out["rebuilt"] = {s: sha(stripe.shard_file_name(b._base_path_for(vid), s))
+                          for s in (0, 5, 10, 13)}
+        client.close()
+        assert out.pop("rebuild")["rebuilt_shard_ids"] == [0, 5, 10, 13]
+        return out
+    finally:
+        for vs in servers:
+            vs.stop()
+        master.stop()
+
+
+def test_card_cluster_generates_reads_degraded_and_rebuilds_as_the_cpu_cluster(
+        card, tmp_path, monkeypatch):
+    """The servers on the factory's encoder (the card) and on a CPU encoder
+    run the same scenario over gRPC and HTTP on loopback: the generated
+    shards, every read body and the remotely rebuilt shards are equal, and
+    the card's run launched its kernel."""
+    rs_cuda.reset_launches()
+    on_card = _card_cluster_run(tmp_path / "card", rs_codec.new_encoder, monkeypatch)
+    launched = dict(rs_cuda.launches_by_shape)
+    plain = _card_cluster_run(tmp_path / "cpu",
+                              lambda: rs_codec.Encoder(10, 4, device="cpu"), monkeypatch)
+    assert on_card == plain
+    assert on_card["rebuilt"] == {s: on_card["generated"][s] for s in (0, 5, 10, 13)}
+    assert launched.get((4, 10), 0) >= 2 and launched.get((1, 10), 0) > 0, launched

@@ -1,8 +1,10 @@
 """The port stands alone: no module of `seaweedfs_tpu_torch/`, nor
 `chip_smoke.py`, imports `jax` or anything of the JAX package, and
-importing the whole port leaves neither in `sys.modules`. The card's path
-needs neither `grpc` nor `google.protobuf`: only `rpc`, `pb.wire` and
-`security.tls` import them, and `chip_smoke.py` imports none of those."""
+importing the whole port leaves neither in `sys.modules`. The EC and
+storage path needs neither `grpc` nor `google.protobuf`: only the
+transport (`rpc`, `pb.wire`, `security.tls`) and what stands on it (the
+master, the volume server, their client and the `server` command) import
+them, and `chip_smoke.py` imports none of those at module level."""
 
 import ast
 import os
@@ -52,7 +54,9 @@ def test_port_has_modules_for_every_layer():
                  "storage/volume.py", "storage/store.py", "utils/glog.py", "utils/native.py",
                  "stats/__init__.py", "utils/httpd.py", "security/__init__.py",
                  "security/jwt.py", "security/guard.py", "security/tls.py", "pb/__init__.py",
-                 "pb/wire.py", "rpc.py"):
+                 "pb/wire.py", "rpc.py", "cluster/sequence.py", "cluster/topology.py",
+                 "cluster/client.py", "cluster/master.py", "cluster/volume_server.py",
+                 "ec/placement.py", "ec/spread.py", "command/servers.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
@@ -92,15 +96,32 @@ def test_importing_the_port_loads_neither():
 #: the port's only importers of grpc / google.protobuf
 WIRE_MODULES = ("seaweedfs_tpu_torch.rpc", "seaweedfs_tpu_torch.pb.wire",
                 "seaweedfs_tpu_torch.security.tls")
+#: the modules that stand on the transport: each fails to import without grpc
+SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.cluster.master",
+                  "seaweedfs_tpu_torch.cluster.volume_server")
+#: the server commands: they share the CLI registry with the local
+#: commands, so they reach the transport only when one of them runs
+SERVER_COMMANDS = "seaweedfs_tpu_torch.command.servers"
+#: chip_smoke.py's cluster phase: the only functions there that reach them
+CLUSTER_PHASE = ("run_cluster", "_cluster")
+#: the servers' pure planners and data structures: they import without it
+PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec.placement",
+                        "seaweedfs_tpu_torch.cluster.sequence",
+                        "seaweedfs_tpu_torch.cluster.topology")
 
 
-def _port_imports(path: str) -> set[str]:
+def _port_imports(path: str, top_level: bool = False, skip: tuple = ()) -> set[str]:
     """Every `seaweedfs_tpu_torch...` module a file imports, at any depth
-    of its code (`from pkg import mod` counts as pkg.mod)."""
+    of its code but inside the module-level functions whose names start
+    with one of `skip`, or only in its module-level statements when
+    `top_level` (`from pkg import mod` counts as pkg.mod)."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), filename=path)
+    body = [n for n in tree.body
+            if not (skip and isinstance(n, ast.FunctionDef) and n.name.startswith(skip))]
+    nodes = body if top_level else [n for top in body for n in ast.walk(top)]
     out = set()
-    for node in ast.walk(tree):
+    for node in nodes:
         if isinstance(node, ast.Import):
             out |= {a.name for a in node.names if a.name.startswith("seaweedfs_tpu_torch")}
         elif (isinstance(node, ast.ImportFrom) and node.level == 0 and node.module
@@ -114,22 +135,37 @@ def _port_imports(path: str) -> set[str]:
 
 
 def test_chip_smoke_imports_no_wire_module():
-    got = _port_imports(os.path.join(ROOT, "chip_smoke.py"))
+    """chip_smoke.py reaches the transport and the servers (and so grpc)
+    only inside its `cluster` phase's functions (`run_cluster`,
+    `_cluster_*`); its module-level imports and every other phase stay
+    free of them."""
+    path = os.path.join(ROOT, "chip_smoke.py")
+    got = _port_imports(path, skip=CLUSTER_PHASE)
     assert "seaweedfs_tpu_torch.obs.trace" in got and "seaweedfs_tpu_torch.stats" in got
-    assert not got & set(WIRE_MODULES), sorted(got & set(WIRE_MODULES))
-    assert not _imported_roots(os.path.join(ROOT, "chip_smoke.py")) & {"grpc", "google"}
+    wire = set(WIRE_MODULES + SERVER_MODULES)
+    assert not got & wire, sorted(got & wire)
+    assert _port_imports(path) & wire  # the cluster phase does reach them
+    assert not _imported_roots(path) & {"grpc", "google"}
 
 
 def test_card_path_imports_without_grpc_or_protobuf():
-    """With `grpc` and `google.protobuf` unimportable (as they may be on the
-    card's machine), every port module `chip_smoke.py` imports, the trace
-    ring, the stats registry, the HTTP plumbing and JWT/guard still import,
-    and so does `chip_smoke.py`; the wire modules fail loudly."""
-    mods = sorted(_port_imports(os.path.join(ROOT, "chip_smoke.py")) | {
+    """With `grpc` and `google.protobuf` unimportable, every port module
+    `chip_smoke.py` imports at module level, the trace ring, the stats
+    registry, the HTTP plumbing, JWT/guard, the command registry with
+    every command in it and the servers' planners (`ec.spread`,
+    `ec.placement`, the sequencers, the topology) still import, and so
+    does `chip_smoke.py`; the CLI still parses its local commands; the
+    wire modules and everything that stands on them (the client, master
+    and volume server) fail loudly, and so does running `master`,
+    `volume` or `server`."""
+    mods = sorted(_port_imports(os.path.join(ROOT, "chip_smoke.py"), skip=CLUSTER_PHASE) | {
         "seaweedfs_tpu_torch.obs.trace", "seaweedfs_tpu_torch.stats",
         "seaweedfs_tpu_torch.utils.httpd", "seaweedfs_tpu_torch.security",
         "seaweedfs_tpu_torch.security.jwt", "seaweedfs_tpu_torch.security.guard",
-        "seaweedfs_tpu_torch.pb"})
+        "seaweedfs_tpu_torch.pb", "seaweedfs_tpu_torch.command",
+        "seaweedfs_tpu_torch.command.local", "seaweedfs_tpu_torch.__main__",
+        SERVER_COMMANDS, *PLAIN_SERVER_MODULES})
+    failing = [WIRE_MODULES[0], WIRE_MODULES[2], *SERVER_MODULES]
     code = (
         "import importlib, sys\n"
         "for blocked in ('grpc', 'google.protobuf'):\n"
@@ -143,10 +179,24 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "    sys.exit('the codec built without protobuf')\n"
         "except ImportError:\n"
         "    pass\n"
-        f"for m in {WIRE_MODULES[::2]!r}:\n"
+        f"for m in {failing!r}:\n"
         "    try:\n"
         "        importlib.import_module(m)\n"
         "        sys.exit(m + ' imported without grpc')\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        "from seaweedfs_tpu_torch.__main__ import main\n"
+        "from seaweedfs_tpu_torch.command import commands\n"
+        "assert {'export', 'encode', 'rebuild', 'master', 'server'} <= set(commands())\n"
+        "try:\n"
+        "    main(['export', '--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "for argv in (['master', '-port', '0'], ['volume', '-dir', '.'],\n"
+        "             ['server', '--device', 'cpu', '-dir', '.']):\n"
+        "    try:\n"
+        "        main(argv)\n"
+        "        sys.exit(argv[0] + ' ran without grpc')\n"
         "    except ImportError:\n"
         "        pass\n"
         "bad = [m for m in sys.modules if (m.split('.')[0] == 'grpc'\n"
@@ -159,3 +209,23 @@ def test_card_path_imports_without_grpc_or_protobuf():
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_servers_import_grpc_and_the_planners_do_not():
+    """The AST view of the same split: each server module reaches grpc
+    (directly, or through `rpc`/`security.tls`), the server commands reach
+    them only inside their run functions, and neither planner nor the
+    sequencers and topology imports a wire module at all."""
+    def path(mod):
+        return os.path.join(ROOT, *mod.split(".")) + ".py"
+
+    for mod in SERVER_MODULES:
+        direct = "grpc" in _imported_roots(path(mod))
+        assert direct or _port_imports(path(mod), top_level=True) & set(WIRE_MODULES), mod
+    wire = set(WIRE_MODULES + SERVER_MODULES)
+    assert not _imported_roots(path(SERVER_COMMANDS)) & {"grpc", "google"}
+    assert not _port_imports(path(SERVER_COMMANDS), top_level=True) & wire
+    assert _port_imports(path(SERVER_COMMANDS)) & wire
+    for mod in PLAIN_SERVER_MODULES:
+        assert not _imported_roots(path(mod)) & {"grpc", "google"}, mod
+        assert not _port_imports(path(mod)) & set(WIRE_MODULES + SERVER_MODULES), mod
