@@ -34,7 +34,9 @@ Phases, one JSON line each:
            delta_odd and delta_1m (an overwrite's parity column, R = 4,
            C = 1, at 4113 bytes and at 1 MiB), encode_c12 and encode_m20
            (the 12+3 and 20+4 parity products over 4 MiB) and rebuild_m20
-           (the 20+4 decode of three lost shards, (3, 20), over 4 MiB)
+           (the 20+4 decode of three lost shards, (3, 20), over 4 MiB); and
+           the fleet phase's fused blocks, fleet_rebuild3 (3, 10) and
+           fleet_rebuild2 (2, 10) over 4 MiB
   dma_ring the dma kernel's ring as it launches (`gf_dma_plan`: stages,
            columns per pass, shared memory, blocks per SM by the occupancy
            calculator) at the main path's shapes and at (32, 32), checked
@@ -165,6 +167,38 @@ Phases, one JSON line each:
            projections (`trace_mode: on`; the holders project on the card;
            launches by (R, C) as the plan's groups, wire bytes against the
            slab path's); `VolumeEcShardsVerify` all ok on every holder
+  shell    (on an emptied scratch directory) the SeaweedFS wiki's EC
+           deployment: a port master with WEEDTPU_REPAIR=on and a 256 MiB
+           volume size limit, five volume servers in racks r0-r4 (each on
+           the factory's encoder), and 16 volumes of 255 seeded 1 MiB needles
+           (collection storm) written with the port's storage engine into
+           their directories; each .dat first encoded locally on the card
+           (`write_ec_files`, hard-linked aside) as the oracle. Through the
+           port shell (`CommandEnv(device=...)`, `run_script`): lock,
+           volume.list, cluster.ps and ec.backend (int8 on the card);
+           ec.encode -collection storm -fullPercent 95 -checkpoint (every
+           volume EC'd and its source gone, the checkpoint removed, each
+           rack holding at most 4 shards of a stripe, each holder's shards
+           and .ecx equal to the oracle's, its (4, 10) launches equal to the
+           oracle's); ec.balance, ec.verify (all clean), ec.status, unlock
+           (the scheduler defers while the admin lock is held). Seconds and
+           launches by (R, C) per command, shards per server and rack
+  fleet    a reader thread reads a seeded sample of 512 needles through
+           `MasterClient.read` into an `slo.LatencyRecorder` (phase steady,
+           then chaos; class degraded when an interval lies on the victim's
+           shards); after one full pass, the server holding the most shards
+           stops (LeaveCluster kicks the scheduler), and time to repair runs
+           until the master lists 14 shards of every volume. Checks: no
+           backoff, failure or loss in RepairStatus; dispatches in non-
+           increasing missing count; each batch's block_missing non-
+           increasing; fused_volumes_total the batches' volumes; launches
+           of R >= 2 by (R, C) as `_fused_prediction` works them out from
+           the batches; rebuilt shards' sha256 the oracle's; zero read
+           errors or wrong bytes; then lock, ec.verify (all clean),
+           ec.decode of one volume (its .dat the original's), unlock.
+           Prints batches, volumes per batch, survivor GB/s, read p50/p99 by
+           phase and class, `slo.slo_verdict` (a reading) and kernel ms x
+           launches against the wall time
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
 Any mismatch or error exits nonzero without the last line.
 """
@@ -174,10 +208,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import io
 import json
 import os
 import shutil
 import sys
+import threading
 import time
 import zlib
 
@@ -202,7 +238,10 @@ REPAIR_SHAPES = ("project", "project_local", "combine", "fused_block", "fused_bl
 #: the size in GiB of each of the fused batch's two extra volumes
 REPAIR_GIB = 0.25
 #: the kernel cases the ingest, convert and scrub phases launch at
-SLICE_SHAPES = ("delta_odd", "delta_1m", "encode_c12", "encode_m20", "rebuild_m20")
+SLICE_SHAPES = ("delta_odd", "delta_1m", "encode_c12", "encode_m20", "rebuild_m20",
+                "fleet_rebuild3", "fleet_rebuild2")
+#: the fleet phase's two loss classes (the stopped server held 3 or 2 shards)
+FLEET_LOST = {"fleet_rebuild3": (0, 5, 10), "fleet_rebuild2": (3, 12)}
 #: the ingest phase's volume: .dat GiB, large block, append size, overwrites
 INGEST_GIB = 2.0
 INGEST_LARGE = 64 << 20
@@ -297,6 +336,11 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
         ("rebuild_m20", m20.reconstruction_matrix(
             [s for s in range(24) if s not in lost20][:20], lost20), (20, 4 << 20), True),
     ]
+    # the fleet phase's fused rebuild blocks: a stripe missing three shards
+    # and one missing two, decoded from ten survivors over a 4 MiB span
+    cases += [(label, enc.reconstruction_matrix([s for s in range(14) if s not in lost][:10],
+                                                 lost), (10, 4 << 20), True)
+              for label, lost in FLEET_LOST.items()]
     rows: dict[str, list[dict]] = {v: [] for v in KERNELS}
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
 
@@ -2182,6 +2226,397 @@ def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict
     return out
 
 
+#: the shell and fleet phases' deployment (the SeaweedFS wiki's "Erasure
+#: Coding for warm storage": 10+4, volumes sealed once full, ec.encode
+#: -fullPercent=95, rack-aware spread, ec.rebuild/ec.balance under the lock)
+STORM_VOLUMES = 16
+STORM_NEEDLE = 1 << 20
+STORM_NEEDLES = 255  # per volume: 255 needles of 1 MiB fill a 256 MiB volume
+STORM_RACKS = ("r0", "r1", "r2", "r3", "r4")
+STORM_SAMPLE = 512
+STORM_COLLECTION = "storm"
+
+
+def _storm_write(root: str, seed: int, needle_bytes: int) -> dict:
+    """The storm's volumes, written with the port's storage engine straight
+    into the servers' directories (volume v on server (v - 1) % 5), and a
+    seeded sample of STORM_SAMPLE needles across them with their bytes."""
+    from seaweedfs_tpu_torch.storage import needle, volume
+
+    rng = np.random.default_rng(seed + 1400)
+    flat = rng.choice(STORM_VOLUMES * STORM_NEEDLES, STORM_SAMPLE, replace=False)
+    picked = {(int(i) // STORM_NEEDLES + 1, int(i) % STORM_NEEDLES + 1) for i in flat}
+    sample, bases = {}, {}
+    t0 = time.perf_counter()
+    for vid in range(1, STORM_VOLUMES + 1):
+        d = os.path.join(root, f"srv{(vid - 1) % len(STORM_RACKS)}")
+        os.makedirs(d, exist_ok=True)
+        vrng = np.random.default_rng(seed + 1400 + vid)
+        data = vrng.bytes(STORM_NEEDLES * needle_bytes)
+        cookies = vrng.integers(0, 1 << 32, STORM_NEEDLES, dtype=np.uint64).tolist()
+        v = volume.Volume(d, vid, collection=STORM_COLLECTION)
+        for i in range(STORM_NEEDLES):
+            body = data[i * needle_bytes: (i + 1) * needle_bytes]
+            v.write_needle(needle.Needle(cookie=int(cookies[i]), id=i + 1, data=body))
+            if (vid, i + 1) in picked:
+                sample[(vid, i + 1)] = (int(cookies[i]), body)
+        bases[vid] = v.base_path
+        v.close()
+    return {"sample": sample, "bases": bases, "write_s": time.perf_counter() - t0}
+
+
+def _storm_oracle(root: str, bases: dict, enc) -> dict:
+    """{vid: sha256 of the .dat, the .ecx and each shard} of a local
+    `write_ec_files` of each volume's .dat (hard-linked aside, one volume at
+    a time, on `enc`), and the launches by (R, C) of those encodes."""
+    from concurrent import futures
+
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    d = os.path.join(root, "oracle")
+    os.makedirs(d)
+    out = {}
+    shape0 = dict(rs_cuda.launches_by_shape)
+    with futures.ThreadPoolExecutor(8) as pool:
+        for vid, base in sorted(bases.items()):
+            ob = os.path.join(d, os.path.basename(base))
+            for ext in (".dat", ".idx"):
+                os.link(base + ext, ob + ext)
+            stripe.write_ec_files(ob, encoder=enc)
+            stripe.write_sorted_file_from_idx(ob)
+            paths = [ob + ".dat", ob + ".ecx"] + [stripe.shard_file_name(ob, s)
+                                                  for s in range(14)]
+            shas = list(pool.map(sha256_file, paths))
+            out[vid] = {"dat": shas[0], "ecx": shas[1], "shards": dict(enumerate(shas[2:])),
+                        "shard_bytes": os.path.getsize(paths[2])}
+            for name in os.listdir(d):
+                os.remove(os.path.join(d, name))
+    os.rmdir(d)
+    return out, _shape_launches(shape0)
+
+
+def _fused_prediction(batches: list, missing_of: dict, shard_bytes: dict, align: int) -> dict:
+    """{(R, C): launches} the scheduler's batches make on their targets, as
+    `stripe._rebuild_fused` packs them: each batch's volumes in block order
+    (signature groups in first-seen order) fill staging spans of one 4 MiB
+    chunk per row (64 MiB // (10 x 4 MiB) chunks), and each run of one
+    signature's columns in a span is one (len(missing), 10) launch."""
+    span = -(-max(1, (64 << 20) // (10 * (4 << 20))) * (4 << 20) // align) * align
+    want: dict = {}
+    for b in batches:
+        sigs: list = []
+        for v in b["block_order"]:
+            if missing_of[v] not in sigs:
+                sigs.append(missing_of[v])
+        order = sorted(b["block_order"], key=lambda v: sigs.index(missing_of[v]))
+        room, last = span, None
+        for v in order:
+            left = shard_bytes[v]
+            while left:
+                if last != missing_of[v]:
+                    key = (len(missing_of[v]), 10)
+                    want[key] = want.get(key, 0) + 1
+                    last = missing_of[v]
+                take = min(room, left)
+                left -= take
+                room -= take
+                if room == 0:
+                    room, last = span, None
+    return want
+
+
+def _busy(launches: dict, kernel_ms: dict, wall_s: float) -> dict:
+    """Kernel milliseconds x launches by (R, C), against the wall time."""
+    ms = {f"{r}x{c}": n * kernel_ms[(r, c)] for (r, c), n in launches.items()
+          if (r, c) in kernel_ms}
+    total = sum(ms.values())
+    return {"kernel_ms_by_shape": ms, "kernel_ms": total, "wall_s": wall_s,
+            "busy_share": total / 1e3 / wall_s if wall_s else None}
+
+
+def run_storm(scratch: str, seed: int, card: str, kernel_ms: dict, device: str = "cuda",
+              needle_bytes: int = STORM_NEEDLE) -> tuple[dict, dict]:
+    """The shell and fleet phases (see the module doc), on one fresh cluster:
+    the operator shell's EC lifecycle, then a repair storm under the
+    master's scheduler. -> (shell line, fleet line)."""
+    from seaweedfs_tpu_torch.cluster.client import MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import slo, stripe
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_script
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    on_card = device == "cuda"
+    root = os.path.join(scratch, "storm")
+    limit = (STORM_NEEDLES + 1) * needle_bytes  # 256 MiB: the 255 needles fill 95%+
+    coll = STORM_COLLECTION
+    written = _storm_write(root, seed, needle_bytes)
+    sample, bases = written["sample"], written["bases"]
+    t0 = time.perf_counter()
+    oracle, oracle_shape = _storm_oracle(root, bases, rs_codec.new_encoder(device=device))
+    deployment = {
+        "card": card,
+        "source": "SeaweedFS wiki, Erasure Coding for warm storage: 10+4, ec.encode "
+                  "-fullPercent=95, rack-aware spread, ec.rebuild/ec.balance under the "
+                  "admin lock; WEEDTPU_REPAIR=on",
+        "reduced": [f"volumes of {limit} bytes, not 30 GB", f"{STORM_VOLUMES} volumes, not "
+                    "hundreds", "one host: master, 5 volume servers and the shell in one "
+                    "process over loopback gRPC and HTTP"],
+        "volumes": STORM_VOLUMES, "needle_bytes": needle_bytes, "racks": list(STORM_RACKS),
+        "volume_size_limit": limit, "write_s": written["write_s"],
+        "oracle_s": time.perf_counter() - t0,
+        "dat_bytes": sum(os.path.getsize(b + ".dat") for b in bases.values())}
+    saved = os.environ.get("WEEDTPU_REPAIR")
+    os.environ["WEEDTPU_REPAIR"] = "on"
+    master = MasterServer(port=0, reap_interval=3600, volume_size_limit=limit)
+    servers, env, stopped = [], None, set()
+
+    def sh(env, script: str) -> dict:
+        out = io.StringIO()
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t = time.perf_counter()
+        run_script(env, script, out)
+        return {"seconds": time.perf_counter() - t, "launches": _shape_launches(shape0),
+                "text": out.getvalue()}
+
+    def holders(vid: int) -> dict:
+        return {s: [n.url for n in ns]
+                for s, ns in master.topology.lookup_ec_shards(vid).items() if ns}
+
+    def covered() -> bool:
+        return all(len(holders(v)) == 14 for v in bases)
+
+    def placement() -> dict:
+        """{vid: {server index: [shard ids]}} from the master's registry."""
+        idx = {vs.url: i for i, vs in enumerate(servers)}
+        out: dict = {}
+        for v in bases:
+            for s, urls in holders(v).items():
+                for u in urls:
+                    out.setdefault(v, {}).setdefault(idx[u], []).append(s)
+        return {v: {i: sorted(ss) for i, ss in sorted(m.items())} for v, m in out.items()}
+
+    def shard_path(vs, vid: int, s: int) -> str:
+        return stripe.shard_file_name(vs._base_path_for(vid, coll), s)
+
+    try:
+        master.start()
+        for i, rack in enumerate(STORM_RACKS):
+            vs = VolumeServer([os.path.join(root, f"srv{i}")], master.address,
+                              heartbeat_interval=0.4, rack=rack,
+                              encoder=rs_codec.new_encoder(device=device))
+            vs.start()
+            servers.append(vs)
+        by_url = {vs.url: vs for vs in servers}
+        _cluster_wait(lambda: sum(len(n.volumes) for n in master.topology.nodes.values())
+                      == STORM_VOLUMES, "the master to list the storm's volumes")
+        env = CommandEnv(master.address, device=device)
+
+        # -- shell: lock, the listings, ec.backend, ec.encode, balance, verify, status
+        rs_cuda.reset_launches()  # the shell path's run starts here
+        t_phase = time.perf_counter()
+        steps = {"lock_list_backend": sh(env, "lock; volume.list; cluster.ps; ec.backend")}
+        text = steps["lock_list_backend"]["text"]
+        backend = [ln for ln in text.splitlines() if ln.startswith("ec.backend: ")]
+        want = ("backend=cuda", "variant=int8") if on_card else ("backend=torch",)
+        check(backend and all(w in backend[0] for w in want), f"ec.backend said {backend}")
+        check(text.count("volume server ") == len(STORM_RACKS), "cluster.ps lists 5 servers")
+        ckpt = os.path.join(root, "ec_encode.checkpoint")
+        steps["ec.encode"] = sh(env, f"ec.encode -collection {coll} -fullPercent 95 "
+                                     f"-checkpoint {ckpt}")
+        check(steps["ec.encode"]["text"].count("ec.encode volume ") == STORM_VOLUMES,
+              f"ec.encode: {steps['ec.encode']['text']}")
+        checkpoint_removed = not os.path.exists(ckpt)
+        check(checkpoint_removed, "the finished encode left its checkpoint")
+        _cluster_wait(lambda: covered() and not any(
+            n.volumes for n in master.topology.nodes.values()), "14 shards of every volume")
+        gen = {k: v for k, v in steps["ec.encode"]["launches"].items() if k[0] > 1}
+        check(gen == oracle_shape, f"ec.encode launched {gen}, the local encodes {oracle_shape}")
+        place = placement()
+        for vid, per in place.items():
+            check(max(len(ss) for ss in per.values()) <= 4, f"volume {vid} spread {per}")
+            for i, ss in per.items():
+                for s in ss:
+                    check(sha256_file(shard_path(servers[i], vid, s)) == oracle[vid]["shards"][s],
+                          f"volume {vid} shard {s} differs from the local encode")
+                check(sha256_file(servers[i]._base_path_for(vid, coll) + ".ecx")
+                      == oracle[vid]["ecx"], f"volume {vid} .ecx differs")
+        steps["ec.balance"] = sh(env, f"ec.balance -collection {coll}")
+        _cluster_wait(covered, "14 shards of every volume after the balance")
+        steps["ec.verify"] = sh(env, f"ec.verify -collection {coll}")
+        check("ec.verify: all shards verified clean" in steps["ec.verify"]["text"],
+              f"ec.verify: {steps['ec.verify']['text'][-2000:]}")
+        steps["ec.status"] = sh(env, "ec.status; unlock")
+        shell_wall = time.perf_counter() - t_phase
+        place = placement()
+        per_server = {i: sum(len(per.get(i, [])) for per in place.values())
+                      for i in range(len(servers))}
+        per_rack = {STORM_RACKS[i]: n for i, n in per_server.items()}
+        launches = dict(rs_cuda.launches_by_shape)
+        shell = {
+            "phase": "shell", **deployment,
+            "steps": {k: {"seconds": v["seconds"], "launches_by_shape": _shape_keys(v["launches"])}
+                      for k, v in steps.items()},
+            "backend": backend[0], "encode_launches_equal_local": True,
+            "checkpoint_removed": checkpoint_removed,
+            "shards_equal_local_encode": True, "cap_ok": True,
+            "balance": steps["ec.balance"]["text"].strip().splitlines()[-1:],
+            "verify_lines": steps["ec.verify"]["text"].count("\n"),
+            "status": steps["ec.status"]["text"].splitlines()[:3],
+            "shards_per_server": per_server, "shards_per_rack": per_rack,
+            "seconds": shell_wall, "launches_by_shape": _shape_keys(launches),
+            "busy": _busy(launches, kernel_ms, shell_wall),
+            "launches": dict(rs_cuda.launches_by_variant)}
+        check(not on_card or shell["launches"].get("int8", 0) > 0,
+              "the shell path never launched the factory's kernel")
+
+        # -- fleet: a reader, the server holding most shards stops, the scheduler repairs
+        rs_cuda.reset_launches()  # the fleet path's run starts here
+        t_phase = time.perf_counter()
+        vi = max(range(len(servers)), key=lambda i: (per_server[i], -i))
+        victim = servers[vi]
+        lost = {v: set(per.get(vi, [])) for v, per in place.items()}
+        shards_of = {}
+        for vid in bases:
+            nids = sorted(n for v, n in sample if v == vid)
+            base = servers[(vi + 1) % len(servers)]._base_path_for(vid, coll)
+            for nid, ss in _needle_shards(base, nids).items():
+                shards_of[(vid, nid)] = ss
+        klass = {k: ("degraded" if shards_of[k] & lost[k[0]] else "healthy") for k in sample}
+        order = [sorted(sample)[i] for i in np.random.default_rng(seed + 1500).permutation(
+            len(sample))]
+        rec = slo.LatencyRecorder()
+        phase = ["steady"]
+        stop_reads, steady_done = threading.Event(), threading.Event()
+        reads = {"count": 0, "errors": 0, "wrong": 0, "by_phase": {}}
+        client = MasterClient(master.address)
+
+        def reader() -> None:
+            i = 0
+            while not stop_reads.is_set():
+                key = order[i % len(order)]
+                cookie, body = sample[key]
+                ph, kl = phase[0], klass[key]
+                t = time.perf_counter()
+                try:
+                    got = client.read(str(FileId(key[0], key[1], cookie)))
+                except Exception:  # noqa: BLE001 — counted: the check wants none
+                    reads["errors"] += 1
+                    rec.error(ph, kl)
+                else:
+                    if got == body:
+                        rec.observe(ph, kl, time.perf_counter() - t)
+                    else:
+                        reads["wrong"] += 1
+                        rec.error(ph, kl)
+                reads["count"] += 1
+                reads["by_phase"][ph] = reads["by_phase"].get(ph, 0) + 1
+                i += 1
+                if i == len(order):
+                    steady_done.set()
+
+        th = threading.Thread(target=reader, name="storm-reader", daemon=True)
+        th.start()
+        check(steady_done.wait(600), "the reader's steady pass did not finish")
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t_kill = time.perf_counter()
+        phase[0] = "chaos"
+        stopped.add(vi)
+        victim.stop()  # LeaveCluster: the master's on_ec_shrink kicks the scheduler
+        _cluster_wait(covered, "the scheduler to restore 14 shards of every volume", 600)
+        ttr = time.perf_counter() - t_kill
+        stop_reads.set()
+        th.join(60)
+        client.close()
+        storm_shape = _shape_launches(shape0)
+        st = env.master_call("RepairStatus", {})
+        check(st["enabled"], "the master's scheduler is off")
+        events = sorted(st["events"], key=lambda e: e["seq"])
+        bad = [e for e in events if e["state"] in ("backoff", "failed", "lost")]
+        check(not bad, f"repair events {bad}")
+        dispatched = [e for e in events if e["state"] == "dispatched"]
+        missing = [e["missing"] for e in dispatched]
+        check(sorted(e["volume_id"] for e in dispatched) == sorted(v for v in bases if lost[v]),
+              f"dispatched {dispatched}")
+        check(missing == sorted(missing, reverse=True),
+              f"dispatch order by missing count {missing}")
+        for v in bases:
+            check(len(lost[v]) == next(e["missing"] for e in dispatched if e["volume_id"] == v),
+                  f"volume {v} dispatched with the wrong missing count")
+        batches = st["batches"]
+        for b in batches:
+            check(b["block_missing"] == sorted(b["block_missing"], reverse=True),
+                  f"batch block order {b}")
+        check(st["fused_volumes_total"] == sum(b["volumes"] for b in batches),
+              f"fused_volumes_total {st['fused_volumes_total']}")
+        missing_of = {v: tuple(sorted(lost[v])) for v in bases}
+        shard_bytes = {v: oracle[v]["shard_bytes"] for v in bases}
+        align = servers[(vi + 1) % len(servers)].store.encoder.width_align
+        predicted = _fused_prediction(batches, missing_of, shard_bytes, align)
+        got = {k: n for k, n in storm_shape.items() if k[0] > 1}
+        check(got == (predicted if on_card else {}),
+              f"the storm launched {got}, the batches predict {predicted}")
+        for v in bases:
+            for s in lost[v]:
+                (u,) = [u for u in holders(v)[s]]
+                check(u != victim.url and sha256_file(shard_path(by_url[u], v, s))
+                      == oracle[v]["shards"][s], f"rebuilt shard {s} of volume {v} differs")
+        check(reads["errors"] == 0 and reads["wrong"] == 0, f"reader {reads}")
+        repair_wall = time.perf_counter() - t_phase
+        storm_busy = _busy(storm_shape, kernel_ms, ttr)
+
+        # -- after the storm: verify, decode one volume, unlock ----------------------
+        decode_vid = min(v for v in bases if lost[v])
+        after = {"ec.verify": sh(env, f"lock; ec.verify -collection {coll}")}
+        check("ec.verify: all shards verified clean" in after["ec.verify"]["text"],
+              f"ec.verify after the storm: {after['ec.verify']['text'][-2000:]}")
+        after["ec.decode"] = sh(env, f"ec.decode -volumeId {decode_vid}; unlock")
+        owner = next(vs for i, vs in enumerate(servers)
+                     if i not in stopped and vs.store.get_volume(decode_vid) is not None)
+        decoded_sha = sha256_file(owner.store.get_volume(decode_vid).base_path + ".dat")
+        check(decoded_sha == oracle[decode_vid]["dat"], "ec.decode gave back another .dat")
+        survivor_bytes = sum(10 * shard_bytes[v] for v in bases if lost[v])
+        fleet = {
+            "phase": "fleet", "card": card, "victim": {"server": vi, "rack": STORM_RACKS[vi],
+                                                       "shards": per_server[vi]},
+            "stripes_by_missing": {str(n): sum(len(lost[v]) == n for v in bases)
+                                   for n in sorted({len(x) for x in lost.values()})},
+            "time_to_repair_s": ttr, "batches": len(batches),
+            "dispatch_groups": [b["dispatch_groups"] for b in batches],
+            "volumes_per_batch": [b["volumes"] for b in batches],
+            "batch_wall_s": [b["wall_s"] for b in batches],
+            "fused_volumes_total": st["fused_volumes_total"],
+            "dispatch_missing": missing, "survivor_bytes": survivor_bytes,
+            "gbps": survivor_bytes / ttr / 1e9,
+            "launches_by_shape": _shape_keys(storm_shape),
+            "predicted": _shape_keys(predicted), "rebuilt_equal": True,
+            "reads": {**reads, "sample": len(sample),
+                      "degraded_needles": sum(k == "degraded" for k in klass.values()),
+                      "phases": rec.phases()},
+            "slo": slo.slo_verdict(rec), "busy": storm_busy,
+            "after": {k: {"seconds": v["seconds"], "launches_by_shape": _shape_keys(v["launches"])}
+                      for k, v in after.items()},
+            "decoded_volume": decode_vid, "decoded_equal": True,
+            "seconds": time.perf_counter() - t_phase, "repair_wall_s": repair_wall,
+            "launches": dict(rs_cuda.launches_by_variant)}
+        check(not on_card or fleet["launches"].get("int8", 0) > 0,
+              "the fleet path never launched the factory's kernel")
+    finally:
+        if env is not None:
+            env.close()
+        for i, vs in enumerate(servers):
+            if i not in stopped:
+                vs.stop()
+        master.stop()
+        if saved is None:
+            os.environ.pop("WEEDTPU_REPAIR", None)
+        else:
+            os.environ["WEEDTPU_REPAIR"] = saved
+    return shell, fleet
+
+
 def _version_if_importable(name: str) -> str | None:
     """A reading for the device line: the module's version where it imports
     on this machine, else None. Nothing here depends on it: the card's path
@@ -2239,7 +2674,8 @@ def main(argv=None) -> int:
         # .dat + 14 shards of the larger volume, then the decoded .dat, and
         # the repair phase's two volumes; the earlier volumes are removed
         # before the ingest phase, whose peak is the .dat, its partials, a
-        # warm oracle set and a staged set
+        # warm oracle set and a staged set; the storm's peak (4 GiB of .dat,
+        # its shards, the rebuilt ones and a decoded .dat) stays below both
         need = int(max(2.5 * (max(args.dat_gib, args.second_gib, args.variant_gib)
                               + 2 * REPAIR_GIB), 5.1 * INGEST_GIB) * (1 << 30))
         free = shutil.disk_usage(SCRATCH).free
@@ -2282,6 +2718,15 @@ def main(argv=None) -> int:
         slice_lines["cluster"] = run_cluster(obs_state, args.seed, card)
         del obs_state
         emit({"phase": "cluster", **slice_lines["cluster"]})
+        shutil.rmtree(SCRATCH)  # the storm starts on an empty directory
+        os.makedirs(SCRATCH)
+        int8 = {c["shape"]: c["kernel_ms"] for c in checks["int8"] if "kernel_ms" in c}
+        kernel_ms = {(4, 10): int8["encode"], (3, 10): int8["fleet_rebuild3"],
+                     (2, 10): int8["fleet_rebuild2"], (1, 10): int8["degraded1m"]}
+        slice_lines["shell"], slice_lines["fleet"] = run_storm(SCRATCH, args.seed, card,
+                                                               kernel_ms)
+        emit(slice_lines["shell"])
+        emit(slice_lines["fleet"])
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     idle = [v for v in KERNELS if not main_launches.get(v)]

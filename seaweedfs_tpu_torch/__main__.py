@@ -1,5 +1,6 @@
 """`python -m seaweedfs_tpu_torch <command>`: the local volume commands and
-the servers (`version`, `master`, `volume`, `server`)."""
+the servers (`version`, `master`, `volume`, `server`), and the operator
+`shell`."""
 
 from __future__ import annotations
 

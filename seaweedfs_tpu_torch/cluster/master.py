@@ -4,9 +4,8 @@ master_grpc_server*.go.
 Hosts the weedtpu.Master RPC service over seaweedfs_tpu_torch.rpc: heartbeat
 ingest into Topology, fid assignment (Assign -> grow volumes on demand via
 the volume servers' VolumeCreate RPC), volume/EC lookup, and the topology
-dump that powers shell commands. Single-master: `peers` (raft HA) and
-WEEDTPU_REPAIR=on (the fleet repair scheduler) raise until those modules
-are ported.
+dump that powers shell commands. Single-master: `peers` (raft HA) raises
+until that module is ported.
 """
 
 from __future__ import annotations
@@ -76,14 +75,18 @@ class MasterServer:
         self._stop = threading.Event()
         self._reaper = threading.Thread(target=self._reap_loop, daemon=True)
         self._vacuumer = threading.Thread(target=self._vacuum_loop, daemon=True)
-        # The fleet repair scheduler (WEEDTPU_REPAIR=on) and raft HA (a
-        # master quorum, `peers`) are not in this package yet: each raises
-        # rather than running a single master without them.
+        # fleet repair scheduler (WEEDTPU_REPAIR=on): mass-rebuild brain
+        # that ranks under-replicated stripes by remaining redundancy and
+        # drives batched rebuilds through the admission lane. Soft state,
+        # like the topology.
+        self.repair = None
         if config.env("WEEDTPU_REPAIR") == "on":
-            raise NotImplementedError(
-                "WEEDTPU_REPAIR=on: the fleet repair scheduler (ec/fleet.py) is not "
-                "ported yet (ROADMAP Queue 1 item 2(c))"
-            )
+            from seaweedfs_tpu_torch.ec.fleet import RepairScheduler
+
+            self.repair = RepairScheduler(self)
+            self.topology.on_ec_shrink = self.repair.kick
+        # raft HA (a master quorum, `peers`) is not in this package yet: it
+        # raises rather than running a single master without it.
         if peers:
             raise NotImplementedError(
                 f"peers {peers}: raft HA (cluster/raft.py) is not ported yet "
@@ -101,9 +104,13 @@ class MasterServer:
             self._http_thread.start()
         self._reaper.start()
         self._vacuumer.start()
+        if self.repair is not None:
+            self.repair.start()
 
     def stop(self) -> None:
         self._stop.set()
+        if self.repair is not None:
+            self.repair.stop()
         if self._http is not None:
             # shutdown() blocks on an event only serve_forever() sets — a
             # never-started thread (start() raised early) must skip it
@@ -125,7 +132,9 @@ class MasterServer:
 
     def _reap_loop(self) -> None:
         while not self._stop.wait(self._reap_interval):
-            self.topology.reap_dead_nodes()
+            dead = self.topology.reap_dead_nodes()
+            if dead and self.repair is not None:
+                self.repair.kick("nodes reaped")
 
     # -- automatic vacuum (topology_vacuum.go analog) --------------------------
 
@@ -217,17 +226,18 @@ class MasterServer:
         """Fleet-repair view for `ec.status` and the chaos gates: queue
         depth, redundancy histogram, placement-violation audit, and the
         seq-ordered dispatch event log that proves 2-missing stripes
-        began repair before any 1-missing stripe. The scheduler is not in
-        this package yet, so the view is always the disabled one."""
-        return {
-            "enabled": False,
-            "queue_depth": 0,
-            "inflight": 0,
-            "redundancy_histogram": {},
-            "violations": [],
-            "events": [],
-            "suspects": [],
-        }
+        began repair before any 1-missing stripe."""
+        if self.repair is None:
+            return {
+                "enabled": False,
+                "queue_depth": 0,
+                "inflight": 0,
+                "redundancy_histogram": {},
+                "violations": [],
+                "events": [],
+                "suspects": [],
+            }
+        return self.repair.status()
 
     def _rpc_collection_delete(self, req: dict, ctx) -> dict:
         """Drop every volume and EC shard set of one collection across the
@@ -392,7 +402,10 @@ class MasterServer:
         # the reply names the leader (this master) so volume servers can
         # prefer it
         stats.MasterReceivedHeartbeatCounter.inc()
-        self.topology.process_heartbeat(Heartbeat.from_dict(req))
+        hb = Heartbeat.from_dict(req)
+        self.topology.process_heartbeat(hb)
+        if self.repair is not None and hb.unreachable_peers:
+            self.repair.note_reports(hb.url, hb.unreachable_peers)
         return {
             "volume_size_limit": self.topology.volume_size_limit,
             "leader": self.address,

@@ -1,16 +1,19 @@
-"""Process-level commands — version, master, volume and server, mirroring
-weed/command/{master,volume,server}.go. `server` runs a master and a volume
-server in one process, as `weed server` does. The volume server's EC
-work runs on the card (`--device`, default cuda); `--device cpu` gives
-the plain version. The filer, S3 and WebDAV front ends of `server` are
-not in this package yet and raise. The transport (and so grpc) is
-imported only when a server command runs, so the local commands that
-share the registry need none of it."""
+"""Process-level commands — version, master, volume, server and shell,
+mirroring weed/command/{master,volume,server,shell}.go. `server` runs a
+master and a volume server in one process, as `weed server` does; `shell`
+is the operator shell (REPL, or `-c` for a `;`-separated script). The
+volume server's EC work, and what the shell builds locally, runs on the
+card (`--device`, default cuda); `--device cpu` gives the plain version.
+The filer, S3 and WebDAV front ends of `server` are not in this package
+yet and raise. The transport (and so grpc) is imported only when a server
+or shell command runs, so the local commands that share the registry
+need none of it."""
 
 from __future__ import annotations
 
 import argparse
 import signal
+import sys
 import threading
 
 from seaweedfs_tpu_torch.command import Command, register
@@ -229,3 +232,24 @@ def _server_run(args: argparse.Namespace) -> int:
 
 
 register(Command("server", "run master + volume server in one process", _server_conf, _server_run))
+
+
+def _shell_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-c", dest="script", default="", help="run `;`-separated commands and exit")
+    _add_device(p)
+
+
+def _shell_run(args: argparse.Namespace) -> int:
+    from seaweedfs_tpu_torch.shell import CommandEnv, repl, run_script
+
+    _security()
+    with CommandEnv(args.master, device=args.device) as env:
+        if args.script:
+            run_script(env, args.script, sys.stdout)
+        else:
+            repl(env, sys.stdin, sys.stdout)
+    return 0
+
+
+register(Command("shell", "operator shell (REPL or -c script)", _shell_conf, _shell_run))

@@ -240,10 +240,60 @@ ENV_REGISTRY: dict[str, EnvVar] = {
         ),
         EnvVar(
             "WEEDTPU_REPAIR", "off",
-            "Master-side fleet repair scheduler: `on` drives batched remote "
-            "rebuilds of under-replicated stripes (not in this package yet: "
-            "the master raises); `off` leaves repair to the operator.",
+            "Master-side fleet repair scheduler: `on` enumerates every stripe "
+            "left under-replicated by a dead/quarantined holder, ranks by "
+            "remaining redundancy (2-missing strictly before 1-missing, ties by "
+            "stripe bytes then single-domain exposure), and drives batched "
+            "remote rebuilds through the rebuild admission lane; `off` (default) "
+            "leaves mass repair to the operator's ec.rebuild.",
             _enum("on", "off"),
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR_MAX_INFLIGHT", 2,
+            "Cluster-wide cap on concurrently-running batched rebuild dispatches "
+            "from the fleet repair scheduler (clamped to >= 1) — the scheduler's "
+            "own pacing budget on top of each holder's "
+            "WEEDTPU_REBUILD_MAX_INFLIGHT admission gate.",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR_BATCH", 8,
+            "How many same-priority-class stripes one repair dispatch may carry "
+            "to a single rebuild target (clamped to >= 1). The target fuses "
+            "equal missing-signature volumes into shared decode dispatches, so "
+            "bigger batches amortize device/staging setup across volumes.",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR_SCAN_S", 30.0,
+            "Seconds between full under-replication scans of the master's EC "
+            "registry. Death signals (reaped nodes, shrinking heartbeats, "
+            "confirmed peer-unreachable reports) trigger an immediate scan on "
+            "top of this cadence.",
+            float,
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR_SETTLE_S", 2.0,
+            "Correlation window the repair scheduler waits after a death signal "
+            "before dispatching: a rack's nodes die together but their heartbeat "
+            "silences stagger, and ranking before the dust settles would start "
+            "1-missing repairs that should have been 2-missing.",
+            float,
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR_DEAD_S", 15.0,
+            "Heartbeat-silence age after which a holder that peers ALSO report "
+            "unreachable is treated as dead for repair purposes (unreported "
+            "holders die at 4x this, bounded below by 60 s, so a long GC pause "
+            "alone never triggers a mass rebuild).",
+            float,
+        ),
+        EnvVar(
+            "WEEDTPU_REPAIR_BACKOFF", 2.0,
+            "Base seconds of the per-stripe exponential backoff after a repair "
+            "dispatch is refused (503/RESOURCE_EXHAUSTED from the admission "
+            "lane) or fails in transport; doubles per failure, capped at 12x.",
+            float,
         ),
         EnvVar(
             "WEEDTPU_REPAIR_REPORT_FAILURES", 3,

@@ -1122,3 +1122,124 @@ def test_card_cluster_generates_reads_degraded_and_rebuilds_as_the_cpu_cluster(
     assert on_card == plain
     assert on_card["rebuilt"] == {s: on_card["generated"][s] for s in (0, 5, 10, 13)}
     assert launched.get((4, 10), 0) >= 2 and launched.get((1, 10), 0) > 0, launched
+
+
+# -- the operator shell on the card ----------------------------------------------------
+
+
+def _card_shell_run(root, encoder, device, monkeypatch) -> dict:
+    """A port master and four volume servers (racks rack0/rack1) on
+    `encoder()`, 60 needles with fixed fids (the needle clock pinned), then
+    the port shell on `device`: lock, ec.encode, one server's shards lost,
+    ec.rebuild, ec.verify, unlock -> the shards by server index, the
+    shell's output with addresses masked, and the reads."""
+    import hashlib
+    import io
+    import itertools
+    import re
+    import socket
+    import time
+    import types
+
+    from seaweedfs_tpu_torch.cluster.client import MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec.shard_bits import ShardBits
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_script
+    from seaweedfs_tpu_torch.storage import needle
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    it = itertools.count(1_700_000_000_000_000_000, 1_000)
+    shim = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time) if not k.startswith("_")})
+    shim.time_ns = lambda: next(it)
+    monkeypatch.setattr(needle, "time", shim)
+
+    def wait(cond):
+        deadline = time.monotonic() + 30
+        while not cond():
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+
+    socks = [socket.socket() for _ in range(4)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    # the shell and the planners break ties on url: ports in url order
+    ports = sorted((sk.getsockname()[1] for sk in socks), key=str)
+    for sk in socks:
+        sk.close()
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    servers, env = [], None
+    try:
+        for i, port in enumerate(ports):
+            d = root / f"srv{i}"
+            d.mkdir(parents=True)
+            vs = VolumeServer([str(d)], master.address, port=port, heartbeat_interval=0.3,
+                              rack=f"rack{i % 2}", encoder=encoder())
+            vs.start()
+            servers.append(vs)
+            wait(lambda: vs.url in master.topology.nodes)
+        index = {vs.url: i for i, vs in enumerate(servers)}
+        client = MasterClient(master.address)
+        vid = int(client.assign().fid.split(",")[0])
+        rng = np.random.default_rng(17)
+        blobs = {}
+        for key in range(1, 61):
+            fid = str(FileId(vid, key, 0x3000 + key))
+            blobs[fid] = rng.bytes(int(rng.integers(500, 9000)))
+            client.upload(fid, blobs[fid])
+        env = CommandEnv(master.address, device=device)
+
+        def placed():
+            out = {}
+            for n in env.topology_nodes():
+                for e in n.get("ec_shards", []):
+                    if int(e["volume_id"]) == vid:
+                        out[index[n["url"]]] = ShardBits(e["shard_bits"]).shard_ids()
+            return dict(sorted(out.items()))
+
+        def shas():
+            return {i: {s: hashlib.sha256(open(stripe.shard_file_name(
+                servers[i]._base_path_for(vid), s), "rb").read()).hexdigest() for s in sids}
+                for i, sids in placed().items()}
+
+        text = io.StringIO()
+        run_script(env, f"lock; ec.encode -volumeId {vid} -largeBlockSize 4096 "
+                        f"-smallBlockSize 512", text)
+        encoded = shas()
+        victim, lost = next(iter(placed().items()))
+        env.vs_call(servers[victim].grpc_address, "VolumeEcShardsDelete",
+                    {"volume_id": vid, "shard_ids": lost})
+        wait(lambda: sum(len(s) for s in placed().values()) == 14 - len(lost))
+        run_script(env, "ec.rebuild; ec.verify; unlock", text)
+        wait(lambda: sum(len(s) for s in placed().values()) == 14)
+        reads = {fid: client.read(fid) for fid in blobs}
+        client.close()
+        assert reads == blobs
+        assert "all shards verified clean" in text.getvalue()
+        out = text.getvalue()
+        for i, vs in enumerate(servers):
+            out = out.replace(vs.url, f"<s{i}>")
+        return {"encoded": encoded, "rebuilt": shas(), "lost": lost,
+                "out": re.sub(r"127\.0\.0\.1:\d+", "<addr>", out)}
+    finally:
+        if env is not None:
+            env.close()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+
+
+def test_card_shell_encodes_rebuilds_and_verifies_as_the_cpu_shell(card, tmp_path, monkeypatch):
+    """The port shell's ec.encode, ec.rebuild and ec.verify on servers on the
+    factory's encoder (the card) and on a CPU encoder: the same shards on
+    the same servers, the same output, and the card's run launched (4, 10)
+    for the encode and the rebuild's own decode."""
+    rs_cuda.reset_launches()
+    on_card = _card_shell_run(tmp_path / "card", rs_codec.new_encoder, None, monkeypatch)
+    launched = dict(rs_cuda.launches_by_shape)
+    plain = _card_shell_run(tmp_path / "cpu", lambda: rs_codec.Encoder(10, 4, device="cpu"),
+                            "cpu", monkeypatch)
+    assert on_card == plain
+    assert launched.get((4, 10), 0) >= 1, launched
+    assert launched.get((len(on_card["lost"]), 10), 0) >= 1, launched

@@ -3,8 +3,9 @@
 importing the whole port leaves neither in `sys.modules`. The EC and
 storage path needs neither `grpc` nor `google.protobuf`: only the
 transport (`rpc`, `pb.wire`, `security.tls`) and what stands on it (the
-master, the volume server, their client and the `server` command) import
-them, and `chip_smoke.py` imports none of those at module level."""
+master, the volume server, their client, the operator shell, the fleet
+repair scheduler and the `server` and `shell` commands) import them, and
+`chip_smoke.py` imports none of those at module level."""
 
 import ast
 import os
@@ -56,7 +57,9 @@ def test_port_has_modules_for_every_layer():
                  "security/jwt.py", "security/guard.py", "security/tls.py", "pb/__init__.py",
                  "pb/wire.py", "rpc.py", "cluster/sequence.py", "cluster/topology.py",
                  "cluster/client.py", "cluster/master.py", "cluster/volume_server.py",
-                 "ec/placement.py", "ec/spread.py", "command/servers.py"):
+                 "ec/placement.py", "ec/spread.py", "command/servers.py",
+                 "shell/__init__.py", "shell/command_cluster.py", "shell/command_ec.py",
+                 "shell/command_volume.py", "ec/fleet.py", "ec/slo.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
@@ -98,16 +101,20 @@ WIRE_MODULES = ("seaweedfs_tpu_torch.rpc", "seaweedfs_tpu_torch.pb.wire",
                 "seaweedfs_tpu_torch.security.tls")
 #: the modules that stand on the transport: each fails to import without grpc
 SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.cluster.master",
-                  "seaweedfs_tpu_torch.cluster.volume_server")
+                  "seaweedfs_tpu_torch.cluster.volume_server", "seaweedfs_tpu_torch.ec.fleet",
+                  "seaweedfs_tpu_torch.shell", "seaweedfs_tpu_torch.shell.command_cluster",
+                  "seaweedfs_tpu_torch.shell.command_ec",
+                  "seaweedfs_tpu_torch.shell.command_volume")
 #: the server commands: they share the CLI registry with the local
 #: commands, so they reach the transport only when one of them runs
 SERVER_COMMANDS = "seaweedfs_tpu_torch.command.servers"
-#: chip_smoke.py's cluster phase: the only functions there that reach them
-CLUSTER_PHASE = ("run_cluster", "_cluster")
+#: chip_smoke.py's cluster, shell and fleet phases: the only functions
+#: there that reach them
+CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm")
 #: the servers' pure planners and data structures: they import without it
 PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec.placement",
                         "seaweedfs_tpu_torch.cluster.sequence",
-                        "seaweedfs_tpu_torch.cluster.topology")
+                        "seaweedfs_tpu_torch.cluster.topology", "seaweedfs_tpu_torch.ec.slo")
 
 
 def _port_imports(path: str, top_level: bool = False, skip: tuple = ()) -> set[str]:
@@ -135,10 +142,10 @@ def _port_imports(path: str, top_level: bool = False, skip: tuple = ()) -> set[s
 
 
 def test_chip_smoke_imports_no_wire_module():
-    """chip_smoke.py reaches the transport and the servers (and so grpc)
-    only inside its `cluster` phase's functions (`run_cluster`,
-    `_cluster_*`); its module-level imports and every other phase stay
-    free of them."""
+    """chip_smoke.py reaches the transport, the servers and the shell (and
+    so grpc) only inside its `cluster`, `shell` and `fleet` phases'
+    functions (`run_cluster`, `_cluster_*`, `run_storm`, `_storm_*`); its
+    module-level imports and every other phase stay free of them."""
     path = os.path.join(ROOT, "chip_smoke.py")
     got = _port_imports(path, skip=CLUSTER_PHASE)
     assert "seaweedfs_tpu_torch.obs.trace" in got and "seaweedfs_tpu_torch.stats" in got
@@ -156,8 +163,8 @@ def test_card_path_imports_without_grpc_or_protobuf():
     `ec.placement`, the sequencers, the topology) still import, and so
     does `chip_smoke.py`; the CLI still parses its local commands; the
     wire modules and everything that stands on them (the client, master
-    and volume server) fail loudly, and so does running `master`,
-    `volume` or `server`."""
+    and volume server, the shell and the fleet scheduler) fail loudly, and
+    so does running `master`, `volume`, `server` or `shell`."""
     mods = sorted(_port_imports(os.path.join(ROOT, "chip_smoke.py"), skip=CLUSTER_PHASE) | {
         "seaweedfs_tpu_torch.obs.trace", "seaweedfs_tpu_torch.stats",
         "seaweedfs_tpu_torch.utils.httpd", "seaweedfs_tpu_torch.security",
@@ -187,13 +194,14 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "        pass\n"
         "from seaweedfs_tpu_torch.__main__ import main\n"
         "from seaweedfs_tpu_torch.command import commands\n"
-        "assert {'export', 'encode', 'rebuild', 'master', 'server'} <= set(commands())\n"
+        "assert {'export', 'encode', 'rebuild', 'master', 'server', 'shell'} <= set(commands())\n"
         "try:\n"
         "    main(['export', '--help'])\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
         "for argv in (['master', '-port', '0'], ['volume', '-dir', '.'],\n"
-        "             ['server', '--device', 'cpu', '-dir', '.']):\n"
+        "             ['server', '--device', 'cpu', '-dir', '.'],\n"
+        "             ['shell', '-master', '127.0.0.1:1', '--device', 'cpu', '-c', 'lock']):\n"
         "    try:\n"
         "        main(argv)\n"
         "        sys.exit(argv[0] + ' ran without grpc')\n"
@@ -213,15 +221,19 @@ def test_card_path_imports_without_grpc_or_protobuf():
 
 def test_the_servers_import_grpc_and_the_planners_do_not():
     """The AST view of the same split: each server module reaches grpc
-    (directly, or through `rpc`/`security.tls`), the server commands reach
-    them only inside their run functions, and neither planner nor the
-    sequencers and topology imports a wire module at all."""
+    (directly, through `rpc`/`security.tls`, or through another server
+    module: the shell's commands through the shell), the server commands
+    reach them only inside their run functions, and neither planner nor
+    the sequencers, the topology and the SLO recorder imports a wire
+    module at all."""
     def path(mod):
-        return os.path.join(ROOT, *mod.split(".")) + ".py"
+        base = os.path.join(ROOT, *mod.split("."))
+        return os.path.join(base, "__init__.py") if os.path.isdir(base) else base + ".py"
 
     for mod in SERVER_MODULES:
         direct = "grpc" in _imported_roots(path(mod))
-        assert direct or _port_imports(path(mod), top_level=True) & set(WIRE_MODULES), mod
+        through = _port_imports(path(mod), top_level=True) & set(WIRE_MODULES + SERVER_MODULES)
+        assert direct or through - {mod}, mod
     wire = set(WIRE_MODULES + SERVER_MODULES)
     assert not _imported_roots(path(SERVER_COMMANDS)) & {"grpc", "google"}
     assert not _port_imports(path(SERVER_COMMANDS), top_level=True) & wire

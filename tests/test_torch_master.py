@@ -332,12 +332,6 @@ def test_master_with_peers_raises():
         PORT.MasterServer(port=0, peers=["127.0.0.1:1", "127.0.0.1:2"], http_port=None)
 
 
-def test_master_with_fleet_repair_raises(monkeypatch):
-    monkeypatch.setenv("WEEDTPU_REPAIR", "on")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        PORT.MasterServer(port=0, http_port=None)
-
-
 @pytest.mark.parametrize("method", ["VolumeTierMove", "VolumeTierFetch"])
 def test_tier_rpcs_answer_unimplemented(tmp_path, method):
     with cluster(PORT, tmp_path, n=1, heartbeat=0.3) as (master, (vs,), client):
