@@ -50,7 +50,8 @@ Phases, one JSON line each:
            upstream lays out volumes under 10 GiB) and a second one with
            64 MiB large blocks (default 1 GiB, both tiers) through the CLI's
            own functions with the factory's encoder (int8: no evidence is
-           committed), then one 1 GiB two-tier volume per other variant
+           committed), then one 0.5 GiB two-tier volume (32 MiB large
+           blocks) per other variant
            with `Encoder(10, 4, variant=v)`: encode, verify, delete shards
            0/5/10/13 [degraded read], delete the .dat, rebuild, decode;
            asserts rebuilt CRCs match the .eci, the decoded .dat hashes equal
@@ -170,7 +171,7 @@ Phases, one JSON line each:
   shell    (on an emptied scratch directory) the SeaweedFS wiki's EC
            deployment: a port master with WEEDTPU_REPAIR=on and a 256 MiB
            volume size limit, five volume servers in racks r0-r4 (each on
-           the factory's encoder), and 16 volumes of 255 seeded 1 MiB needles
+           the factory's encoder), and 8 volumes of 255 seeded 1 MiB needles
            (collection storm) written with the port's storage engine into
            their directories; each .dat first encoded locally on the card
            (`write_ec_files`, hard-linked aside) as the oracle. Through the
@@ -199,8 +200,41 @@ Phases, one JSON line each:
            Prints batches, volumes per batch, survivor GB/s, read p50/p99 by
            phase and class, `slo.slo_verdict` (a reading) and kernel ms x
            launches against the wall time
+  load     (on an emptied scratch directory) the reference's open-loop SLO
+           harness as the port's `scripts/weedload.main`: --seconds 30 --rps
+           1000 --procs 4 --chaos --rebuild-storm --objects 4000 --device
+           cuda. The master runs here with WEEDTPU_REPAIR=on; each of the
+           three volume servers is a `python -m seaweedfs_tpu_torch volume
+           --device cuda` process with its own CUDA context, each generator
+           worker a process that opens none. Checks: rc 0, no lost byte,
+           healthy, ec_intact and degraded objects, degraded and cached
+           reads, kills or wedges, every storm rebuild without error, every
+           server generation's /metrics selecting the cuda backend,
+           degraded reads, reconstructs and a cache hit counted on the
+           servers (the report's own totals include the master's /metrics,
+           which this process's earlier phases share),
+           the servers' contexts listed by `nvidia-smi --query-compute-apps`
+           while they ran and none after. Prints offered, issued and
+           completed rps, p50/p99 by phase and class, the SLO verdict (a
+           reading), the degraded class's per-stage p99, the storm's modes
+           and wire bytes, the servers' cache hit rate, the set-up's seconds by
+           stage, os.cpu_count() and the servers' decodes times the (1, 10)
+           read kernels' ms against the load's seconds
+  rack     (on an emptied scratch directory) `scripts/chaos_soak --rack
+           --seconds 60 --device cuda`: seven volume server processes on the
+           card in racks rk0, rk0, rk1..rk5, four EC volumes, open-loop reads
+           at 20/s, the rk5 node killed, then both rk0 nodes. Checks the
+           reference's gates (ok, no lost byte, priority_ok and
+           coverage_complete in both phases, no placement violation,
+           fusion.collapsed), a batch of two or more volumes in one
+           dispatch group, the cuda backend on every server and the
+           contexts as in load. Prints heal seconds, the batches, read
+           p50/p99 and the servers' decode and rebuild counts
 then the kernel table, the nvidia-smi line, and {"ok": true, ...} last.
-Any mismatch or error exits nonzero without the last line.
+Any mismatch or error exits nonzero without the last line. The load and
+rack servers launch their kernels in their own processes, so the kernel
+table's launches (`slice.launches` included) count only this process's;
+those two lines report the servers' /metrics counts instead.
 """
 
 from __future__ import annotations
@@ -212,6 +246,7 @@ import io
 import json
 import os
 import shutil
+import subprocess
 import sys
 import threading
 import time
@@ -2229,7 +2264,7 @@ def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict
 #: the shell and fleet phases' deployment (the SeaweedFS wiki's "Erasure
 #: Coding for warm storage": 10+4, volumes sealed once full, ec.encode
 #: -fullPercent=95, rack-aware spread, ec.rebuild/ec.balance under the lock)
-STORM_VOLUMES = 16
+STORM_VOLUMES = 8
 STORM_NEEDLE = 1 << 20
 STORM_NEEDLES = 255  # per volume: 255 needles of 1 MiB fill a 256 MiB volume
 STORM_RACKS = ("r0", "r1", "r2", "r3", "r4")
@@ -2617,6 +2652,207 @@ def run_storm(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
     return shell, fleet
 
 
+#: the load phase: the reference harness's real run (`weedload.py`'s usage
+#: line) plus the storm, over 4000 objects; the rack phase's seconds
+LOAD_ARGV = ("--seconds", "30", "--rps", "1000", "--procs", "4", "--chaos", "--rebuild-storm",
+             "--objects", "4000")
+RACK_SECONDS = 60
+
+
+def _compute_pids() -> list[int]:
+    """The pids `nvidia-smi --query-compute-apps=pid` lists, one per process
+    holding a CUDA context on the card (in a container they may all read as
+    one pid of another namespace: count them, do not name them)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return sorted(int(x) for x in out.stdout.split() if x.strip().isdigit())
+
+
+@contextlib.contextmanager
+def _contexts_watched(out: dict):
+    """Samples the compute processes every 5 s while the body runs; `out`
+    gets the list before, the most seen at once, and the list after (polled
+    up to 30 s for a killed server's context to be released)."""
+    out["before"] = _compute_pids()
+    out["most_at_once"] = len(out["before"])
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.wait(5.0):
+            out["most_at_once"] = max(out["most_at_once"], len(_compute_pids()))
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+        deadline = time.monotonic() + 30
+        while True:
+            out["after"] = _compute_pids()
+            if len(out["after"]) <= len(out["before"]) or time.monotonic() > deadline:
+                break
+            time.sleep(1.0)
+
+
+def _check_contexts(ctx: dict, servers: int, what: str) -> None:
+    """The servers' CUDA contexts were visible while they ran and none
+    outlived the phase: after it, only the compute processes listed before
+    it (this script's own) remain."""
+    check(ctx["most_at_once"] >= len(ctx["before"]) + servers,
+          f"{what}: nvidia-smi listed at most {ctx['most_at_once']} compute processes, "
+          f"want {len(ctx['before'])} + {servers} servers")
+    check(len(ctx["after"]) <= len(ctx["before"]),
+          f"{what}: compute processes {ctx['after']} outlived the phase (before: {ctx['before']})")
+
+
+def _server_evidence(by_server: dict, backends: dict, names: tuple, expect: int) -> dict:
+    """The `expect` servers' counters, each summed over its process
+    generations, and the backends their /metrics selected; every generation
+    must have selected exactly the card's backend (`cuda`), so no server ran
+    the plain version."""
+    servers = {k: v for k, v in by_server.items() if k.startswith("n")}
+    check(len(servers) == expect, f"scraped servers {sorted(servers)}, want {expect}")
+    for name, gens in backends.items():
+        if name.startswith("n"):
+            check(gens and all(g == ["cuda"] for g in gens),
+                  f"server {name} selected {gens}, not the card's backend")
+    return {"servers": len(servers),
+            "backends": {k: v for k, v in backends.items() if k.startswith("n")},
+            **{c: sum(v.get(c, 0.0) for v in servers.values()) for c in names}}
+
+
+@contextlib.contextmanager
+def _isolated_env():
+    """The harnesses set their knobs with os.environ.setdefault: each phase
+    starts from the environment as it was and leaves it so."""
+    saved = dict(os.environ)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def run_load(scratch: str, seed: int, card: str, kernel_ms: dict) -> dict:
+    """The load phase (see the module doc): `weedload.main` with LOAD_ARGV on
+    the card, three volume server subprocesses, four generator workers."""
+    from seaweedfs_tpu_torch.scripts import weedload
+
+    out, trace_out = os.path.join(scratch, "SLO_load.json"), os.path.join(scratch, "TA_load.json")
+    argv = [*LOAD_ARGV, "--seed", str(seed), "--device", "cuda", "--out", out,
+            "--trace-out", trace_out]
+    ctx: dict = {}
+    t0 = time.perf_counter()
+    with _isolated_env(), _contexts_watched(ctx), \
+            open(os.path.join(scratch, "load_report.txt"), "w") as sink, \
+            contextlib.redirect_stdout(sink):
+        rc = weedload.main(argv)
+    wall = time.perf_counter() - t0
+    with open(out, encoding="utf-8") as f:
+        r = json.load(f)
+    check(rc == 0 and r["lost"] == [] and r["ok"], f"load: rc {rc}, lost {r['lost'][:5]}")
+    by_class = r["workload"]["objects_by_class"]
+    check(all(by_class[k] > 0 for k in ("healthy", "ec_intact", "degraded")),
+          f"load: objects by class {by_class}")
+    check(r["overall"]["degraded"]["count"] > 0 and r["overall"]["cached"]["count"] > 0,
+          f"load: degraded/cached reads {r['overall']}")
+    chaos = r["chaos"]
+    check(chaos["kills"] + chaos["wedges"] > 0, f"load: no chaos {chaos}")
+    check(chaos["rebuilds"] and not any("error" in b for b in chaos["rebuilds"]),
+          f"load: storm rebuilds {chaos['rebuilds']}")
+    names = ("weedtpu_degraded_read_seconds_count", "weedtpu_ec_reconstruct_seconds_count",
+             "weedtpu_ec_rebuild_seconds_count", "weedtpu_read_cache_hits_total",
+             "weedtpu_read_cache_misses_total")
+    servers = _server_evidence(r["counters_by_server"], r["server_backends"], names, 3)
+    check(servers["weedtpu_degraded_read_seconds_count"] > 0
+          and servers["weedtpu_ec_reconstruct_seconds_count"] > 0,
+          f"load: no server decoded {servers}")
+    # the report's own cache block sums the master's /metrics too, and the
+    # master shares this process's registry with the earlier phases' reads
+    hits, misses = (servers["weedtpu_read_cache_hits_total"],
+                    servers["weedtpu_read_cache_misses_total"])
+    check(hits >= 1, f"load: the servers' decoded-interval cache never hit {servers}")
+    _check_contexts(ctx, 3, "load")
+    load_s = r["workload"]["seconds"]
+    completed = sum(v["count"] for v in r["overall"].values())
+    decodes = servers["weedtpu_ec_reconstruct_seconds_count"]
+    attrib = r["trace_attribution"]["classes"].get("degraded", {})
+    return {
+        "phase": "load", "card": card, "cpu_count": os.cpu_count(), "argv": argv,
+        "seconds": wall, "stage_seconds": r["stage_seconds"],
+        "offered_rps": r["workload"]["rps"], "issued": r["workload"]["issued"],
+        "issued_rps": r["workload"]["issued"] / load_s, "completed_rps": completed / load_s,
+        "objects_by_class": by_class,
+        "by_phase": {ph: {k: {q: v[q] for q in ("count", "errors", "p50", "p99")}
+                          for k, v in cells.items()} for ph, cells in r["phases"].items()},
+        "overall": {k: {q: v[q] for q in ("count", "errors", "p50", "p99")}
+                    for k, v in r["overall"].items()},
+        "slo": r["slo"],
+        "degraded_stage_p99": {k: v["p99"] for k, v in attrib.get("stages", {}).items()},
+        "chaos": chaos, "cache": {"hits": hits, "misses": misses,
+                                  "hit_rate": hits / (hits + misses)},
+        "servers": servers, "contexts": ctx,
+        # the servers' launches are counted in their own processes: this is
+        # their /metrics decode count times the (1, 10) read kernels' ms
+        "decode_busy": {
+            "decodes": decodes,
+            "kernel_ms_4k_to_64k": [decodes * kernel_ms["degraded4k"],
+                                    decodes * kernel_ms["degraded64k"]],
+            "share_of_load_s": [decodes * kernel_ms["degraded4k"] / 1e3 / load_s,
+                                decodes * kernel_ms["degraded64k"] / 1e3 / load_s]},
+    }
+
+
+def run_rack(scratch: str, card: str) -> dict:
+    """The rack phase (see the module doc): `chaos_soak --rack` on the card,
+    seven volume server subprocesses in six racks."""
+    from seaweedfs_tpu_torch.cluster import topology
+    from seaweedfs_tpu_torch.scripts import chaos_soak
+
+    out = os.path.join(scratch, "SOAK_rack.json")
+    argv = ["--rack", "--seconds", str(RACK_SECONDS), "--device", "cuda", "--out", out]
+    dead_s = topology.DEAD_NODE_SECONDS
+    ctx: dict = {}
+    t0 = time.perf_counter()
+    try:
+        with _isolated_env(), _contexts_watched(ctx), \
+                open(os.path.join(scratch, "rack_report.txt"), "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            rc = chaos_soak.main(argv)
+    finally:
+        topology.DEAD_NODE_SECONDS = dead_s
+    wall = time.perf_counter() - t0
+    with open(out, encoding="utf-8") as f:
+        r = json.load(f)
+    phases = {p: r.get(p, {}) for p in ("phase1_node", "phase2_rack")}
+    check(rc == 0 and r["ok"] and r["lost"] == [], f"rack: rc {rc}, ok {r['ok']}, lost {r['lost']}")
+    for name, ph in phases.items():
+        check(ph.get("priority_ok") and ph.get("coverage_complete"), f"rack {name}: {ph}")
+    check(r["placement_violations"] == [], f"rack: violations {r['placement_violations']}")
+    check(r["fusion"]["collapsed"], f"rack: fusion {r['fusion']}")
+    batches = [b for ph in phases.values() for b in ph["batches"]]
+    check(any(b["volumes"] >= 2 and b["dispatch_groups"] == 1 for b in batches),
+          f"rack: no multi-volume batch in one dispatch group {batches}")
+    names = chaos_soak.RACK_COUNTERS
+    servers = _server_evidence(r["server_counters"], r["server_backends"], names, 7)
+    check(servers["weedtpu_ec_rebuild_seconds_count"] > 0, f"rack: no server rebuilt {servers}")
+    _check_contexts(ctx, 7, "rack")
+    return {
+        "phase": "rack", "card": card, "cpu_count": os.cpu_count(), "argv": argv,
+        "seconds": wall,
+        "heal_seconds": {p: ph["heal_seconds"] for p, ph in phases.items()},
+        "batches": {p: [{k: b[k] for k in ("volumes", "signature_groups", "dispatch_groups",
+                                           "block_missing", "wall_s")}
+                        for b in ph["batches"]] for p, ph in phases.items()},
+        "fusion": r["fusion"], "read": r["traffic"]["latency"].get("read", {}),
+        "reads": r["reads"], "files": r["files"], "servers": servers, "contexts": ctx,
+    }
+
+
 def _version_if_importable(name: str) -> str | None:
     """A reading for the device line: the module's version where it imports
     on this machine, else None. Nothing here depends on it: the card's path
@@ -2634,7 +2870,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dat-gib", type=float, default=4.0)
     ap.add_argument("--second-gib", type=float, default=1.0)
-    ap.add_argument("--variant-gib", type=float, default=1.0)
+    ap.add_argument("--variant-gib", type=float, default=0.5)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2686,9 +2922,10 @@ def main(argv=None) -> int:
             run_volume(os.path.join(SCRATCH, "2"), args.second_gib, 64 << 20,
                        args.seed + 1, card),
         ]
+        # 32 MiB large blocks: a 0.5 GiB volume keeps a large row (both tiers)
         for k, v in enumerate(("dma", "mplane", "u8", "bf16")):
             vols.append(run_volume(os.path.join(SCRATCH, str(3 + k)), args.variant_gib,
-                                   64 << 20, args.seed + 2 + k, card, variant=v))
+                                   32 << 20, args.seed + 2 + k, card, variant=v))
         main_launches = dict(rs_cuda.launches_by_variant)
         reads = [v.pop("degraded_read") for v in vols]
         emit({"phase": "e2e", "card": card, "volumes": vols, "launches": main_launches})
@@ -2727,6 +2964,14 @@ def main(argv=None) -> int:
                                                                kernel_ms)
         emit(slice_lines["shell"])
         emit(slice_lines["fleet"])
+        # the harnesses' servers are processes of their own and count their
+        # launches there: these two lines carry the servers' /metrics instead
+        shutil.rmtree(SCRATCH)
+        os.makedirs(SCRATCH)
+        emit(run_load(SCRATCH, args.seed, card, int8))
+        shutil.rmtree(SCRATCH)
+        os.makedirs(SCRATCH)
+        emit(run_rack(SCRATCH, card))
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     idle = [v for v in KERNELS if not main_launches.get(v)]

@@ -1,6 +1,6 @@
-"""`python -m seaweedfs_tpu_torch <command>`: the local volume commands and
-the servers (`version`, `master`, `volume`, `server`), and the operator
-`shell`."""
+"""`python -m seaweedfs_tpu_torch <command>`: the local volume commands, the
+servers (`version`, `master`, `volume`, `server`), the operator `shell`,
+and the cluster clients `benchmark`, `upload` and `download`."""
 
 from __future__ import annotations
 

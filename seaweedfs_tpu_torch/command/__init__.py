@@ -26,6 +26,6 @@ def register(cmd: Command) -> Command:
 
 
 def commands() -> dict[str, Command]:
-    from seaweedfs_tpu_torch.command import local, servers  # noqa: F401 — registers
+    from seaweedfs_tpu_torch.command import bench_tools, local, servers  # noqa: F401 — registers
 
     return dict(_REGISTRY)

@@ -24,6 +24,7 @@ import datetime
 import functools
 import json
 import os
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -789,7 +790,28 @@ def new_encoder(
         source = "on-chip-evidence"
     enc.selection = dict(decision, backend=enc.backend, device=str(dev), variant=variant,
                          tile=tile, source=source)
+    _export_selection(enc.selection)
     return enc
+
+
+def _export_selection(selection: dict) -> None:
+    """Mirror the factory's decision into `weedtpu_ec_backend_selected`:
+    the previously selected labels drop to 0, so a scrape shows one
+    current backend (under a lock: concurrent factories must not leave two
+    label sets at 1)."""
+    from seaweedfs_tpu_torch import stats
+
+    global _last_selection_labels
+    labels = (str(selection.get("backend", "")), str(selection.get("source", "")))
+    with _selection_lock:
+        if _last_selection_labels not in (None, labels):
+            stats.EcBackendSelected.labels(*_last_selection_labels).set(0)
+        stats.EcBackendSelected.labels(*labels).set(1)
+        _last_selection_labels = labels
+
+
+_last_selection_labels: Optional[tuple] = None
+_selection_lock = threading.Lock()
 
 
 def encoder_from_arrays(gen_matrix: np.ndarray, data_shards: int, device=None) -> Encoder:

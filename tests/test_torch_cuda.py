@@ -1243,3 +1243,141 @@ def test_card_shell_encodes_rebuilds_and_verifies_as_the_cpu_shell(card, tmp_pat
     assert on_card == plain
     assert launched.get((4, 10), 0) >= 1, launched
     assert launched.get((len(on_card["lost"]), 10), 0) >= 1, launched
+
+
+def hold_smoke_report(report: dict, took: float, timed: bool) -> None:
+    """Every content assertion of the reference's weedload smoke case
+    (`tests/test_slo_harness.py`) on a port smoke report. `timed` adds its
+    two timings, the 30 s budget and `trace_overhead.ok`: they hold on a
+    host with nothing else running, not under parallel test workers."""
+    from seaweedfs_tpu_torch.ec import slo
+
+    for key in slo.REPORT_SCHEMA_KEYS:
+        assert key in report, f"report missing {key}"
+    assert report["lost"] == [] and report["ok"]
+    assert report["workload"]["open_loop"] is True
+    by_class = report["workload"]["objects_by_class"]
+    assert by_class["healthy"] > 0 and by_class["degraded"] > 0
+    assert report["counters"]["weedtpu_degraded_read_seconds_count"] > 0
+    merged_degraded = report["overall"]["degraded"]
+    assert merged_degraded["count"] > 0 and merged_degraded["p99"] > 0
+    attrib = report["trace_attribution"]
+    for key in slo.TRACE_ATTRIB_SCHEMA_KEYS:
+        assert key in attrib, f"trace attribution missing {key}"
+    assert attrib["trace_count"] > 0
+    for klass in ("healthy", "degraded"):
+        cls = attrib["classes"][klass]
+        assert cls["count"] > 0
+        assert abs(cls["stage_coverage"] - 1.0) < 0.01, (klass, cls)
+    assert len(attrib["slowest"]) >= 1
+    assert all(t["root"].get("spans") is not None or t["kind"] for t in attrib["slowest"])
+    overhead = report["trace_overhead"]
+    for key in ("method", "tolerance", "abs_floor_us", "attempts", "ok"):
+        assert key in overhead
+    assert overhead["attempts"]
+    cache = report["cache"]
+    assert cache["hits"] >= 1 and cache["hit_rate"] is not None
+    assert cache["budget_mb"] > 0
+    assert report["overall"]["cached"]["count"] > 0
+    if timed:
+        assert took < 30.0, f"smoke run must stay under the 30 s budget ({took:.1f}s)"
+        assert overhead["ok"], f"tracing overhead gate failed: {overhead}"
+
+
+def run_smoke(tmp_path, device: str) -> tuple[dict, float]:
+    """`weedload.main(["--smoke", ...])` on `device` in a fresh interpreter
+    (no thread or cache of an earlier test shares its host time), timed
+    around the call as the reference's case times it."""
+    import json
+    import subprocess
+    import sys
+
+    out = tmp_path / "SLO_smoke.json"
+    argv = ["--smoke", "--device", device, "--out", str(out),
+            "--trace-out", str(tmp_path / "TRACE_ATTRIB_smoke.json")]
+    code = (
+        "import json, sys, time\n"
+        "from seaweedfs_tpu_torch.scripts import weedload\n"
+        "t0 = time.monotonic()\n"
+        f"rc = weedload.main({argv!r})\n"
+        "print(json.dumps({'rc': rc, 'took': time.monotonic() - t0}))\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["rc"] == 0, "weedload smoke lost bytes or crashed"
+    return json.loads(out.read_text()), result["took"]
+
+
+def test_card_weedload_smoke_holds_the_reference_smoke(card, tmp_path):
+    """The harness's smoke with its three in-process volume servers on the
+    factory's card encoder: the reference smoke's assertions, its 30 s
+    budget and its tracing-overhead gate included; the servers' /metrics
+    select the cuda backend."""
+    report, took = run_smoke(tmp_path, "cuda")
+    hold_smoke_report(report, took, timed=True)
+    assert report["server_backends"]["n0"] == [["cuda"]]
+
+
+def _contexts() -> int:
+    """How many processes hold a CUDA context, as `nvidia-smi` lists them
+    (in a container their pids may all read as one of another namespace)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return len(out.stdout.split())
+
+
+def test_card_node_reports_the_card_backend_and_leaves_no_context(card, tmp_path):
+    """One `chaos_soak.Node` on the card: a `python -m seaweedfs_tpu_torch
+    volume --device cuda` process whose /metrics selects the cuda backend
+    and whose CUDA context `nvidia-smi` lists; SIGKILLed, it leaves no
+    compute process behind."""
+    import time
+    import urllib.request
+
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.scripts.chaos_soak import Node, prepare_device
+
+    prepare_device("cuda")
+    base = str(tmp_path / "9")  # an EC volume to mount: its warm-ups launch on the card
+    with open(base + ".dat", "wb") as f:
+        f.write(np.random.default_rng(3).integers(0, 256, 400_000, np.uint8).tobytes())
+    open(base + ".idx", "wb").close()
+    stripe.write_ec_files(base, large_block_size=16384, small_block_size=4096,
+                          encoder=rs_codec.Encoder(10, 4, device="cpu"))
+    stripe.write_sorted_file_from_idx(base)
+    os.unlink(base + ".dat")
+    os.unlink(base + ".idx")
+    torch.zeros(1, device=card)  # this process's own context, listed before
+    before = _contexts()
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    node = Node(0, str(tmp_path), master.address, device="cuda")
+    try:
+        node.start()
+        metrics, deadline = "", time.monotonic() + 120
+        while 'weedtpu_ec_backend_selected{backend="cuda"' not in metrics:
+            assert node.alive and time.monotonic() < deadline, open(tmp_path / "server.log").read()
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{node.http}/metrics",
+                                            timeout=5) as r:
+                    metrics = r.read().decode()
+            except OSError:
+                time.sleep(0.5)
+        line = next(ln for ln in metrics.splitlines()
+                    if ln.startswith('weedtpu_ec_backend_selected{backend="cuda"'))
+        assert line.endswith(" 1.0")
+        while _contexts() < before + 1 and time.monotonic() < deadline:
+            time.sleep(0.5)
+        assert _contexts() == before + 1
+    finally:
+        node.kill(hard=True)
+        master.stop()
+    deadline = time.monotonic() + 30
+    while _contexts() > before and time.monotonic() < deadline:
+        time.sleep(0.5)
+    assert _contexts() == before

@@ -8,6 +8,7 @@ repair scheduler and the `server` and `shell` commands) import them, and
 `chip_smoke.py` imports none of those at module level."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -59,7 +60,8 @@ def test_port_has_modules_for_every_layer():
                  "cluster/client.py", "cluster/master.py", "cluster/volume_server.py",
                  "ec/placement.py", "ec/spread.py", "command/servers.py",
                  "shell/__init__.py", "shell/command_cluster.py", "shell/command_ec.py",
-                 "shell/command_volume.py", "ec/fleet.py", "ec/slo.py"):
+                 "shell/command_volume.py", "ec/fleet.py", "ec/slo.py",
+                 "command/bench_tools.py", "scripts/weedload.py", "scripts/chaos_soak.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
@@ -108,9 +110,11 @@ SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.clu
 #: the server commands: they share the CLI registry with the local
 #: commands, so they reach the transport only when one of them runs
 SERVER_COMMANDS = "seaweedfs_tpu_torch.command.servers"
-#: chip_smoke.py's cluster, shell and fleet phases: the only functions
-#: there that reach them
-CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm")
+#: chip_smoke.py's cluster, shell, fleet, load and rack phases: the only
+#: functions there that reach them
+CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm", "run_load", "run_rack")
+#: the load harnesses: they reach the transport only inside their functions
+HARNESSES = ("seaweedfs_tpu_torch.scripts.weedload", "seaweedfs_tpu_torch.scripts.chaos_soak")
 #: the servers' pure planners and data structures: they import without it
 PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec.placement",
                         "seaweedfs_tpu_torch.cluster.sequence",
@@ -171,7 +175,7 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "seaweedfs_tpu_torch.security.jwt", "seaweedfs_tpu_torch.security.guard",
         "seaweedfs_tpu_torch.pb", "seaweedfs_tpu_torch.command",
         "seaweedfs_tpu_torch.command.local", "seaweedfs_tpu_torch.__main__",
-        SERVER_COMMANDS, *PLAIN_SERVER_MODULES})
+        SERVER_COMMANDS, *PLAIN_SERVER_MODULES, *HARNESSES})
     failing = [WIRE_MODULES[0], WIRE_MODULES[2], *SERVER_MODULES]
     code = (
         "import importlib, sys\n"
@@ -194,14 +198,17 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "        pass\n"
         "from seaweedfs_tpu_torch.__main__ import main\n"
         "from seaweedfs_tpu_torch.command import commands\n"
-        "assert {'export', 'encode', 'rebuild', 'master', 'server', 'shell'} <= set(commands())\n"
+        "assert {'export', 'encode', 'rebuild', 'master', 'server', 'shell', 'benchmark',\n"
+        "        'upload', 'download'} <= set(commands())\n"
         "try:\n"
         "    main(['export', '--help'])\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
         "for argv in (['master', '-port', '0'], ['volume', '-dir', '.'],\n"
         "             ['server', '--device', 'cpu', '-dir', '.'],\n"
-        "             ['shell', '-master', '127.0.0.1:1', '--device', 'cpu', '-c', 'lock']):\n"
+        "             ['shell', '-master', '127.0.0.1:1', '--device', 'cpu', '-c', 'lock'],\n"
+        "             ['benchmark', '-master', '127.0.0.1:1', '-n', '1'],\n"
+        "             ['download', '-master', '127.0.0.1:1', '1,1']):\n"
         "    try:\n"
         "        main(argv)\n"
         "        sys.exit(argv[0] + ' ran without grpc')\n"
@@ -241,3 +248,29 @@ def test_the_servers_import_grpc_and_the_planners_do_not():
     for mod in PLAIN_SERVER_MODULES:
         assert not _imported_roots(path(mod)) & {"grpc", "google"}, mod
         assert not _port_imports(path(mod)) & set(WIRE_MODULES + SERVER_MODULES), mod
+
+
+def test_a_generator_worker_opens_no_cuda_context(tmp_path):
+    """A generator worker is a client: importing the harness and running
+    `run_worker` to its end (an empty spec) leaves torch unimported, or at
+    least CUDA uninitialised, so `--procs N` opens no context of its own."""
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({
+        "master": "127.0.0.1:1", "client_timeout": 1.0, "rps": 1.0, "zipf": 1.1,
+        "concurrency": 1, "seed": 1, "phases": [], "start_at": 0.0, "fids": {}}))
+    code = (
+        "import sys\n"
+        "from seaweedfs_tpu_torch.scripts import weedload\n"
+        f"rc = weedload.main(['--gen-worker', {str(spec)!r}, '--worker-out', "
+        f"{str(tmp_path / 'out.json')!r}])\n"
+        "torch = sys.modules.get('torch')\n"
+        "print(rc, torch is not None)\n"
+        "sys.exit(rc or (torch is not None and torch.cuda.is_initialized()))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["0", "False"]
+    assert json.loads((tmp_path / "out.json").read_text())["issued"] == 0
