@@ -69,6 +69,21 @@ Phases, one JSON line each:
            `read_intervals`, whose two intervals per lost shard decode in one
            bucketed `reconstruct_batch`. Every blob must equal the .dat bytes,
            zero-padded past its end; a deleted needle raises NeedleDeleted
+  mesh     right after e2e, with the launch counts reset: volume 2 (the
+           1 GiB factory volume, 64 MiB large blocks) through
+           `command.local.encode` with a mesh encoder (`Encoder(backend=
+           "mesh")`, 2x2 over this card named 4 times): all 14 shard files
+           must equal the single-card ones; shards 0/5/11/13 deleted and
+           rebuilt by `command.local.rebuild` with the ring, then the
+           all_to_all formulation, each byte-equal; then the dry run
+           (`parallel/dryrun.py`: the EC cycle's zero mismatches, parity
+           equal to the host's, ring equal to all_to_all) over the card
+           named 4 times at its small scale and 64 MiB, and 8 times for the
+           dcn pass. Launches by (R, C) must be the mesh's positions times
+           the single-card encode's (4, 10) launches, the same for the
+           all_to_all rebuild, and positions x sp (4, 5) launches for the
+           ring. On a host with more cards the same runs again over all of
+           them. Walls and launches by device
   repair   after the two factory volumes' local rebuilds, with the launch
            counts reset: (a) remote: volume 1 loses 0/5/10/13 again and is
            rebuilt through `RemoteSlabSource`s (two holders per survivor,
@@ -856,6 +871,99 @@ def run_volume(base: str, gib: float, large_block: int, seed: int, card: str,
         "verified": True, "crc_match": True, "decoded_sha256_match": True,
         "card": card, "degraded_read": degraded,
     }
+
+
+MESH_LOST = (0, 5, 11, 13)
+
+
+def _mesh_group(src: str, work: str, devices: list, single: dict, device: str) -> dict:
+    """One mesh over `devices`: volume `src` encoded, then MESH_LOST rebuilt
+    with each formulation, every shard file held to `src`'s single-card
+    ones; the launches by (R, C) held to `single` (the e2e line of `src`)
+    times the mesh's positions (x sp for the ring); then the dry run."""
+    from seaweedfs_tpu_torch.command import local
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.parallel import backend as mesh_backend
+    from seaweedfs_tpu_torch.parallel import dryrun
+    from seaweedfs_tpu_torch.scripts.mesh_bench import same_file
+
+    dp, sp = mesh_backend.default_mesh_shape(len(devices))
+    base = os.path.join(work, "2")
+    os.makedirs(work)
+    for ext in (".dat", ".idx"):
+        os.link(src + ext, base + ext)
+    out: dict = {"devices": [str(d) for d in devices], "mesh": f"{dp}x{sp}"}
+
+    def mesh_encoder(rebuild=None):
+        return rs_codec.Encoder(10, 4, backend="mesh", device=device, mesh_shape=(dp, sp),
+                                mesh_rebuild=rebuild, mesh_devices=devices)
+
+    shapes0 = dict(rs_cuda.launches_by_shape)
+    t0 = time.perf_counter()
+    local.encode(base, device, large_block=64 << 20, encoder=mesh_encoder())
+    out["encode_s"] = time.perf_counter() - t0
+    out["encode_launches"] = _shape_keys(_shape_launches(shapes0))
+    t0 = time.perf_counter()
+    for s in range(14):
+        check(same_file(stripe.shard_file_name(base, s), stripe.shard_file_name(src, s)),
+              f"mesh {dp}x{sp}: shard {s} differs from the single-card encode")
+    out["compare_s"] = time.perf_counter() - t0
+    positions = dp * sp
+    if device == "cuda":
+        check(_shape_launches(shapes0) == {(4, 10): positions * single["encode_launches"]},
+              f"mesh encode launched {out['encode_launches']}, want {positions} x "
+              f"{single['encode_launches']} (4, 10)")
+    for rebuild in ("ring", "alltoall"):
+        for s in MESH_LOST:
+            os.remove(stripe.shard_file_name(base, s))
+        shapes0 = dict(rs_cuda.launches_by_shape)
+        t0 = time.perf_counter()
+        reb = local.rebuild(base, device, encoder=mesh_encoder(rebuild))
+        out[f"rebuild_{rebuild}_s"] = time.perf_counter() - t0
+        got = _shape_launches(shapes0)
+        out[f"rebuild_{rebuild}_launches"] = _shape_keys(got)
+        check(reb["rebuilt_shards"] == list(MESH_LOST), reb)
+        for s in MESH_LOST:
+            check(same_file(stripe.shard_file_name(base, s), stripe.shard_file_name(src, s)),
+                  f"mesh {dp}x{sp} {rebuild}: rebuilt shard {s} differs")
+        if device == "cuda":
+            want = ({(4, -(-10 // sp)): positions * sp * single["rebuild_launches"]}
+                    if rebuild == "ring" else
+                    {(4, -(-10 // sp) * sp): positions * single["rebuild_launches"]})
+            check(got == want, f"mesh {rebuild} rebuild launched {got}, want {want}")
+    shutil.rmtree(work)
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.dryrun(devices, large_mib=64)
+    if len(devices) < 8:
+        out["dryrun_dcn"] = dryrun.dryrun(devices * -(-8 // len(devices)), large_mib=64)
+    out["dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_mesh(scratch: str, single: dict, card: str, device: str = "cuda") -> dict:
+    """The mesh phase (see the module doc) over volume 2 as e2e left it;
+    `single` is that volume's e2e line. Returns the phase's line, with the
+    launches of its run by variant and by device."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    t_phase = time.perf_counter()
+    one = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    groups = [[one] * 4]
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        groups.append([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    rs_cuda.reset_launches()  # the mesh path's run starts here
+    out = {"card": card, "groups": [
+        _mesh_group(os.path.join(scratch, "2"), os.path.join(scratch, f"mesh{k}"), devs,
+                    single, device)
+        for k, devs in enumerate(groups)]}
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    out["launches_by_device"] = dict(rs_cuda.launches_by_device)
+    out["seconds"] = time.perf_counter() - t_phase
+    if device == "cuda":
+        check(set(out["launches_by_device"]) == {str(d) for g in groups for d in g},
+              f"mesh launches by device {out['launches_by_device']}")
+    return out
 
 
 def _crc_file(path: str) -> int:
@@ -2930,6 +3038,9 @@ def main(argv=None) -> int:
         reads = [v.pop("degraded_read") for v in vols]
         emit({"phase": "e2e", "card": card, "volumes": vols, "launches": main_launches})
         emit({"phase": "degraded_read", "card": card, "volumes": [r for r in reads if r]})
+        # the mesh path counts its own launches (reset inside, read after)
+        slice_lines = {"mesh": run_mesh(SCRATCH, vols[1], card)}
+        emit({"phase": "mesh", **slice_lines["mesh"]})
         # the repair path counts its own launches (reset inside, read after)
         repair = run_repair(SCRATCH, args.seed, card)
         emit({"phase": "repair", **repair})
@@ -2937,7 +3048,7 @@ def main(argv=None) -> int:
             if os.path.isfile(os.path.join(SCRATCH, name)):
                 os.remove(os.path.join(SCRATCH, name))
         # the ingest, convert and scrub paths each count their own launches
-        slice_lines = {"ingest": run_ingest(SCRATCH, args.seed, card)}
+        slice_lines["ingest"] = run_ingest(SCRATCH, args.seed, card)
         vol = slice_lines["ingest"].pop("_volume")
         emit({"phase": "ingest", **slice_lines["ingest"]})
         slice_lines["convert"] = run_convert(vol, args.seed, card)

@@ -357,9 +357,9 @@ def geometry_from_info(info: Optional[dict]) -> CodeGeometry:
 
 def encoder_for_info(info: Optional[dict], default: Optional[Encoder] = None) -> Encoder:
     """An encoder for the .eci-recorded geometry: `default` when it matches,
-    else a sibling on the same device (hence the same backend) running the
-    same kernel variant and tile, so every geometry rides the kernel the
-    factory chose."""
+    else a sibling on the same device and backend running the same kernel
+    variant and tile (and, on the mesh backend, the same mesh shape and
+    rebuild formulation), so every geometry rides what the factory chose."""
     geom = geometry_from_info(info)
     if default is None:
         return new_encoder(geom.data_shards, geom.parity_shards, geom.matrix_kind)
@@ -369,7 +369,9 @@ def encoder_for_info(info: Optional[dict], default: Optional[Encoder] = None) ->
         return default
     enc = Encoder(
         geom.data_shards, geom.parity_shards, matrix_kind=geom.matrix_kind,
-        device=default.device, variant=default.variant, tile=default.tile,
+        backend=default.backend, device=default.device, variant=default.variant,
+        tile=default.tile, mesh_shape=default.mesh_shape, mesh_rebuild=default.mesh_rebuild,
+        mesh_devices=default.mesh_devices,
     )
     enc.selection = dict(default.selection, geometry=geom.family, source="geometry-sibling")
     return enc

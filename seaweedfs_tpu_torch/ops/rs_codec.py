@@ -1,11 +1,17 @@
 """Reed-Solomon codec facade: the `reedsolomon.Encoder`-shaped seam.
 
-Two backends, fixed by the device the encoder lives on:
+Three backends:
 
-  * "cuda":  the hand-written kernels (`rs_cuda`); the only backend of an
+  * "cuda":  the hand-written kernels (`rs_cuda`); the backend of an
     encoder on a CUDA device, and the default (`new_encoder()` runs on the
     card and raises when there is none).
   * "torch": the plain PyTorch versions (`rs_torch`), only with device="cpu".
+  * "mesh":  every card of the host driven from this process
+    (`parallel.backend.MeshDispatch`: dp x sp sharded applies, the ring or
+    all_to_all rebuild), each card's step the "cuda" backend's kernel; with
+    device="cpu" the CPU named dp x sp times runs the plain version.
+    `new_encoder()` promotes a multi-card host to it only on committed
+    on-chip mesh evidence (`pick_mesh_backend`).
 
 Either way an encoder carries a kernel variant (`FUSED_VARIANTS`) and a
 tile, the counterparts of the reference's `pallas_mxu`/`pallas_tile`;
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.ops import gf8, rs_cuda
+from seaweedfs_tpu_torch.parallel import sharded
 from seaweedfs_tpu_torch.utils import config
 
 #: committed on-chip measurement evidence older than this many days no
@@ -147,6 +154,26 @@ class LazyResult:
         return arr
 
 
+class _HostBlocks:
+    """The lazy (max_m, W) result of a mesh encoder's `reconstruct_block`:
+    one mesh dispatch per block, each block's rows gathered into its
+    columns at `np.asarray`. `parts` lists each block's (rows, col_start,
+    width), as `_FusedBlocks` does."""
+
+    def __init__(self, shape: tuple, handles: list):
+        self.shape = tuple(shape)
+        self._handles = handles
+        self.parts = [(rows, c0, w) for rows, c0, w, _ in handles]
+
+    def __array__(self, dtype=None, copy=None):  # noqa: ARG002 — numpy 2.x kw
+        out = np.zeros(self.shape, dtype=np.uint8)
+        for rows, c0, w, h in self._handles:
+            out[:rows, c0 : c0 + w] = np.asarray(h)
+        if dtype is not None and np.dtype(dtype) != out.dtype:
+            return out.astype(dtype)
+        return out
+
+
 class _FusedBlocks(LazyResult):
     """The lazy (max_m, W) result of `Encoder.reconstruct_block`: one launch
     per block has written its decoded rows into one device buffer, read
@@ -174,11 +201,13 @@ class Encoder:
     `variant` and `tile` choose the kernel every dispatch runs
     (`rs_cuda.apply_matrix`): the reference's `pallas_mxu` and
     `pallas_tile`. On the CPU they choose the variant's plain version.
+    backend="mesh" spreads every dispatch over a dp x sp mesh
+    (`mesh_shape`, default `WEEDTPU_MESH_SHAPE`, committed evidence or
+    the all-cards rule) over `mesh_devices` (default: every card, or the
+    CPU), with the `mesh_rebuild` formulation ("ring" or "alltoall",
+    default `WEEDTPU_MESH_REBUILD`) for `reconstruct_lazy`.
     All shards in one call share a length; striping and padding live a
     layer up in `ec.stripe`."""
-
-    #: staging-width multiple the streaming pipelines round spans to
-    width_align = 1
 
     #: shard-length buckets of the serving path's reconstructs (needle
     #: intervals: KiBs up to one 1 MiB small block). On the card a
@@ -195,6 +224,9 @@ class Encoder:
         device="cuda",
         variant: str = "int8",
         tile: Optional[int] = None,
+        mesh_shape: Optional[Sequence[int]] = None,
+        mesh_rebuild: Optional[str] = None,
+        mesh_devices: Optional[Sequence] = None,
     ):
         if data_shards <= 0 or parity_shards <= 0:
             raise ValueError("shard counts must be positive")
@@ -204,13 +236,15 @@ class Encoder:
         want = "cuda" if self.device.type == "cuda" else "torch"
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        if backend is not None and backend != want:
+        if backend == "mesh":
+            want = "mesh"
+        elif backend is not None and backend != want:
             raise ValueError(
-                f"backend {backend!r} does not run on {self.device} (want {want!r})"
+                f"backend {backend!r} does not run on {self.device} (want {want!r} or 'mesh')"
             )
         if variant not in FUSED_VARIANTS:
             raise ValueError(f"unknown variant {variant!r} (want one of {FUSED_VARIANTS})")
-        if want == "cuda":  # every matrix dispatched has C = data_shards
+        if self.device.type == "cuda":  # every matrix dispatched has C = data_shards
             rs_cuda.check_shape(parity_shards, data_shards)
         rs_cuda.resolve_tile(variant, tile, data_shards, parity_shards)  # raises on a bad tile
         self.backend = want
@@ -227,8 +261,48 @@ class Encoder:
         }
         self.gen_matrix = gf8.generator_matrix(matrix_kind, data_shards, self.total_shards)
         self.parity_matrix = np.ascontiguousarray(self.gen_matrix[data_shards:])
+        # mesh backend config: dp x sp shape and rebuild formulation (None =
+        # resolve from the knobs, evidence or the default at first dispatch)
+        self.mesh_shape = tuple(int(v) for v in mesh_shape) if mesh_shape else None
+        self.mesh_rebuild = mesh_rebuild
+        self.mesh_devices = list(mesh_devices) if mesh_devices is not None else None
+        self._mesh_obj = None
 
     # -- kernel dispatch ----------------------------------------------------
+
+    def _mesh_dispatch(self):
+        """The lazily built mesh state (builds the mesh and sets the
+        weedtpu_ec_mesh_devices gauge on first use). Its devices are
+        `mesh_devices` when given (a list may name one device several
+        times), else every card of the host on a card, and on the CPU the
+        CPU once per position, dp x sp resolved over as many positions as
+        cores."""
+        if self._mesh_obj is None:
+            from seaweedfs_tpu_torch.parallel import backend as mesh_backend
+
+            shape, devices = self.mesh_shape, self.mesh_devices
+            if devices is None and self.device.type == "cpu":
+                shape = mesh_backend.resolve_shape(os.cpu_count() or 1, shape)
+                devices = [self.device] * (shape[0] * shape[1])
+            self._mesh_obj = mesh_backend.MeshDispatch(
+                shape=shape, rebuild=self.mesh_rebuild, devices=devices,
+                variant=self.variant, tile=self.tile,
+            )
+        return self._mesh_obj
+
+    @property
+    def width_align(self) -> int:
+        """Staging-width multiple the streaming pipelines round their spans
+        to, so every steady-state batch dispatches with no pad (1 on one
+        device; dp*sp on the mesh backend)."""
+        if self.backend != "mesh":
+            return 1
+        return self._mesh_dispatch().width_align
+
+    def _count_dispatch(self) -> None:
+        from seaweedfs_tpu_torch import stats
+
+        stats.EcDispatchTotal.labels(self.backend).inc()
 
     def _apply_lazy(self, m: np.ndarray, shards, donate: bool = False,
                     width: Optional[int] = None) -> LazyResult:
@@ -239,7 +313,16 @@ class Encoder:
         stream. `width` > N launches at that width over zero columns past
         N (a bucketed reconstruct). `donate` is accepted for the
         reference's signature and has no effect: the device copy is freed
-        with the result."""
+        with the result. The mesh backend spreads the columns over its
+        devices (`MeshDispatch.apply`)."""
+        self._count_dispatch()
+        if self.backend == "mesh":
+            host = np.asarray(shards, dtype=np.uint8)
+            if width is not None and width != host.shape[-1]:
+                wide = np.zeros(host.shape[:-1] + (width,), dtype=np.uint8)
+                wide[..., : host.shape[-1]] = host
+                host = wide
+            return self._mesh_dispatch().apply(m, host)
         dev, src = self._to_device(shards, width)
         return LazyResult(rs_cuda.apply_matrix(m, dev, self.tile, self.variant), source=src)
 
@@ -264,15 +347,7 @@ class Encoder:
             dev = full[..., :n]
         else:
             full = dev = torch.empty(src.shape, dtype=torch.uint8, device=self.device)
-        if src.ndim == 2 and not src.is_contiguous() and src.stride(1) == 1:
-            # a column slice of a staging slot: row by row, each row a
-            # contiguous run of the (pinned) slot, so every copy stays
-            # asynchronous; as one copy it would go through a pageable
-            # temporary, which waits for the stream
-            for i in range(src.shape[0]):
-                dev[i].copy_(src[i], non_blocking=True)
-        else:
-            dev.copy_(src, non_blocking=True)
+        sharded.copy_host(dev, src)  # a pinned slot's column slice row by row
         return full, src
 
     def _apply(self, m: np.ndarray, shards) -> np.ndarray:
@@ -414,6 +489,13 @@ class Encoder:
                 raise ValueError(f"want ({self.data_shards}, N), got {shape}")
         elif len(shape) != 3 or shape[1] != self.data_shards:
             raise ValueError(f"want (B, {self.data_shards}, N), got {shape}")
+        if self.backend == "mesh":
+            # the bulk-repair path rides the distributed formulations (ring
+            # or all_to_all over the mesh), not the column-split apply
+            self._count_dispatch()
+            return self._mesh_dispatch().reconstruct(
+                self.reconstruction_matrix(survivors, wanted), stack, donate=donate
+            )
         return self._apply_lazy(
             self.reconstruction_matrix(survivors, wanted), stack, donate=donate
         )
@@ -449,7 +531,7 @@ class Encoder:
             raise ValueError(f"coeff cols {coeffs.shape[1]} != stack rows {stack.shape[0]}")
         return self._apply_lazy(coeffs, stack, donate=donate)
 
-    def reconstruct_block(self, staging, blocks: Sequence[dict]) -> _FusedBlocks:
+    def reconstruct_block(self, staging, blocks: Sequence[dict]):
         """Block-diagonal decode of one (max_k, W) staging batch that packs
         several signature groups' survivor columns side by side.
 
@@ -461,7 +543,9 @@ class Encoder:
         result, rows [0, len(wanted_g)); the rest is unspecified. The batch
         goes to the device in one copy; each block is one launch of this
         encoder's kernel on a column view of it (so at any byte offset),
-        and the result comes back in one copy when it is read."""
+        and the result comes back in one copy when it is read. On the mesh
+        backend each block is one mesh dispatch of its host columns, and
+        the blocks are gathered when the result is read."""
         if len(staging.shape) != 2:
             raise ValueError(f"want a 2-D (max_k, W) staging batch, got {tuple(staging.shape)}")
         if not blocks:
@@ -486,10 +570,17 @@ class Encoder:
             if a0 + aw > b0:
                 raise ValueError("block column ranges overlap")
         max_m = max(m.shape[0] for _, m, _, _ in spans)
+        if self.backend == "mesh":
+            host, md, handles = np.asarray(staging, dtype=np.uint8), self._mesh_dispatch(), []
+            for k, m, c0, w in spans:
+                self._count_dispatch()
+                handles.append((m.shape[0], c0, w, md.apply(m, host[:k, c0 : c0 + w])))
+            return _HostBlocks((max_m, width_total), handles)
         end = max(c0 + w for _, _, c0, w in spans)
         dev, src = self._to_device(staging[:, :end])
         out = torch.empty((max_m, width_total), dtype=torch.uint8, device=self.device)
         for k, m, c0, w in spans:
+            self._count_dispatch()
             out[: m.shape[0], c0 : c0 + w] = rs_cuda.apply_matrix(
                 m, dev[:k, c0 : c0 + w], self.tile, self.variant
             )
@@ -755,19 +846,138 @@ def pick_device_backend(
     return "int8", decision
 
 
+# -- committed mesh evidence (the multi-card promotion input) ------------------
+
+
+def _multichip_dir() -> str:
+    """`GPU_MULTICHIP_r*.json` lives beside `GPU_MEASUREMENT_r*.json`."""
+    return _artifacts_dir()
+
+
+def load_mesh_evidence(art_dir: Optional[str] = None) -> Optional[dict]:
+    """Newest `GPU_MULTICHIP_r*.json` (lexically latest round), with `_file`
+    recording its provenance. None when no readable file exists; an
+    unreadable newest file does not hide older ones."""
+    art_dir = art_dir or _multichip_dir()
+    try:
+        names = sorted(
+            f for f in os.listdir(art_dir)
+            if f.startswith("GPU_MULTICHIP_r") and f.endswith(".json")
+        )
+    except OSError:
+        return None
+    for name in reversed(names):
+        try:
+            with open(os.path.join(art_dir, name), encoding="utf-8") as f:
+                ev = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if isinstance(ev, dict):
+            ev["_file"] = name
+            return ev
+    return None
+
+
+def _evidence_round(ev: dict) -> Optional[int]:
+    r = ev.get("round")
+    if isinstance(r, int):
+        return r
+    digits = "".join(c for c in str(ev.get("_file", "")) if c.isdigit())
+    return int(digits) if digits else None
+
+
+def pick_mesh_backend(n_devices: int, art_dir: Optional[str] = None) -> tuple[bool, dict]:
+    """The multi-card promotion decision: a host with more than one card
+    moves to the mesh backend ONLY when the newest committed
+    `GPU_MULTICHIP_r*.json` is a fresh GPU measurement naming its card
+    (`platform` "gpu", `card` the nvidia-smi name and power limit) in which
+    an achievable dp x sp shape, byte-verified (`match` true), encodes
+    faster than the single-card number beside it. Absent, stale, off-card or
+    losing evidence keeps the single-card encoder. The decision names the
+    file, its round, the winning shape, its rebuild formulation (ring unless
+    all_to_all measured faster) and both numbers."""
+    ev = load_mesh_evidence(art_dir)
+    if ev is None:
+        return False, {"reason": "no committed mesh evidence (GPU_MULTICHIP_r*.json)"}
+    decision: dict = {"evidence_file": ev.get("_file"), "evidence_round": _evidence_round(ev)}
+    shapes = ev.get("shapes")
+    if not isinstance(shapes, dict) or not shapes:
+        decision["reason"] = "evidence has no per-mesh-shape measurements"
+        return False, decision
+    if str(ev.get("platform", "")).lower() != "gpu" or not ev.get("card"):
+        decision["reason"] = "mesh evidence is not an on-chip measurement naming its card"
+        return False, decision
+    age = _evidence_age_days(ev)
+    if age is None:
+        decision["reason"] = f"mesh evidence age unparseable (when={ev.get('when')!r}): treated as stale"
+        return False, decision
+    if age > EVIDENCE_MAX_AGE_DAYS:
+        decision["reason"] = f"mesh evidence stale ({age:.0f}d > {EVIDENCE_MAX_AGE_DAYS:.0f}d)"
+        return False, decision
+    single = (ev.get("single_device") or {}).get("encode_gbps")
+    single = float(single) if isinstance(single, (int, float)) else 0.0
+    best_label, best = None, 0.0
+    for label, rec in shapes.items():
+        if not isinstance(rec, dict):
+            continue
+        parts = str(label).lower().split("x")
+        if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+            continue
+        if int(parts[0]) * int(parts[1]) > int(n_devices):
+            continue  # not achievable on this host
+        if rec.get("match") is not True or rec.get("error"):
+            continue  # only a shape that completed byte verification counts
+        gbps = rec.get("encode_gbps")
+        if not isinstance(gbps, (int, float)) or gbps <= 0:
+            continue
+        if single and gbps <= single:
+            continue  # the mesh number must beat the single-card one
+        if gbps > best:
+            best_label, best = str(label), float(gbps)
+    if best_label is None:
+        decision["reason"] = (
+            "no achievable mesh shape beats the single-device number" if single
+            else "no achievable mesh shape with a usable encode measurement"
+        )
+        return False, decision
+    rec = shapes[best_label]
+    ring, a2a = rec.get("rebuild_ring_gbps"), rec.get("rebuild_alltoall_gbps")
+    variant = "ring"
+    if isinstance(a2a, (int, float)) and (not isinstance(ring, (int, float)) or a2a > ring):
+        variant = "alltoall"
+    decision.update(
+        mesh_shape=best_label, mesh_rebuild=variant, encode_gbps=best,
+        single_device_gbps=single or None,
+        reason=f"committed on-chip mesh evidence: {best_label} encode={best} beats "
+               f"single-device {single}",
+    )
+    return True, decision
+
+
+def _card_count() -> int:
+    return torch.cuda.device_count()
+
+
 def new_encoder(
     data_shards: int = 10,
     parity_shards: int = 4,
     matrix_kind: str = "vandermonde",
     family: Optional[str] = None,
     device=None,
+    backend: Optional[str] = None,
 ) -> Encoder:
     """Encoder factory. `family` names a registered geometry and overrides
     the shard counts and matrix kind. `device` defaults to the card: with no
     CUDA device and no explicit device="cpu" this raises rather than carry
     on on the CPU. On a card the kernel variant and tile come from
     `pick_device_backend`; with no evidence they stay int8 with its own
-    tile. The decision lands on `enc.selection`."""
+    tile. On a host with more than one card, `pick_mesh_backend` moves the
+    encoder to the mesh backend (its shape and rebuild formulation from the
+    evidence) when committed GPU_MULTICHIP evidence qualifies; its decision
+    is recorded either way. backend="mesh" forces the mesh backend
+    (`WEEDTPU_MESH_SHAPE`/`WEEDTPU_MESH_REBUILD`, evidence or the default
+    rule); a mesh encoder's mesh is built here, so one that cannot be built
+    raises now. The decision and an audit line land on `enc.selection`."""
     if family is not None:
         geom = geometry_for(family)
         data_shards, parity_shards = geom.data_shards, geom.parity_shards
@@ -780,16 +990,41 @@ def new_encoder(
         )
     decision: dict = {}
     variant, tile = "int8", None
+    mesh_dec: Optional[dict] = None
+    mesh_kwargs: dict = {}
     if dev.type == "cuda":
         variant, decision = pick_device_backend(data_shards=data_shards, parity_shards=parity_shards)
         tile = decision.get("tile")
-    enc = Encoder(data_shards, parity_shards, matrix_kind=matrix_kind, device=dev,
-                  variant=variant, tile=tile)
-    source = "default" if device is None else "explicit"
+        n_dev = _card_count()
+        if n_dev > 1 and backend is None:
+            ok, mesh_dec = pick_mesh_backend(n_dev)
+            if ok:
+                mesh_kwargs = {
+                    "mesh_shape": tuple(int(p) for p in mesh_dec["mesh_shape"].split("x")),
+                    "mesh_rebuild": mesh_dec["mesh_rebuild"],
+                }
+    enc = Encoder(data_shards, parity_shards, matrix_kind=matrix_kind,
+                  backend="mesh" if mesh_kwargs else backend, device=dev,
+                  variant=variant, tile=tile, **mesh_kwargs)
+    source = "default" if device is None and backend is None else "explicit"
     if decision.get("evidence_file"):
         source = "on-chip-evidence"
-    enc.selection = dict(decision, backend=enc.backend, device=str(dev), variant=variant,
-                         tile=tile, source=source)
+    selection = dict(decision, backend=enc.backend, device=str(dev), variant=variant,
+                     tile=tile, source=source)
+    if mesh_dec is not None:
+        selection["mesh"] = mesh_dec
+        if mesh_kwargs:
+            selection.update(source="mesh-evidence", reason=mesh_dec["reason"])
+    if enc.backend == "mesh":
+        md = enc._mesh_dispatch()
+        selection.setdefault("mesh_shape", md.shape_str())
+        selection.setdefault("mesh_rebuild", md.rebuild_variant)
+        selection["mesh_devices"] = md.n_devices
+        selection["audit"] = (
+            f"mesh {md.shape_str()} ({md.n_devices} devices, rebuild={md.rebuild_variant}, "
+            f"evidence=r{(mesh_dec or {}).get('evidence_round', '-')})"
+        )
+    enc.selection = selection
     _export_selection(enc.selection)
     return enc
 

@@ -56,25 +56,29 @@ _TILE_STEPS = (65536, 49152, 32768, 24576, 16384, 8192, 4096, 2048, 1024, 512, 2
 DMA_CHUNK = 2048
 
 #: kernel launches made by `apply_matrix` in this process, in all, by
-#: variant and by the matrix's (R, C); a run sets them to 0
-#: (`reset_launches`) and reads them back to show which path its work went
-#: through. Reader threads launch at once, so they change only under
+#: variant, by the matrix's (R, C) and by device ("cuda:1"); a run sets them
+#: to 0 (`reset_launches`) and reads them back to show which path its work
+#: went through. Reader threads launch at once, so they change only under
 #: `_launch_lock`
 launches = 0
 launches_by_variant: dict[str, int] = {}
 launches_by_shape: dict[tuple[int, int], int] = {}
+launches_by_device: dict[str, int] = {}
 _launch_lock = threading.Lock()
 
 
-def count_launch(variant: str, shape: Optional[tuple[int, int]] = None) -> None:
+def count_launch(variant: str, shape: Optional[tuple[int, int]] = None,
+                 device: Optional[str] = None) -> None:
     """Count one launch of `variant`'s kernel with an (R, C) = `shape`
-    matrix, exactly under threads."""
+    matrix on `device`, exactly under threads."""
     global launches
     with _launch_lock:
         launches += 1
         launches_by_variant[variant] = launches_by_variant.get(variant, 0) + 1
         if shape is not None:
             launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
+        if device is not None:
+            launches_by_device[device] = launches_by_device.get(device, 0) + 1
 
 
 def reset_launches() -> None:
@@ -84,6 +88,7 @@ def reset_launches() -> None:
         launches = 0
         launches_by_variant.clear()
         launches_by_shape.clear()
+        launches_by_device.clear()
 
 
 def _dma_chunk(tile: int) -> int:
@@ -526,5 +531,5 @@ def _launch(m: np.ndarray, shards: torch.Tensor, tile: Optional[int], variant: s
             )
         if err != 0:
             raise RuntimeError(f"{KERNELS[variant][1]} launch failed: cudaError {err}")
-        count_launch(variant, (r_n, c_n))
+        count_launch(variant, (r_n, c_n), str(data.device))
     return out[0] if squeeze else out

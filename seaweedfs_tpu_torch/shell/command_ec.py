@@ -1384,19 +1384,24 @@ register(
 def do_ec_backend(args: list[str], env: CommandEnv, w: TextIO) -> None:
     """Operator view of the encoder factory's selection audit: which kernel
     variant and tile `new_encoder()` picks HERE for the shell's device and
-    why — the evidence file/round behind a promotion, and the reason string
-    when the default holds. On the CPU it names the plain version.
+    why — the evidence file/round behind a promotion, the mesh shape and
+    rebuild formulation when the multi-card path is selected, and the reason
+    string when the default holds. On the CPU it names the plain version.
     Read-only; no cluster lock."""
     parse_flags(args)
     from seaweedfs_tpu_torch.ops.rs_codec import new_encoder
 
     enc = new_encoder(device=env.device)
     sel = dict(enc.selection)
+    sel.pop("mesh", None)  # the nested decision dict is too noisy for a shell line
     w.write(
         "ec.backend: "
         + " ".join(f"{k}={sel[k]}" for k in sorted(sel) if sel[k] is not None)
         + "\n"
     )
+    mesh_dec = enc.selection.get("mesh")
+    if isinstance(mesh_dec, dict) and enc.backend != "mesh":
+        w.write(f"ec.backend: mesh not promoted: {mesh_dec.get('reason', 'n/a')}\n")
     if enc.backend == "torch":
         w.write("ec.backend: cpu: path=rs_torch (the kernels' plain version)\n")
 

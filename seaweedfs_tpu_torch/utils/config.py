@@ -100,6 +100,23 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             float,
         ),
         EnvVar(
+            "WEEDTPU_MESH_SHAPE", "",
+            "dp x sp axis shape of the mesh backend's device mesh, as `DPxSP` "
+            "(e.g. `2x2`). Empty/`auto` resolves from the best achievable shape "
+            "in committed GPU_MULTICHIP_r*.json evidence, falling back to "
+            "(devices/2) x 2 (or devices x 1 below 4 devices).",
+            str,
+        ),
+        EnvVar(
+            "WEEDTPU_MESH_REBUILD", "ring",
+            "Distributed-rebuild formulation of the mesh backend: `ring` hands "
+            "one resident survivor block per card along the ring (peak per-card "
+            "memory = one block), `alltoall` regroups shard-major survivors to "
+            "byte-major with one all_to_all of tile copies. Both are "
+            "byte-identical to the single-device decode.",
+            _enum("ring", "alltoall"),
+        ),
+        EnvVar(
             "WEEDTPU_DECODE_MATRIX_CACHE", 512,
             "LRU cap on cached decode matrices.",
         ),

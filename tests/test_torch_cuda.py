@@ -1381,3 +1381,136 @@ def test_card_node_reports_the_card_backend_and_leaves_no_context(card, tmp_path
     while _contexts() > before and time.monotonic() < deadline:
         time.sleep(0.5)
     assert _contexts() == before
+
+
+# -- the mesh backend: one process driving several devices -------------------------
+
+
+def _mesh_on(devices, shape, variant="int8", rebuild=None):
+    return rs_codec.Encoder(10, 4, backend="mesh", device="cuda", mesh_shape=shape,
+                            mesh_rebuild=rebuild, mesh_devices=devices, variant=variant)
+
+
+def _all_cards():
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: the mesh over every card of the host")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("variant", rs_cuda.KERNELS)
+@pytest.mark.parametrize("rebuild", ["ring", "alltoall"])
+def test_mesh_on_one_card_named_four_times_equals_single_card(card, variant, rebuild):
+    """A 2x2 mesh over cuda:0 named 4 times: encode at an odd width, the
+    flat and batched rebuilds and a block decode equal the single-card
+    encoder's bytes, and each dispatch launches once per position."""
+    devs = [torch.device("cuda", 0)] * 4
+    enc = _mesh_on(devs, (2, 2), variant, rebuild)
+    single = rs_codec.Encoder(10, 4, device="cuda", variant=variant)
+    rng = np.random.default_rng(21)
+    data = rng.integers(0, 256, (10, 100003), np.uint8)
+    rs_cuda.reset_launches()
+    got = np.asarray(enc.encode_parity_lazy(data))
+    assert rs_cuda.launches_by_device == {"cuda:0": 4}
+    assert np.array_equal(got, np.asarray(single.encode_parity_lazy(data)))
+    shards = np.concatenate([data, got])
+    lost = [0, 5, 11, 13]
+    surv = [s for s in range(14) if s not in lost][:10]
+    rs_cuda.reset_launches()
+    rebuilt = np.asarray(enc.reconstruct_lazy(shards[surv], surv, lost))
+    assert rs_cuda.launches == (8 if rebuild == "ring" else 4)
+    assert np.array_equal(rebuilt, shards[lost])
+    batch = rng.integers(0, 256, (3, 10, 4097), np.uint8)
+    assert np.array_equal(enc.encode_batch(batch), single.encode_batch(batch))
+    full = single.encode_batch(batch)
+    assert np.array_equal(enc.reconstruct_batch(full[:, surv], surv, lost), full[:, lost])
+    staging = np.zeros((10, 9000), np.uint8)
+    staging[:, 3:8003] = shards[surv][:, :8000]
+    block = {"survivors": surv, "wanted": lost, "col_start": 3, "width": 8000}
+    assert np.array_equal(np.asarray(enc.reconstruct_block(staging, [block]))[:, 3:8003],
+                          shards[lost][:, :8000])
+
+
+@pytest.mark.parametrize("rebuild", ["ring", "alltoall"])
+def test_mesh_file_pipelines_on_card_equal_single_card(card, tmp_path, rebuild):
+    """write_ec_files and rebuild_ec_files with the 2x2 mesh over cuda:0
+    named 4 times: every shard file equals the single-card encoder's."""
+    rng = np.random.default_rng(22)
+    large, small = 1 << 20, 64 << 10
+    data = rng.integers(0, 256, 3 * large * 10 + 5 * small * 10 + 777, np.uint8).tobytes()
+    bases = {k: str(tmp_path / k / "7") for k in ("single", "mesh")}
+    for b in bases.values():
+        os.makedirs(os.path.dirname(b))
+        with open(b + ".dat", "wb") as f:
+            f.write(data)
+    stripe.write_ec_files(bases["single"], large, small, encoder=rs_codec.Encoder(10, 4))
+    devs = [torch.device("cuda", 0)] * 4
+    stripe.write_ec_files(bases["mesh"], large, small, encoder=_mesh_on(devs, (2, 2)))
+
+    def read(b, s):
+        with open(stripe.shard_file_name(b, s), "rb") as f:
+            return f.read()
+
+    for s in range(14):
+        assert read(bases["mesh"], s) == read(bases["single"], s), s
+    for s in (0, 5, 11, 13):
+        os.unlink(stripe.shard_file_name(bases["mesh"], s))
+    assert stripe.rebuild_ec_files(bases["mesh"], encoder=_mesh_on(devs, (2, 2), rebuild=rebuild),
+                                   buffer_size=256 << 10, max_batch_bytes=8 << 20) == [0, 5, 11, 13]
+    for s in (0, 5, 11, 13):
+        assert read(bases["mesh"], s) == read(bases["single"], s), s
+
+
+def test_mesh_over_every_card_equals_single_card(card):
+    """The mesh over every card of the host (the default device list), each
+    card launching its own tiles; bytes equal the single-card encoder's."""
+    devs = _all_cards()
+    enc = rs_codec.Encoder(10, 4, backend="mesh", device="cuda")
+    md = enc._mesh_dispatch()
+    assert md.n_devices == len(devs) and {str(d) for d in md.mesh.devices.flat} == {
+        str(d) for d in devs}
+    single = rs_codec.Encoder(10, 4, device="cuda")
+    data = np.random.default_rng(23).integers(0, 256, (10, 1 << 20), np.uint8)
+    rs_cuda.reset_launches()
+    got = np.asarray(enc.encode_parity_lazy(data))
+    assert rs_cuda.launches_by_device == {str(d): 1 for d in devs}
+    assert np.array_equal(got, np.asarray(single.encode_parity_lazy(data)))
+    shards = np.concatenate([data, got])
+    lost = [1, 6, 12, 13]
+    surv = [s for s in range(14) if s not in lost][:10]
+    for rebuild in ("ring", "alltoall"):
+        enc_v = rs_codec.Encoder(10, 4, backend="mesh", device="cuda", mesh_rebuild=rebuild)
+        assert np.array_equal(np.asarray(enc_v.reconstruct_lazy(shards[surv], surv, lost)),
+                              shards[lost])
+    with pytest.raises(ValueError, match="needs"):
+        rs_codec.Encoder(10, 4, backend="mesh", device="cuda",
+                         mesh_shape=(len(devs) + 1, 1))._mesh_dispatch()
+
+
+def test_mesh_dryrun_on_card(card):
+    """The dry run's assertions (zero mismatches, parity equal to the host's,
+    ring equal to all_to_all) over cuda:0 named 4 and 8 times, and over
+    every card when the host has more than one."""
+    from seaweedfs_tpu_torch.parallel import dryrun
+
+    one = torch.device("cuda", 0)
+    assert dryrun.dryrun([one] * 4, large_mib=16)["large"]["shard_mib"] >= 15
+    assert dryrun.dryrun([one] * 8, large_mib=16)["dcn"]["mismatches"] == 0
+    fn, (example,) = dryrun.entry()
+    assert torch.equal(fn(example)[:, 10:], rs_cuda.plain_apply(gf8.parity_matrix(10, 4), example))
+    if torch.cuda.device_count() > 1:
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        assert dryrun.dryrun(cards, large_mib=16)["small"]["mismatches"] == 0
+
+
+def test_mesh_decision_recorded_on_the_card_factory(card):
+    """Without committed GPU_MULTICHIP evidence the factory keeps the
+    single-card encoder; on a multi-card host it records why."""
+    enc = rs_codec.new_encoder()
+    assert enc.backend == "cuda"
+    if torch.cuda.device_count() > 1:
+        assert "no committed mesh evidence" in enc.selection["mesh"]["reason"]
+    else:
+        assert "mesh" not in enc.selection
+    forced = rs_codec.new_encoder(backend="mesh")
+    assert forced.backend == "mesh" and forced.selection["mesh_devices"] == torch.cuda.device_count()
