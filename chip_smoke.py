@@ -166,23 +166,49 @@ Phases, one JSON line each:
            process: a port MasterServer and three VolumeServers A, B, C
            (racks rack0/rack1/rack0, heartbeat 0.4 s, each on the factory's
            encoder); A serves the store phase's compacted volume (hard-linked
-           after its compact). Volume 1 marked read-only, then 4096 seeded
+           after its compact). Volume 1 marked read-only, then 1024 seeded
            1 KiB needles assigned and uploaded through `MasterClient` (upstream
            `weed benchmark`'s write path; the master grows new volumes) and
            read back; `VolumeEcShardsGenerate` on A must launch what the store
            phase's encode launched, and its .ecx and the ten shards the store
            phase kept must equal that phase's; B pulls 5-9 and C 10-13
            (`VolumeEcShardsCopy`), A drops them and the volume, all mount; LOST
-           are lost (0 on A, 5 on B, 10 and 13 on C); the store phase's sample
-           through `MasterClient.read` (HTTP GET on A), serially without
-           hedging (the (1, 10) launches the store phase predicted, each at a
-           bucket width; p50/p99 by class: local, remote, degraded), then with
+           are lost (0 on A, 5 on B, 10 and 13 on C); every other needle of
+           the store phase's sample through `MasterClient.read` (HTTP GET on
+           A), serially without hedging (one (1, 10) launch per lost shard a
+           needle's intervals touch, each at a bucket width; p50/p99 by
+           class: local, remote, degraded), then with
            the default hedging; B rebuilds LOST with `remote: true` over the
            slab stream (one (4, 10) launch per batch, the sha256s of
            generate), then loses shard 5 again and rebuilds it from holder
            projections (`trace_mode: on`; the holders project on the card;
            launches by (R, C) as the plan's groups, wire bytes against the
            slab path's); `VolumeEcShardsVerify` all ok on every holder
+  ha       upstream's production layout, in this process: three port
+           MasterServers with `peers` (raft, the default (1.0, 2.0) s
+           election timeout) and a raft directory each, and three
+           VolumeServers on the card (racks rack0-rack2) heartbeating to all
+           three; A serves the store phase's compacted volume (a second hard
+           link). (1) seconds until all three agree on one leader; (2) 1024
+           seeded 1 KiB needles through `MasterClient("m1,m2,m3")` from 8
+           threads, read back; (3) `lock; volume.tier.move -volumeId 1 -dest local:<dir>;
+           unlock` through the port shell connected to a follower (it must
+           follow the leader): the .dat leaves A's disk, the `.tierinfo`
+           names the vendor, key and size; the sample read serially over HTTP
+           through the tiered .dat (p50/p99), then `volume.tier.fetch`
+           through the other follower, the fetched .dat's sha256 the
+           original's; move and fetch seconds and GB/s; (4) `lock; ec.encode
+           -volumeId 1 -force; unlock` through the shell, every lease acked
+           by the quorum, launching the store phase's (4, 10) encode count,
+           the kept shards equal to the store phase's; (5) the leader stops:
+           seconds to a new agreed leader of a greater term and to the
+           client's first assign, 1024 more needles with no fid repeating
+           one from (2), LOST deleted on their holders, a seeded 1024 of the
+           sample read serially through the new leader's lookups (degraded
+           p50/p99, (1, 10) launches); (6) the stopped master restarted on its raft
+           directory resumes a term at least its old one, follows the
+           leader within 10 s, and `cluster.raft.ps` against it names the
+           leader
   shell    (on an emptied scratch directory) the SeaweedFS wiki's EC
            deployment: a port master with WEEDTPU_REPAIR=on and a 256 MiB
            volume size limit, five volume servers in racks r0-r4 (each on
@@ -217,7 +243,7 @@ Phases, one JSON line each:
            launches against the wall time
   load     (on an emptied scratch directory) the reference's open-loop SLO
            harness as the port's `scripts/weedload.main`: --seconds 30 --rps
-           1000 --procs 4 --chaos --rebuild-storm --objects 4000 --device
+           1000 --procs 4 --chaos --rebuild-storm --objects 1000 --device
            cuda. The master runs here with WEEDTPU_REPAIR=on; each of the
            three volume servers is a `python -m seaweedfs_tpu_torch volume
            --device cuda` process with its own CUDA context, each generator
@@ -1744,15 +1770,17 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     out["compact"] = {"seconds": time.perf_counter() - t0, "bytes_before": compacted["bytes_before"],
                       "bytes_after": compacted["bytes_after"]}
     check(compacted["bytes_after"] < compacted["bytes_before"], f"compact {compacted}")
-    # the cluster phase serves this compacted volume from its first server
+    # the cluster and ha phases serve this compacted volume from their first
+    # server (ha tiers it: its .dat leaves that directory for remote storage)
     cluster_srv0 = os.path.join(scratch, "cluster", "srv0")
-    os.makedirs(cluster_srv0)
-    for ext in (".dat", ".idx"):
-        dst = os.path.join(cluster_srv0, os.path.basename(base) + ext)
-        try:
-            os.link(base + ext, dst)
-        except OSError:
-            shutil.copyfile(base + ext, dst)
+    for srv0 in (cluster_srv0, os.path.join(scratch, "ha", "srv0")):
+        os.makedirs(srv0)
+        for ext in (".dat", ".idx"):
+            dst = os.path.join(srv0, os.path.basename(base) + ext)
+            try:
+                os.link(base + ext, dst)
+            except OSError:
+                shutil.copyfile(base + ext, dst)
     check(st.mount_volume(STORE_VID), "remount after compact")
     out["reads_compacted"] = _timed_reads(st, STORE_VID, sample, data, cookies, deleted)
     st.close()
@@ -1846,7 +1874,8 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     out["_obs"] = {"dir": d, "encoder": enc, "sample": sample, "data": data, "cookies": cookies,
                    "deleted": deleted, "lost_on": lost_on, "base": base,
                    "encode_shape": encode_shape,
-                   "cluster_dir": os.path.dirname(cluster_srv0)}
+                   "cluster_dir": os.path.dirname(cluster_srv0),
+                   "ha_dir": os.path.join(scratch, "ha")}
     return out
 
 
@@ -2020,20 +2049,25 @@ def run_obs(state: dict, seed: int, card: str, device: str = "cuda") -> dict:
     }
 
 
-#: the cluster phase: new 1 KiB needles written through the master, the
-#: servers' racks, where the generated volume's shards go (A keeps 0-4, B
-#: pulls 5-9, C pulls 10-13), and which server loses which shards (LOST)
-CLUSTER_WRITES = 4096
+#: the cluster phase: new 1 KiB needles written through the master (cut
+#: from 4096 in PR 17, as its two read passes were cut to every other
+#: needle of the sample, so that the script keeps its time with the ha
+#: phase), the servers' racks, where the generated volume's shards go (A
+#: keeps 0-4, B pulls 5-9, C pulls 10-13), and which server loses which
+#: shards (LOST)
+CLUSTER_WRITES = 1024
 CLUSTER_RACKS = ("rack0", "rack1", "rack0")
 CLUSTER_SPREAD = ((0, 1, 2, 3, 4), (5, 6, 7, 8, 9), (10, 11, 12, 13))
 CLUSTER_LOSS = ((0,), (5,), (10, 13))
 
 
-def _cluster_wait(cond, what: str, timeout: float = 60.0) -> float:
-    """Poll `cond` until it holds (-> seconds waited); fail after `timeout`."""
+def _cluster_wait(cond, what, timeout: float = 60.0) -> float:
+    """Poll `cond` until it holds (-> seconds waited); fail after `timeout`
+    (`what` names the wait, or is a callable that describes it then)."""
     t0 = time.perf_counter()
     while not cond():
-        check(time.perf_counter() - t0 < timeout, f"timed out waiting for {what}")
+        if time.perf_counter() - t0 >= timeout:
+            check(False, f"timed out waiting for {what() if callable(what) else what}")
         time.sleep(0.02)
     return time.perf_counter() - t0
 
@@ -2047,7 +2081,8 @@ def _cluster_join_warm(servers: list) -> None:
             ev.warm_thread.join()
 
 
-def _cluster_reads(client, state: dict, shards_of: dict, local: set, lost: set) -> dict:
+def _cluster_reads(client, state: dict, sample: list, shards_of: dict, local: set,
+                   lost: set) -> dict:
     """The store phase's sample through `MasterClient.read` (the HTTP GET on
     the first holder the master names): live needles equal their data,
     deleted ones are not found; ms by class: local (every interval on the
@@ -2058,7 +2093,7 @@ def _cluster_reads(client, state: dict, shards_of: dict, local: set, lost: set) 
 
     data, cookies, deleted = state["data"], state["cookies"], state["deleted"]
     by_class = {"local": [], "remote": [], "degraded": []}
-    for nid in state["sample"]:
+    for nid in sample:
         fid = str(FileId(STORE_VID, nid, cookies[nid - 1]))
         t = time.perf_counter()
         try:
@@ -2233,7 +2268,8 @@ def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict
         locations = client.lookup(STORE_VID, refresh=True)
         check(locations and locations[0].url == a.url, "the master names A first")
         local = set(CLUSTER_SPREAD[0]) - set(LOST)
-        predicted = sum(lost_on.values())
+        reads_sample = state["sample"][::2]
+        predicted = sum(lost_on.get(nid, 0) for nid in reads_sample)
 
         # 6-7: the sample through the cluster, serially without hedging
         # (launches = the store phase's prediction, each at a bucket), then
@@ -2262,7 +2298,8 @@ def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict
             ring.clear()
             try:
                 t0 = time.perf_counter()
-                by_class = _cluster_reads(client, state, shards_of, local, set(LOST))
+                by_class = _cluster_reads(client, state, reads_sample, shards_of, local,
+                                          set(LOST))
                 seconds = time.perf_counter() - t0
             finally:
                 for e in encoders:
@@ -2366,6 +2403,369 @@ def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict
     out["launches"] = dict(rs_cuda.launches_by_variant)
     check(out["launches"].get(a.store.encoder.variant, 0) > 0 or not on_card,
           "the cluster path never launched the factory's kernel")
+    return out
+
+
+#: the ha phase: upstream's production layout of three masters under raft
+#: (`weed master -peers=...`, default election timeout), three volume
+#: servers on the card heartbeating to all of them (racks), the needles
+#: written before and after the leader stops (from 8 threads, as upstream
+#: `weed benchmark -c` writes), and how many of the store
+#: phase's sample are read after the failover (a seeded quarter: the whole
+#: sample through the EC volume's remote and degraded reads would take the
+#: phase past its minute)
+HA_MASTERS = 3
+HA_RACKS = ("rack0", "rack1", "rack2")
+HA_WRITES = 1024
+HA_WRITERS = 8
+HA_FAILOVER_READS = 1024
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def _agreed_leader(masters: list):
+    """The one master that leads with every other live master naming it."""
+    leaders = [m for m in masters if m.raft.is_leader]
+    if len(leaders) == 1 and all(m.raft.leader == leaders[0].address
+                                 for m in masters if m is not leaders[0]):
+        return leaders[0]
+    return None
+
+
+def _ha_write(client, blobs: bytes, coll: str) -> tuple[list, list]:
+    """HA_WRITES needles through assign + upload from HA_WRITERS threads
+    (upstream `weed benchmark -c`), ms each, then read back."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i: int) -> tuple[str, float]:
+        t = time.perf_counter()
+        fid = client.assign(collection=coll).fid
+        client.upload(fid, blobs[i * STORE_SIZE: (i + 1) * STORE_SIZE])
+        return fid, (time.perf_counter() - t) * 1e3
+
+    def back(i: int, fid: str) -> bool:
+        return client.read(fid) == blobs[i * STORE_SIZE: (i + 1) * STORE_SIZE]
+
+    with ThreadPoolExecutor(HA_WRITERS) as pool:
+        fids, ms = zip(*pool.map(one, range(HA_WRITES)))
+        same = list(pool.map(back, range(HA_WRITES), fids))
+    check(all(same), f"{same.count(False)} written needles differ")
+    return list(fids), list(ms)
+
+
+def _sha_many(paths: list) -> list:
+    """sha256 of each file, from several threads (hashlib drops the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(sha256_file, paths))
+
+
+def _ha_reads(client, state: dict, sample: list, degraded: set) -> dict:
+    """`sample` of the store phase's needles through `MasterClient.read`,
+    serially: live needles equal their data, deleted ones are not found;
+    ms by class (degraded: an interval on a lost shard)."""
+    from seaweedfs_tpu_torch.cluster.client import ClusterError
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    data, cookies, deleted = state["data"], state["cookies"], state["deleted"]
+    by_class = {"local": [], "degraded": []}
+    t0 = time.perf_counter()
+    for nid in sample:
+        fid = str(FileId(STORE_VID, nid, cookies[nid - 1]))
+        t = time.perf_counter()
+        try:
+            body = client.read(fid)
+        except ClusterError:
+            check(nid in deleted, f"live needle {nid} not found through the quorum")
+            continue
+        ms = (time.perf_counter() - t) * 1e3
+        check(nid not in deleted, f"deleted needle {nid} read back")
+        check(body == data[(nid - 1) * STORE_SIZE: nid * STORE_SIZE], f"needle {nid} differs")
+        by_class["degraded" if nid in degraded else "local"].append(ms)
+    return {"seconds": time.perf_counter() - t0, "needles": len(sample), **{
+        k: {"reads": len(xs), "p50_ms": _pct(xs, 0.5), "p99_ms": _pct(xs, 0.99)}
+        for k, xs in by_class.items() if xs}}
+
+
+def _shard_paths(dirs: list, base_name: str) -> dict:
+    """{shard id: path} of the EC volume's shard files on the servers."""
+    from seaweedfs_tpu_torch.ec import stripe
+
+    out = {}
+    for d in dirs:
+        for s in range(14):
+            p = stripe.shard_file_name(os.path.join(d, base_name), s)
+            if os.path.exists(p):
+                check(s not in out, f"shard {s} on two servers")
+                out[s] = p
+    return out
+
+
+def run_ha(state: dict, seed: int, card: str, device: str = "cuda") -> dict:
+    """The ha phase (see the module doc): a three-master raft quorum over
+    three volume servers on the card; tiering, EC, failover and rejoin."""
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.cluster.client import ClusterError, MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import read_planner, stripe
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    root, coll = state["ha_dir"], "benchmark"
+    base_name = f"{coll}_{STORE_VID}"
+    addresses = [f"127.0.0.1:{p}" for p in _free_ports(HA_MASTERS)]
+    raft_dirs = [os.path.join(root, f"raft{i}") for i in range(HA_MASTERS)]
+    rs_cuda.reset_launches()  # the ha path's run starts here
+
+    def new_master(i: int):
+        os.makedirs(raft_dirs[i], exist_ok=True)
+        return MasterServer(port=int(addresses[i].rsplit(":", 1)[1]), peers=addresses,
+                            raft_dir=raft_dirs[i], reap_interval=3600, http_port=None)
+
+    masters = [new_master(i) for i in range(HA_MASTERS)]
+    servers, envs, clients, stopped = [], [], [], []
+    out = {"card": card, "masters": HA_MASTERS, "election_timeout_s": [1.0, 2.0],
+           "source": "SeaweedFS wiki, Production Setup: three masters `weed master "
+           "-peers=m1,m2,m3`; volume.tier.upload to a cloud tier; ec.encode",
+           "reduced": ["the store phase's weed benchmark volume (1 GiB) for upstream's 30 GB "
+                       "volume limit", "a local-directory vendor for the cloud tier",
+                       f"{HA_FAILOVER_READS} of the sample's reads after the failover"]}
+
+    def call(vs, method: str, req: dict, timeout: float = 600) -> dict:
+        with rpc.RpcClient(vs.grpc_address) as c:
+            return c.call(VOLUME_SERVICE, method, {"volume_id": STORE_VID, "collection": coll,
+                                                   **req}, timeout=timeout)
+
+    def shell(address: str, script: str) -> tuple[str, float]:
+        env = CommandEnv(address, device=device)
+        envs.append(env)
+        buf = io.StringIO()
+        t = time.perf_counter()
+        for cmd in script.split(";"):
+            run_command(env, cmd.strip(), buf)
+        return buf.getvalue(), time.perf_counter() - t
+
+    try:
+        # 1: elect: three masters with -peers and a raft directory each
+        t0 = time.perf_counter()
+        for m in masters:
+            m.start()
+        _cluster_wait(lambda: _agreed_leader(masters) is not None, "an agreed leader", 30)
+        leader = _agreed_leader(masters)
+        out["elect"] = {"seconds": time.perf_counter() - t0, "term": leader.raft.term,
+                        "leader": masters.index(leader)}
+        followers = [m for m in masters if m is not leader]
+
+        # 2: three volume servers heartbeating to all three masters; A holds
+        # the store phase's volume; 1024 new needles through the quorum
+        quorum = ",".join(addresses)
+        for i, rack in enumerate(HA_RACKS):
+            d = os.path.join(root, f"srv{i}")
+            os.makedirs(d, exist_ok=True)
+            vs = VolumeServer([d], quorum, heartbeat_interval=0.4, rack=rack,
+                              encoder=rs_codec.new_encoder(device=device))
+            vs.start()
+            servers.append(vs)
+        a = servers[0]
+        check(a.store.get_volume(STORE_VID) is not None, "server A did not load the volume")
+        _cluster_wait(lambda: all(m.topology.lookup(STORE_VID, coll) for m in masters),
+                      "every master to list volume 1")
+        call(a, "VolumeMarkReadonly", {})
+        _cluster_wait(lambda: all(vi.read_only for n in leader.topology.nodes.values()
+                                  for v, vi in n.volumes.items() if v == STORE_VID),
+                      "the leader to see volume 1 read-only")
+        client = MasterClient(quorum)
+        clients.append(client)
+        blobs = np.random.default_rng(seed + 1700).bytes(2 * HA_WRITES * STORE_SIZE)
+        t0 = time.perf_counter()
+        fids1, ms = _ha_write(client, blobs[:HA_WRITES * STORE_SIZE], coll)
+        out["write"] = {"seconds": time.perf_counter() - t0, "p50_ms": _pct(ms, 0.5),
+                        "p99_ms": _pct(ms, 0.99),
+                        "volumes": sorted({f.split(",")[0] for f in fids1})}
+
+        # 3: tier: volume.tier.move through a follower's address (the shell
+        # follows the leader), the sample read through the tiered .dat over
+        # HTTP, volume.tier.fetch, the fetched .dat's sha256 the original's
+        base_a = os.path.join(a.store.locations[0].directory, base_name)
+        dat_bytes = os.path.getsize(base_a + ".dat")
+        dat_sha = sha256_file(base_a + ".dat")
+        cold = os.path.join(root, "cold")
+        text, move_s = shell(followers[0].address,
+                             f"lock; volume.tier.move -volumeId {STORE_VID} -dest local:{cold}; unlock")
+        check(f"{dat_bytes} bytes -> volumes/{base_name}.dat" in text, f"tier move: {text}")
+        check(not os.path.exists(base_a + ".dat") and os.path.exists(base_a + ".tierinfo"),
+              "the .dat did not move")
+        check(a.store.get_volume(STORE_VID).tiered, "server A does not serve it tiered")
+        with open(base_a + ".tierinfo") as f:
+            tierinfo = json.load(f)
+        check(tierinfo == {"location": {"vendor": "local", "root": cold},
+                           "key": f"volumes/{base_name}.dat", "size": dat_bytes},
+              f".tierinfo {tierinfo}")
+        read_planner.CACHE.clear()
+        tiered = _ha_reads(client, state, state["sample"], set())
+        text2, fetch_s = shell(followers[1].address,
+                               f"lock; volume.tier.fetch -volumeId {STORE_VID}; unlock")
+        check("local again" in text2, f"tier fetch: {text2}")
+        check(sha256_file(base_a + ".dat") == dat_sha,
+              "the fetched-back .dat differs from the original")
+        out["tier"] = {"dat_bytes": dat_bytes, "move_s": move_s,
+                       "move_gbps": dat_bytes / move_s / 1e9, "fetch_s": fetch_s,
+                       "fetch_gbps": dat_bytes / fetch_s / 1e9, "tiered_reads": tiered,
+                       "sha256_equal": True, "shell_via_follower": True}
+        # 4: encode: lock; ec.encode -volumeId 1 -force; unlock through the
+        # shell, every lease acked by the quorum; the store phase's launches;
+        # the kept shards the store phase's
+        acks = []
+        replicate = leader.raft.replicate_now
+
+        def counted():
+            ok = replicate()
+            acks.append(ok)
+            return ok
+
+        leader.raft.replicate_now = counted
+        shape0 = dict(rs_cuda.launches_by_shape)
+        _, enc_s = shell(addresses[0], f"lock; ec.encode -volumeId {STORE_VID} -force; unlock")
+        leader.raft.replicate_now = replicate
+        enc_shape = _shape_launches(shape0)
+        check(acks and all(acks), f"lease acks {acks}")
+        want = state["encode_shape"] if on_card else {}
+        check({k: v for k, v in enc_shape.items() if k[0] > 1} == want,
+              f"ec.encode launched {enc_shape}, the store phase's encode {want}")
+        dirs = [vs.store.locations[0].directory for vs in servers]
+        paths = _shard_paths(dirs, base_name)
+        check(sorted(paths) == list(range(14)), f"shards after ec.encode: {sorted(paths)}")
+        kept = [s for s in range(14) if s not in LOST]
+        shas = _sha_many([paths[s] for s in kept]
+                         + [stripe.shard_file_name(state["base"], s) for s in kept])
+        check(shas[:len(kept)] == shas[len(kept):],
+              f"ec.encode: shards differ from the store phase's: {kept}")
+        check(not any(os.path.exists(os.path.join(d, base_name + ".dat")) for d in dirs),
+              "the source volume survived ec.encode")
+        holders = {i: sorted(s for s, p in paths.items() if p.startswith(d + os.sep))
+                   for i, d in enumerate(dirs)}
+        out["encode"] = {"seconds": enc_s, "launches_by_shape": _shape_keys(enc_shape),
+                         "lease_acks": len(acks), "shards_by_server": holders,
+                         "kept_equal_to_store_phase": True}
+
+        # 5: fail over: stop the leader; a new agreed leader of a greater
+        # term; the client's first assign; 1024 more needles, no fid
+        # repeated; LOST deleted on their holders; the sample through the
+        # new leader's lookups, degraded
+        old, old_term = leader, leader.raft.term
+        t0 = time.perf_counter()
+        old.stop()
+        stopped.append(old)
+        live = [m for m in masters if m is not old]
+        _cluster_wait(lambda: _agreed_leader(live) is not None, "a new leader", 30)
+        new = _agreed_leader(live)
+        failover_s = time.perf_counter() - t0
+        check(new.raft.term > old_term, f"new term {new.raft.term} <= {old_term}")
+        while True:
+            try:
+                first = client.assign(collection=coll).fid
+                break
+            except Exception:  # noqa: BLE001 — the client follows the new leader
+                check(time.perf_counter() - t0 < 30, "no assign after the failover")
+                time.sleep(0.05)
+        assign_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        fids2, ms2 = _ha_write(client, blobs[HA_WRITES * STORE_SIZE:], coll)
+        write2_s = time.perf_counter() - t1
+
+        def key(fid: str) -> tuple:  # (volume id, needle key): the cookie apart
+            vid, rest = fid.split(",")
+            return vid, rest[:-8]
+
+        before, after_keys = {key(f) for f in fids1}, {key(f) for f in [first, *fids2]}
+        check(len(after_keys) == len(fids2) + 1 and not before & after_keys,
+              "a fid issued after the failover repeats one issued before")
+        for i, vs in enumerate(servers):
+            mine = [s for s in LOST if s in holders[i]]
+            if mine:
+                call(vs, "VolumeEcShardsDelete", {"shard_ids": mine})
+        _cluster_wait(lambda: len(new.topology.lookup_ec_shards(STORE_VID)) == 10,
+                      "the new leader to list 10 shards")
+        for vs in servers:
+            ev = vs.store.get_ec_volume(STORE_VID)
+            if ev is not None and ev.warm_thread is not None:
+                ev.warm_thread.join()
+        degraded = {nid for nid, n in state["lost_on"].items() if n}
+        read_planner.CACHE.clear()
+        shape0 = dict(rs_cuda.launches_by_shape)
+        quarter = sorted(np.random.default_rng(seed + 1701).choice(
+            state["sample"], HA_FAILOVER_READS, replace=False).tolist())
+        reads = _ha_reads(client, state, quarter, degraded)
+        read_shape = _shape_launches(shape0)
+        check(all(c == 10 for _, c in read_shape)
+              and (sum(read_shape.values()) > 0 if on_card else not read_shape),
+              f"degraded reads after the failover launched {read_shape}")
+        out["failover"] = {"seconds": failover_s, "first_assign_s": assign_s,
+                           "old_term": old_term, "new_term": new.raft.term,
+                           "new_leader": masters.index(new), "write_s": write2_s,
+                           "write_p50_ms": _pct(ms2, 0.5), "write_p99_ms": _pct(ms2, 0.99),
+                           "fids_repeated": 0, "reads": reads,
+                           "launches_by_shape": _shape_keys(read_shape)}
+
+        # 6: rejoin: the stopped master again on its raft directory; its
+        # persisted term at least its old one; a follower of the current
+        # leader within 10 s; cluster.raft.ps against it names that leader
+        i_old = masters.index(old)
+        t0 = time.perf_counter()
+        back = new_master(i_old)
+        resumed_term = back.raft.term
+        check(resumed_term >= old_term, f"resumed term {resumed_term} < {old_term}")
+        masters[i_old] = back
+        back.start()
+        _cluster_wait(lambda: back.raft.leader == new.address and not back.is_leader,
+                      lambda: "the restarted master to follow the leader: " + str(
+                          [(m.address, m.raft.state, m.raft.term, m.raft.leader)
+                           for m in masters]) + f" (leader {new.address})", 10)
+        rejoin_s = time.perf_counter() - t0
+        while True:  # clients redial it within the transport's reconnect cap
+            try:
+                ps, _ = shell(back.address, "cluster.raft.ps")
+                break
+            except ClusterError:
+                check(time.perf_counter() - t0 < 10, "cluster.raft.ps cannot reach it")
+                time.sleep(0.05)
+        reachable_s = time.perf_counter() - t0
+        check(f"leader: {new.address}" in ps and f"* {new.address}" in ps, f"raft.ps: {ps}")
+        out["rejoin"] = {"seconds": rejoin_s, "shell_s": reachable_s,
+                         "resumed_term": resumed_term,
+                         "term": back.raft.term, "raft_ps": ps.splitlines()[0]}
+    finally:
+        for env in envs:
+            env.close()
+        for cl in clients:
+            cl.close()
+        # side by side: each HTTP front waits up to its poll interval
+        halt = [threading.Thread(target=srv.stop) for srv in [*servers, *masters]
+                if srv not in stopped]
+        for t in halt:
+            t.start()
+        for t in halt:
+            t.join()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    check(out["launches"].get(servers[0].store.encoder.variant, 0) > 0 or not on_card,
+          "the ha path never launched the factory's kernel")
     return out
 
 
@@ -2761,9 +3161,11 @@ def run_storm(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
 
 
 #: the load phase: the reference harness's real run (`weedload.py`'s usage
-#: line) plus the storm, over 4000 objects; the rack phase's seconds
+#: line) plus the storm, over 1000 objects (cut from 4000 so that the script
+#: keeps its time with the ha phase: the preload is serial); the rack
+#: phase's seconds
 LOAD_ARGV = ("--seconds", "30", "--rps", "1000", "--procs", "4", "--chaos", "--rebuild-storm",
-             "--objects", "4000")
+             "--objects", "1000")
 RACK_SECONDS = 60
 
 
@@ -2780,15 +3182,15 @@ def _compute_pids() -> list[int]:
 
 @contextlib.contextmanager
 def _contexts_watched(out: dict):
-    """Samples the compute processes every 5 s while the body runs; `out`
+    """Samples the compute processes every 0.5 s while the body runs; `out`
     gets the list before, the most seen at once, and the list after (polled
     up to 30 s for a killed server's context to be released)."""
     out["before"] = _compute_pids()
     out["most_at_once"] = len(out["before"])
     stop = threading.Event()
 
-    def sample() -> None:
-        while not stop.wait(5.0):
+    def sample() -> None:  # a server's context appears at its first launch
+        while not stop.wait(0.5):
             out["most_at_once"] = max(out["most_at_once"], len(_compute_pids()))
 
     t = threading.Thread(target=sample, daemon=True)
@@ -3064,8 +3466,10 @@ def main(argv=None) -> int:
         slice_lines["obs"] = run_obs(obs_state, args.seed, card)
         emit({"phase": "obs", **slice_lines["obs"]})
         slice_lines["cluster"] = run_cluster(obs_state, args.seed, card)
-        del obs_state
         emit({"phase": "cluster", **slice_lines["cluster"]})
+        slice_lines["ha"] = run_ha(obs_state, args.seed, card)
+        del obs_state
+        emit({"phase": "ha", **slice_lines["ha"]})
         shutil.rmtree(SCRATCH)  # the storm starts on an empty directory
         os.makedirs(SCRATCH)
         int8 = {c["shape"]: c["kernel_ms"] for c in checks["int8"] if "kernel_ms" in c}

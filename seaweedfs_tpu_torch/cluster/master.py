@@ -4,8 +4,10 @@ master_grpc_server*.go.
 Hosts the weedtpu.Master RPC service over seaweedfs_tpu_torch.rpc: heartbeat
 ingest into Topology, fid assignment (Assign -> grow volumes on demand via
 the volume servers' VolumeCreate RPC), volume/EC lookup, and the topology
-dump that powers shell commands. Single-master: `peers` (raft HA) raises
-until that module is ported.
+dump that powers shell commands. With `peers` the masters form a raft
+quorum (cluster/raft.py, imported only then): the leader allocates ids and
+volumes and holds the admin lock table, followers redirect to it, and a
+new leader floors its watermarks past the old leader's.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ class MasterServer:
         reap_interval: float = 30.0,
         guard=None,
         peers: Optional[list[str]] = None,
+        raft_dir: str = "",
+        election_timeout: tuple[float, float] = (1.0, 2.0),
         garbage_threshold: float = 0.3,
         vacuum_interval: float = 900.0,
         http_port: Optional[int] = 0,
@@ -52,6 +56,14 @@ class MasterServer:
         self._rng = random.Random()
         self._grow_lock = threading.Lock()
         self._admin_locks: dict[str, tuple[int, float, str]] = {}
+        # Lock-table version: (raft term, mutation seq), compared
+        # lexicographically on apply. The term component dominates, so a
+        # deposed leader whose local seq inflated (failed grants bump it)
+        # can never out-version the new leader's table — without it, the
+        # seq-gate itself would reject the fresher table and break mutual
+        # exclusion across failover.
+        self._lock_seq = 0
+        self._lock_term = 0
         self._admin_lock_mu = threading.Lock()
         self._server = rpc.RpcServer(port=port, host=host)
         self._server.add_service(self._build_service())
@@ -78,23 +90,109 @@ class MasterServer:
         # fleet repair scheduler (WEEDTPU_REPAIR=on): mass-rebuild brain
         # that ranks under-replicated stripes by remaining redundancy and
         # drives batched rebuilds through the admission lane. Soft state,
-        # like the topology.
+        # like the topology — every master keeps a queue; only the leader
+        # dispatches.
         self.repair = None
         if config.env("WEEDTPU_REPAIR") == "on":
             from seaweedfs_tpu_torch.ec.fleet import RepairScheduler
 
             self.repair = RepairScheduler(self)
             self.topology.on_ec_shrink = self.repair.kick
-        # raft HA (a master quorum, `peers`) is not in this package yet: it
-        # raises rather than running a single master without it.
+        # raft HA (reference: master quorum; single-master when no peers)
+        self.raft = None
         if peers:
-            raise NotImplementedError(
-                f"peers {peers}: raft HA (cluster/raft.py) is not ported yet "
-                "(ROADMAP Queue 1 item 5)"
+            from seaweedfs_tpu_torch.cluster.raft import RaftNode
+
+            self.raft = RaftNode(
+                me=self.address,
+                peers=peers,
+                server=self._server,
+                state_dir=raft_dir,
+                election_timeout=election_timeout,
+                payload_fn=self._raft_payload,
+                apply_fn=self._raft_apply,
+                on_leader=self._on_become_leader,
             )
 
-    # a single master always leads
-    is_leader = True
+    # -- raft integration -----------------------------------------------------
+
+    VID_TAKEOVER_MARGIN = 100  # vids the old leader could plausibly have
+    # allocated beyond its last replicated watermark (each grow round-trips
+    # VolumeCreate RPCs, so per heartbeat interval this is generous)
+
+    def _raft_payload(self) -> dict:
+        """Hard state the leader replicates: id watermarks + the admin
+        lock table. Topology is soft state — every master rebuilds it
+        from heartbeats."""
+        with self.topology._lock:
+            max_vid = self.topology.max_volume_id
+        now = time.monotonic()
+        with self._admin_lock_mu:
+            locks = {
+                name: {"token": tok, "ttl_s": max(0.0, exp - now), "client": client}
+                for name, (tok, exp, client) in self._admin_locks.items()
+                if exp > now
+            }
+            lock_seq, lock_term = self._lock_seq, self._lock_term
+        return {
+            "max_volume_id": max_vid,
+            "sequence": self.sequencer.watermark,
+            "admin_locks": locks,
+            "lock_seq": lock_seq,
+            "lock_term": lock_term,
+        }
+
+    def _raft_apply(self, payload: dict) -> None:
+        with self.topology._lock:
+            self.topology.max_volume_id = max(
+                self.topology.max_volume_id, int(payload.get("max_volume_id", 0))
+            )
+        if hasattr(self.sequencer, "floor"):
+            self.sequencer.floor(int(payload.get("sequence", 0)))
+        # adopt the leader's lock table so a promoted follower honors
+        # in-flight shell operations (mutual exclusion across failover);
+        # seq-gated so a reordered heartbeat — or a stale voter payload
+        # during election adoption — can never roll a fresher table back
+        now = time.monotonic()
+        version = (int(payload.get("lock_term", 0)), int(payload.get("lock_seq", 0)))
+        with self._admin_lock_mu:
+            if version >= (self._lock_term, self._lock_seq):
+                self._lock_term, self._lock_seq = version
+                self._admin_locks = {
+                    name: (
+                        int(d["token"]),
+                        now + float(d["ttl_s"]),
+                        d.get("client", ""),
+                    )
+                    for name, d in payload.get("admin_locks", {}).items()
+                }
+
+    def _on_become_leader(self) -> None:
+        """A fresh leader bumps both watermarks past anything the old
+        leader could have issued beyond its last replicated values."""
+        if hasattr(self.sequencer, "floor"):
+            self.sequencer.floor(self.sequencer.watermark + MemorySequencer.BATCH)
+        with self.topology._lock:
+            self.topology.max_volume_id += self.VID_TAKEOVER_MARGIN
+        # No lock-table grace is needed here: lease grants are only handed
+        # to clients after replicate_now() got a quorum ack, and RequestVote
+        # responses carry each voter's payload — the winning candidate's
+        # vote quorum intersects the ack quorum, so _raft_apply already
+        # adopted any live lease before this callback runs.
+
+    @property
+    def is_leader(self) -> bool:
+        return self.raft is None or self.raft.is_leader
+
+    def _leader_address(self) -> str:
+        if self.raft is None or self.raft.is_leader:
+            return self.address
+        return self.raft.leader or ""
+
+    def _not_leader_response(self) -> dict:
+        # one canonical key on the RPC wire; the HTTP facade re-emits it
+        # as the reference's capitalized "Leader" for curl-level clients
+        return {"error": "not the raft leader", "leader": self._leader_address()}
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -102,6 +200,8 @@ class MasterServer:
         self._server.start()
         if self._http is not None:
             self._http_thread.start()
+        if self.raft is not None:
+            self.raft.start()
         self._reaper.start()
         self._vacuumer.start()
         if self.repair is not None:
@@ -117,6 +217,8 @@ class MasterServer:
             if self._http_thread.is_alive():
                 self._http.shutdown()
             self._http.server_close()
+        if self.raft is not None:
+            self.raft.stop()
         self._server.stop()
 
     @property
@@ -140,6 +242,8 @@ class MasterServer:
 
     def _vacuum_loop(self) -> None:
         while not self._stop.wait(self._vacuum_interval):
+            if not self.is_leader:
+                continue  # exactly one master drives cluster maintenance
             try:
                 self.vacuum_once()
             except Exception:  # noqa: BLE001 — maintenance must never die
@@ -250,6 +354,8 @@ class MasterServer:
             raise rpc.RpcFault(
                 "collection name required", code=grpc.StatusCode.INVALID_ARGUMENT
             )
+        if not self.is_leader:
+            raise rpc.NotLeaderFault(self._leader_address())
         with self.topology._lock:
             by_addr: dict[str, list[tuple[int, str]]] = {}
             for node in self.topology.nodes.values():
@@ -302,6 +408,8 @@ class MasterServer:
     def _rpc_volume_grow(self, req: dict, ctx) -> dict:
         """Pre-allocate volumes for a (collection, replication, ttl) layout
         without waiting for an Assign to trip growth (volume.grow analog)."""
+        if not self.is_leader:
+            raise rpc.NotLeaderFault(self._leader_address())
         collection = req.get("collection", "")
         replication = req.get("replication") or self.default_replication
         ttl = req.get("ttl", "")
@@ -317,12 +425,21 @@ class MasterServer:
     def _rpc_raft_status(self, req: dict, ctx) -> dict:
         """Raft membership/status for cluster.raft.ps (RaftListClusterServers
         analog): which masters exist, who leads, at what term."""
+        r = self.raft
+        if r is None:
+            return {
+                "enabled": False,
+                "leader": self.address,
+                "state": "leader",
+                "term": 0,
+                "servers": [self.address],
+            }
         return {
-            "enabled": False,
-            "leader": self.address,
-            "state": "leader",
-            "term": 0,
-            "servers": [self.address],
+            "enabled": True,
+            "leader": self._leader_address(),
+            "state": r.state,
+            "term": r.term,
+            "servers": sorted([r.me, *r.peers]),
         }
 
     # -- filer registry (cluster node list, master_grpc_server_cluster.go
@@ -342,7 +459,7 @@ class MasterServer:
                 req.get("grpc_address", ""),
                 time.monotonic(),
             )
-        return {"leader": self.address}
+        return {"leader": self._leader_address() or self.address}
 
     def _rpc_list_cluster_nodes(self, req: dict, ctx) -> dict:
         now = time.monotonic()
@@ -366,9 +483,18 @@ class MasterServer:
     # cluster-wide exclusive lock leased from the master
     # (weed/wdclient/exclusive_locks/exclusive_locker.go).
 
+    def _bump_lock_version(self) -> None:
+        """Advance the lock-table version (caller holds _admin_lock_mu):
+        stamp the current raft term so this table out-versions anything a
+        deposed leader produced in an earlier term."""
+        self._lock_term = getattr(self.raft, "term", 0) if self.raft else 0
+        self._lock_seq += 1
+
     ADMIN_LOCK_TTL = 30.0
 
     def _rpc_lease_admin_token(self, req: dict, ctx) -> dict:
+        if not self.is_leader:
+            raise rpc.NotLeaderFault(self._leader_address())
         name = req.get("lock_name") or "admin"
         prev = int(req.get("previous_token", 0))
         now = time.monotonic()
@@ -387,20 +513,47 @@ class MasterServer:
                 now + self.ADMIN_LOCK_TTL,
                 req.get("client_name", ""),
             )
+            self._bump_lock_version()
+        # The lease is only durable once a quorum has seen it: replicate
+        # synchronously BEFORE handing out the token, so a leader crash can
+        # never lose a lock a client believes it holds (the new leader
+        # adopts the table from its vote quorum, which intersects the ack
+        # quorum). Replication happens outside the mutex — payload_fn locks.
+        if self.raft is not None and not self.raft.replicate_now():
+            with self._admin_lock_mu:
+                cur = self._admin_locks.get(name)
+                if cur is not None and cur[0] == token:
+                    if holder is not None:
+                        self._admin_locks[name] = holder  # restore prior lease
+                    else:
+                        del self._admin_locks[name]
+                    self._bump_lock_version()
+            raise rpc.RpcFault(
+                f"lock {name} lease not acknowledged by a master quorum",
+                code=grpc.StatusCode.UNAVAILABLE,
+            )
         return {"token": token, "lock_ts_ns": int(now * 1e9)}
 
     def _rpc_release_admin_token(self, req: dict, ctx) -> dict:
+        if not self.is_leader:
+            # must land on the leader: a follower-local delete is lost and
+            # the replicated lock table keeps the cluster locked till TTL
+            raise rpc.NotLeaderFault(self._leader_address())
         name = req.get("lock_name") or "admin"
         prev = int(req.get("previous_token", 0))
         with self._admin_lock_mu:
             holder = self._admin_locks.get(name)
             if holder is not None and holder[0] == prev:
                 del self._admin_locks[name]
+                self._bump_lock_version()
+        # release is best-effort: the next heartbeat replicates the removal,
+        # and the TTL bounds how long a follower could consider it held
         return {}
 
     def _rpc_heartbeat(self, req: dict, ctx) -> dict:
-        # the reply names the leader (this master) so volume servers can
-        # prefer it
+        # every master ingests heartbeats (topology is soft state — a
+        # follower promoted by raft already has a live view); the reply
+        # names the current leader so volume servers can prefer it
         stats.MasterReceivedHeartbeatCounter.inc()
         hb = Heartbeat.from_dict(req)
         self.topology.process_heartbeat(hb)
@@ -408,7 +561,7 @@ class MasterServer:
             self.repair.note_reports(hb.url, hb.unreachable_peers)
         return {
             "volume_size_limit": self.topology.volume_size_limit,
-            "leader": self.address,
+            "leader": self._leader_address() or self.address,
         }
 
     def _rpc_leave(self, req: dict, ctx) -> dict:
@@ -416,6 +569,9 @@ class MasterServer:
         return {}
 
     def _rpc_assign(self, req: dict, ctx) -> dict:
+        if not self.is_leader:
+            # followers redirect: only the leader allocates ids/volumes
+            return {**self._not_leader_response(), "count": 0}
         # clamped at the RPC layer: a negative count would REWIND the id
         # sequencer (duplicate fids overwriting live needles), and the
         # count reaches here unauthenticated via the HTTP facade
@@ -545,6 +701,11 @@ class MasterServer:
             if not targets:
                 return 0
             vid = self.topology.next_volume_id()
+            if self.raft is not None:
+                # replicate the new watermark eagerly so a crash right
+                # after the creates can't lead the next leader to reissue
+                # this vid (belt; VID_TAKEOVER_MARGIN is the suspenders)
+                self.raft._broadcast_heartbeat()
             succeeded = []
             for node in targets:
                 try:
@@ -659,6 +820,10 @@ class _MasterHttpHandler(httpd.QuietHandler):
                 }
                 if resp.get("error"):
                     out["error"] = resp["error"]
+                    # follower answering: name the leader so curl-level
+                    # clients can fail over (reference HTTP error shape)
+                    if resp.get("Leader") or resp.get("leader"):
+                        out["Leader"] = resp.get("Leader") or resp["leader"]
                 if resp.get("auth"):
                     out["auth"] = resp["auth"]
                 self._json(200, out)
@@ -752,6 +917,12 @@ class _MasterHttpHandler(httpd.QuietHandler):
                 self.send_reply(200, html.encode(), "text/html; charset=utf-8")
             else:
                 self._json(404, {"error": f"unknown path {path}"})
+        except rpc.NotLeaderFault as e:
+            # the reference's HTTP masters answer follower hits with the
+            # leader in the JSON shape so curl-level clients can fail over
+            # ([ref: weed/server/master_server_handlers_admin.go — mount
+            # empty]); a bare 412 left HA clients with an opaque failure
+            self._json(200, {"error": e.detail, "Leader": e.leader})
         except rpc.RpcFault as e:
             self._json(412, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 — facade must not kill keep-alive

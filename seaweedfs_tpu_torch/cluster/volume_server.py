@@ -4,7 +4,9 @@ handlers (volume_server_handlers_read.go/_write.go), the heartbeat loop
 (volume_grpc_erasure_coding.go). Every EC RPC (generate, rebuild, convert,
 verify, the slab and projection reads, to-volume) runs on the Store's
 encoder: the factory's kernel on the card unless the caller passes one.
-The tier RPCs answer UNIMPLEMENTED until remote storage is ported.
+VolumeTierMove/VolumeTierFetch move a sealed volume's .dat to remote
+storage (remote_storage.tier) and back; a tiered volume serves reads
+from the remote copy.
 
 Data path: HTTP GET/POST/DELETE /<vid>,<fid> against the local Store, with
 EC degraded reads falling back master-lookup -> remote VolumeEcShardRead ->
@@ -68,16 +70,6 @@ EC_REBUILD_FETCH_WORKERS = 16
 #: refused outright — an unbounded blocking acquire would pin this gRPC
 #: worker and re-create the very starvation the gate exists to prevent
 EC_SLAB_ADMISSION_WAIT = 15.0
-
-
-def _tier_unimplemented(method: str) -> rpc.RpcFault:
-    """The tier RPCs stay registered, so the service table matches
-    contracts.proto, and answer UNIMPLEMENTED: remote storage (tiering) is
-    not in this package yet."""
-    return rpc.RpcFault(
-        f"{method}: remote storage tiering is not ported yet (ROADMAP Queue 1 item 5)",
-        code=grpc.StatusCode.UNIMPLEMENTED,
-    )
 
 
 def _first_multipart_file(body: bytes, ctype: str):
@@ -1206,12 +1198,61 @@ class VolumeServer:
         return {"size": os.path.getsize(base + ".dat")}
 
     def _rpc_tier_move(self, req: dict, ctx) -> dict:
-        """VolumeTierMove: not served until remote storage is ported."""
-        raise _tier_unimplemented("VolumeTierMove")
+        """VolumeTierMove: upload the .dat to remote storage and reopen
+        the volume through the remote backend."""
+        from seaweedfs_tpu_torch.remote_storage import make_remote_client
+        from seaweedfs_tpu_torch.remote_storage.tier import tier_move
+        from seaweedfs_tpu_torch.storage.volume import Volume
+
+        vid = int(req["volume_id"])
+        v = self.store.get_volume(vid)
+        if v is None:
+            raise rpc.NotFoundFault(f"volume {vid} not found")
+        if v.tiered:
+            raise rpc.RpcFault(f"volume {vid} is already tiered")
+        client = make_remote_client(req["destination"])
+        if self._ingest is not None:  # the local .dat is leaving this disk
+            self._ingest.discard(vid, v.base_path)
+        was_read_only = v.read_only
+        v.read_only = True  # freeze writes; READS keep serving during upload
+        try:
+            info = tier_move(
+                v.base_path,
+                client,
+                key_prefix=req.get("key_prefix") or "volumes/",
+                keep_local=True,
+            )
+        except Exception:
+            v.read_only = was_read_only
+            raise
+        # upload verified: swap to the remote backend (the only offline
+        # window is this close/remove/reopen, not the upload itself)
+        v.close()
+        os.remove(v.base_path + ".dat")
+        for loc in self.store.locations:
+            if loc.volumes.get(vid) is v:
+                loc.volumes[vid] = Volume(loc.directory, vid, v.collection)
+        self.heartbeat_once()
+        return {"size": info["size"], "key": info["key"]}
 
     def _rpc_tier_fetch(self, req: dict, ctx) -> dict:
-        """VolumeTierFetch: not served until remote storage is ported."""
-        raise _tier_unimplemented("VolumeTierFetch")
+        """VolumeTierFetch: bring a tiered .dat back to local disk."""
+        from seaweedfs_tpu_torch.remote_storage.tier import tier_fetch
+        from seaweedfs_tpu_torch.storage.volume import Volume
+
+        vid = int(req["volume_id"])
+        v = self.store.get_volume(vid)
+        if v is None:
+            raise rpc.NotFoundFault(f"volume {vid} not found")
+        if not v.tiered:
+            raise rpc.RpcFault(f"volume {vid} is not tiered")
+        v.close()
+        tier_fetch(v.base_path)
+        for loc in self.store.locations:
+            if loc.volumes.get(vid) is v:
+                loc.volumes[vid] = Volume(loc.directory, vid, v.collection)
+        self.heartbeat_once()
+        return {"size": os.path.getsize(v.base_path + ".dat")}
 
     def _rpc_volume_status(self, req: dict, ctx) -> dict:
         vid = int(req["volume_id"])

@@ -4,8 +4,9 @@ master and a volume server in one process, as `weed server` does; `shell`
 is the operator shell (REPL, or `-c` for a `;`-separated script). The
 volume server's EC work, and what the shell builds locally, runs on the
 card (`--device`, default cuda); `--device cpu` gives the plain version.
-The filer, S3 and WebDAV front ends of `server` are not in this package
-yet and raise. The transport (and so grpc) is imported only when a server
+`master -peers a,b,c -raftDir D` joins a raft quorum; `scaffold` prints a
+commented TOML template. The filer, S3 and WebDAV front ends of `server`
+are not in this package yet and raise. The transport (and so grpc) is imported only when a server
 or shell command runs, so the local commands that share the registry
 need none of it."""
 
@@ -100,11 +101,12 @@ def _master_conf(p: argparse.ArgumentParser) -> None:
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
     p.add_argument("-defaultReplication", default="000")
-    p.add_argument("-peers", default="", help="comma-separated master quorum (raft HA: not ported)")
+    p.add_argument("-peers", default="", help="comma-separated master quorum (raft HA)")
     p.add_argument("-garbageThreshold", type=float, default=0.3,
                    help="auto-vacuum volumes whose dead fraction exceeds this")
     p.add_argument("-vacuumInterval", type=float, default=900.0,
                    help="seconds between automatic vacuum sweeps")
+    p.add_argument("-raftDir", default="", help="raft term/vote persistence directory")
     p.add_argument("-httpPort", type=int, default=0,
                    help="HTTP API port (/dir/assign, /dir/lookup, ...); 0 = auto")
     p.add_argument("-metricsPort", type=int, default=0)
@@ -122,6 +124,7 @@ def _master_run(args: argparse.Namespace) -> int:
         default_replication=args.defaultReplication,
         guard=_load_guard(conf),
         peers=peers or None,
+        raft_dir=args.raftDir,
         garbage_threshold=args.garbageThreshold,
         vacuum_interval=args.vacuumInterval,
         http_port=args.httpPort,
@@ -253,3 +256,21 @@ def _shell_run(args: argparse.Namespace) -> int:
 
 
 register(Command("shell", "operator shell (REPL or -c script)", _shell_conf, _shell_run))
+
+
+def _scaffold_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-config", default="security", help="security|master|shell|filer")
+
+
+def _scaffold_run(args: argparse.Namespace) -> int:
+    from seaweedfs_tpu_torch.utils.config import SCAFFOLDS, scaffold
+
+    text = scaffold(args.config)
+    if text is None:
+        print(f"unknown config {args.config!r}; one of {sorted(SCAFFOLDS)}", file=sys.stderr)
+        return 1
+    print(text, end="")
+    return 0
+
+
+register(Command("scaffold", "print a commented TOML config template", _scaffold_conf, _scaffold_run))

@@ -309,16 +309,26 @@ class RpcServer:
             self._started = False
 
 
+#: redial a refused address at least every second
+RECONNECT_OPTIONS = (("grpc.max_reconnect_backoff_ms", 1000),)
+
+
 class RpcClient:
     """Channel wrapper: call(service, method, request) with lazy per-method
     callables, JSON by default."""
 
-    def __init__(self, address: str):
+    def __init__(self, address: str, options: tuple = ()):
+        """`options`: more grpc channel arguments (raft's peer channels)."""
         self.address = address
         options = [
             ("grpc.max_send_message_length", 64 * 1024 * 1024),
             ("grpc.max_receive_message_length", 64 * 1024 * 1024),
+            # grpc backs a refused address off for up to two minutes, and
+            # every channel to it shares that state: a master or server
+            # restarted on its address would stay unreachable that long
+            *RECONNECT_OPTIONS,
             *tls.channel_options(),
+            *options,
         ]
         creds = tls.channel_credentials()
         if creds is not None:

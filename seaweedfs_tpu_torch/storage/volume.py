@@ -50,13 +50,20 @@ class Volume:
         self.dat_path = self.base_path + ".dat"
         self.idx_path = self.base_path + ".idx"
 
-        exists = os.path.exists(self.dat_path)
-        if not exists and os.path.exists(self.base_path + ".tierinfo"):
-            raise IOError(
-                f"volume {volume_id}: its .dat is tiered to remote storage "
-                f"({self.base_path}.tierinfo), which this package does not serve yet"
-            )
-        self._dat = open(self.dat_path, "r+b" if exists else "w+b")
+        self.tiered = False
+        if os.path.exists(self.base_path + ".tierinfo") and not os.path.exists(self.dat_path):
+            # a cold volume: its .dat lives in remote storage, and reads go
+            # through the remote backend (imported here, so the local
+            # commands import no vendor)
+            from seaweedfs_tpu_torch.remote_storage.tier import open_tiered_dat
+
+            self._dat = open_tiered_dat(self.base_path)
+            self.tiered = True
+            self.read_only = True
+            exists = True
+        else:
+            exists = os.path.exists(self.dat_path)
+            self._dat = open(self.dat_path, "r+b" if exists else "w+b")
         try:
             if exists:
                 self._dat.seek(0, os.SEEK_END)
@@ -67,7 +74,8 @@ class Volume:
                 else:
                     self.super_block = super_block or SuperBlock()
                     self._write_super_block()
-                if not os.path.exists(self.idx_path) and dat_size > SUPER_BLOCK_SIZE:
+                if (not os.path.exists(self.idx_path) and dat_size > SUPER_BLOCK_SIZE
+                        and not self.tiered):
                     # the .dat has records but the index is gone (a crash, a
                     # manual delete): rebuild it by scan before serving, or
                     # reads miss and a compact would wipe the volume. A
@@ -258,7 +266,7 @@ class Volume:
         aged out. A caller that deletes must check again under the volume
         lock: a write acknowledged meanwhile refreshed the mtime."""
         ttl_s = self.super_block.ttl.seconds
-        if not ttl_s:
+        if not ttl_s or self.tiered:
             return False
         lm = self.last_modified()
         return bool(lm) and lm + ttl_s < time.time()
@@ -289,7 +297,11 @@ class Volume:
         try:
             size = os.path.getsize(self.dat_path)
         except OSError:
-            return 0, len(self.nm), 0.0
+            if not self.tiered:
+                return 0, len(self.nm), 0.0
+            # a remote .dat: take the locked path (a tiered volume cannot
+            # compact, so nothing holds the lock for minutes)
+            size = self.content_size()
         return size, len(self.nm), self._garbage_from(size)
 
     # -- maintenance ---------------------------------------------------------
@@ -309,6 +321,11 @@ class Volume:
         """Vacuum: rewrite the live needles into a fresh .dat/.idx. Returns
         (bytes_before, bytes_after)."""
         with self._lock:
+            if self.tiered:
+                raise IOError(
+                    f"volume {self.id} is tiered to remote storage — "
+                    "fetch it back (volume.tier.fetch) before compacting"
+                )
             before = self.content_size()
             idx_bytes = os.path.getsize(self.idx_path) if os.path.exists(self.idx_path) else 0
             if (len(self.nm) == 0 and before > SUPER_BLOCK_SIZE

@@ -4,7 +4,9 @@ typo'd knob fails loudly instead of reading as its default forever.
 
 Also the servers' TOML configuration (weed/util/config.go): named files
 (security.toml, ...) searched in `.`, `~/.seaweedfs_tpu/` and
-`/etc/seaweedfs_tpu/`, parsed with the standard library's tomllib."""
+`/etc/seaweedfs_tpu/`, parsed with the standard library's tomllib, and
+the commented templates `scaffold` prints for them; `env_table_markdown`
+renders the registry as the README's table."""
 
 from __future__ import annotations
 
@@ -42,12 +44,92 @@ def get_nested(conf: dict, dotted: str, default: Any = None) -> Any:
     return cur
 
 
+SCAFFOLDS = {
+    "security": '''\
+# security.toml — put in ., ~/.seaweedfs_tpu/, or /etc/seaweedfs_tpu/
+# JWT signing on the volume-server write path. Empty key = auth disabled.
+
+[jwt.signing]
+key = ""
+expires_after_seconds = 10
+
+# optional separate key gating reads
+[jwt.signing.read]
+key = ""
+expires_after_seconds = 10
+
+[guard]
+# IPs allowed to bypass JWT checks
+white_list = []
+
+# TLS/mTLS for the gRPC control plane. Setting `ca` turns TLS on for every
+# server and client in the process. Generate a throwaway CA + leaf pair with
+#   python -c "from seaweedfs_tpu.security.tls import generate_self_signed; \\
+#              print(generate_self_signed('./certs'))"
+[grpc]
+ca = ""
+cert = ""
+key = ""
+require_client_auth = true    # mTLS: peers must present a CA-signed cert
+# override_authority = "weedtpu-cluster"   # when certs name the cluster, not each host
+
+# HTTPS on the HTTP data path (volume/filer/s3/webdav/iam servers); uses the
+# [grpc] cert material
+[https]
+enabled = false
+''',
+    "master": '''\
+# master.toml
+[master.volume_growth]
+copy_1 = 7
+copy_2 = 6
+copy_3 = 3
+copy_other = 1
+
+[master.sequencer]
+type = "memory"   # memory | snowflake
+''',
+    "shell": '''\
+# shell.toml
+[cluster]
+default = "localhost"
+
+[cluster.localhost]
+master = "127.0.0.1:9333"
+''',
+    "filer": '''\
+# filer.toml — filer metadata store selection
+[memory]
+enabled = false
+
+[sqlite]
+enabled = true
+dbFile = "./filer.db"
+
+# from-scratch embedded log-structured store (the leveldb2-analog):
+# append-only CRC-framed log + in-memory index, auto-compaction
+[log]
+enabled = false
+dir = "./filerlog"
+''',
+}
+
+
+def scaffold(name: str) -> Optional[str]:
+    return SCAFFOLDS.get(name)
+
+
 @dataclasses.dataclass(frozen=True)
 class EnvVar:
     name: str
     default: Any
     doc: str
     parse: Callable[[str], Any] = int
+
+    @property
+    def type(self) -> type:
+        """The knob's value type, as the registry's table names it."""
+        return type(self.default)
 
     def value(self) -> Any:
         raw = os.environ.get(self.name)
@@ -427,3 +509,19 @@ def env(name: str) -> Any:
     if var is None:
         raise KeyError(f"{name} is not in the WEEDTPU env registry")
     return var.value()
+
+
+def env_table_markdown() -> str:
+    """The README `WEEDTPU_*` table, generated from the registry."""
+    lines = [
+        "| Variable | Type | Default | Description |",
+        "| --- | --- | --- | --- |",
+    ]
+    for name in sorted(ENV_REGISTRY):
+        var = ENV_REGISTRY[name]
+        default = "(empty)" if var.default == "" else f"`{var.default}`"
+        doc = " ".join(var.doc.split()).replace("|", "\\|")
+        lines.append(
+            f"| `{name}` | {var.type.__name__} | {default} | {doc} |"
+        )
+    return "\n".join(lines) + "\n"

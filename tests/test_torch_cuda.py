@@ -1514,3 +1514,183 @@ def test_mesh_decision_recorded_on_the_card_factory(card):
         assert "mesh" not in enc.selection
     forced = rs_codec.new_encoder(backend="mesh")
     assert forced.backend == "mesh" and forced.selection["mesh_devices"] == torch.cuda.device_count()
+
+
+# -- tiering and the raft quorum over card volume servers (since PR 17) -----------------
+
+
+def _pinned_needle_clock(monkeypatch):
+    import itertools
+    import time
+    import types
+
+    from seaweedfs_tpu_torch.storage import needle
+
+    it = itertools.count(1_700_000_000_000_000_000, 1_000)
+    shim = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time) if not k.startswith("_")})
+    shim.time_ns = lambda: next(it)
+    monkeypatch.setattr(needle, "time", shim)
+
+
+def _wait(cond, timeout=30.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+
+
+def _card_tier_run(root, encoder, monkeypatch) -> dict:
+    """One master and one volume server on `encoder()`: 40 needles with
+    fixed fids, the volume tier-moved to a local vendor and read back over
+    HTTP through the remote .dat, fetched back (its sha256 the original's),
+    then VolumeEcShardsGenerate -> what came out."""
+    import hashlib
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.cluster.client import MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    _pinned_needle_clock(monkeypatch)
+
+    def sha(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    def call(method, req):
+        with rpc.RpcClient(vs.grpc_address) as c:
+            return c.call(VOLUME_SERVICE, method, {"volume_id": vid, **req}, timeout=120)
+
+    master = MasterServer(port=0, reap_interval=3600, http_port=None)
+    master.start()
+    (root / "srv").mkdir(parents=True)
+    vs = VolumeServer([str(root / "srv")], master.address, heartbeat_interval=0.3,
+                      encoder=encoder())
+    vs.start()
+    client = MasterClient(master.address)
+    try:
+        vid = int(client.assign().fid.split(",")[0])
+        rng = np.random.default_rng(17)
+        blobs = {}
+        for key in range(1, 41):
+            fid = str(FileId(vid, key, 0x3000 + key))
+            blobs[fid] = rng.bytes(int(rng.integers(500, 6000)))
+            client.upload(fid, blobs[fid])
+        base = vs._base_path_for(vid)
+        call("VolumeMarkReadonly", {})
+        dat = sha(base + ".dat")
+        moved = call("VolumeTierMove", {"destination": {"vendor": "local",
+                                                        "root": str(root / "cold")}})
+        assert vs.store.get_volume(vid).tiered and not os.path.exists(base + ".dat")
+        tiered = {fid: client.read(fid) for fid in blobs}
+        assert tiered == blobs
+        call("VolumeTierFetch", {})
+        assert sha(base + ".dat") == dat
+        call("VolumeEcShardsGenerate", {"large_block_size": 4096, "small_block_size": 512})
+        return {"moved": moved, "dat": dat,
+                "generated": {s: sha(stripe.shard_file_name(base, s)) for s in range(14)}}
+    finally:
+        client.close()
+        vs.stop()
+        master.stop()
+
+
+def test_card_tier_move_read_fetch_and_generate_as_the_cpu_server(card, tmp_path, monkeypatch):
+    """A volume server on the card tiers a volume, serves its needles from
+    the remote .dat, fetches it back and EC-encodes it: the same sizes,
+    keys, .dat and shards as a CPU server's run, with (4, 10) launches."""
+    rs_cuda.reset_launches()
+    on_card = _card_tier_run(tmp_path / "card", rs_codec.new_encoder, monkeypatch)
+    launched = dict(rs_cuda.launches_by_shape)
+    plain = _card_tier_run(tmp_path / "cpu", lambda: rs_codec.Encoder(10, 4, device="cpu"),
+                           monkeypatch)
+    assert on_card == plain
+    assert launched.get((4, 10), 0) >= 1, launched
+
+
+def test_card_quorum_serves_a_degraded_read_after_the_leader_stops(card, tmp_path):
+    """Three masters with `peers` (raft) over a volume server on the card
+    heartbeating to all of them: after EC-encoding a volume and losing two
+    data shards, the leader stops; a new leader of a greater term answers
+    the client's lookups, every needle reads back byte-equal, and the reads
+    reconstruct on the card ((1, 10) launches)."""
+    import socket
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.cluster.client import MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    socks = [socket.socket() for _ in range(3)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    addresses = [f"127.0.0.1:{sk.getsockname()[1]}" for sk in socks]
+    for sk in socks:
+        sk.close()
+    for i in range(3):
+        (tmp_path / f"raft{i}").mkdir()
+    masters = [MasterServer(port=int(a.rsplit(":", 1)[1]), peers=addresses,
+                            raft_dir=str(tmp_path / f"raft{i}"), reap_interval=3600,
+                            http_port=None, election_timeout=(0.25, 0.5))
+               for i, a in enumerate(addresses)]
+    for m in masters:
+        m.start()
+
+    def leader(live):
+        lead = [m for m in live if m.raft.is_leader]
+        if len(lead) == 1 and all(m.raft.leader == lead[0].address for m in live if m is not lead[0]):
+            return lead[0]
+        return None
+
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], ",".join(addresses), heartbeat_interval=0.3,
+                      encoder=rs_codec.new_encoder())
+    vs.start()
+    client = MasterClient(",".join(addresses))
+    stopped = []
+    try:
+        _wait(lambda: leader(masters) is not None, 10)
+        vid = int(client.assign().fid.split(",")[0])
+        rng = np.random.default_rng(19)
+        blobs = {}
+        for key in range(1, 41):
+            fid = str(FileId(vid, key, 0x4000 + key))
+            blobs[fid] = rng.bytes(int(rng.integers(500, 6000)))
+            client.upload(fid, blobs[fid])
+
+        def call(method, req):
+            with rpc.RpcClient(vs.grpc_address) as c:
+                return c.call(VOLUME_SERVICE, method, {"volume_id": vid, **req}, timeout=120)
+
+        call("VolumeMarkReadonly", {})
+        call("VolumeEcShardsGenerate", {"large_block_size": 4096, "small_block_size": 512})
+        call("VolumeDelete", {})
+        call("VolumeEcShardsMount", {})
+        call("VolumeEcShardsDelete", {"shard_ids": [0, 5]})
+        old = leader(masters)
+        old_term = old.raft.term
+        old.stop()
+        stopped.append(old)
+        live = [m for m in masters if m is not old]
+        _wait(lambda: leader(live) is not None, 10)
+        new = leader(live)
+        assert new.raft.term > old_term
+        _wait(lambda: len(new.topology.lookup_ec_shards(vid)) == 12)
+        ev = vs.store.get_ec_volume(vid)
+        if ev.warm_thread is not None:
+            ev.warm_thread.join()
+        rs_cuda.reset_launches()
+        assert {fid: client.read(fid) for fid in blobs} == blobs
+        assert rs_cuda.launches_by_shape.get((1, 10), 0) > 0, dict(rs_cuda.launches_by_shape)
+    finally:
+        client.close()
+        vs.stop()
+        for m in masters:
+            if m not in stopped:
+                m.stop()

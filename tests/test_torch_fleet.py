@@ -280,12 +280,40 @@ def test_master_with_fleet_repair_builds_the_scheduler(tmp_path, monkeypatch):
     twin(_status_enabled, tmp_path, monkeypatch, mp=monkeypatch)
 
 
-def test_master_with_fleet_repair_and_peers_still_raises(monkeypatch):
-    """The scheduler is ported; raft HA is not: `peers` raises with the
-    repair knob on too."""
-    monkeypatch.setenv("WEEDTPU_REPAIR", "on")
-    with pytest.raises(NotImplementedError, match="raft"):
-        PORT.MasterServer(port=0, peers=["127.0.0.1:1", "127.0.0.1:2"], http_port=None)
+def _follower_holds_its_queue(pkg, root, mp):
+    """WEEDTPU_REPAIR=on on a master of a quorum it cannot lead (its two
+    peers never answer): the scheduler runs and keeps its queue, as every
+    master does, but never takes a batch, since only the leader
+    dispatches."""
+    mp.setenv("WEEDTPU_REPAIR", "on")
+    mp.setenv("WEEDTPU_REPAIR_SETTLE_S", "0")
+    out = {}
+    for role, peers in (("follower", ["127.0.0.1:1", "127.0.0.1:2"]), ("single", None)):
+        m = pkg.MasterServer(port=0, reap_interval=3600, http_port=None, peers=peers,
+                             election_timeout=(0.25, 0.5))
+        taken = []
+        m.repair._next_batch = lambda: taken.append(1)  # records a dispatch, takes nothing
+        m.repair.scan = lambda: 0  # the queued stripe is not in the topology: keep it
+        m.start()
+        try:
+            m.repair.queue.update(5, m.repair.queue.priority(2, 1 << 20, 1, 5))
+            m.repair.kick("test")
+            if role == "follower":
+                time.sleep(1.5)  # the dispatch loop re-checks leadership every second
+                assert not m.is_leader and m.raft.term >= 1  # it campaigned, and lost
+                assert taken == [] and len(m.repair.queue) == 1
+            else:
+                wait_for(lambda: taken, msg="the single master to dispatch")
+            out[role] = {"leader": m.is_leader, "took": bool(taken),
+                         "queued": len(m.repair.queue),
+                         "enabled": m._rpc_repair_status({}, None)["enabled"]}
+        finally:
+            m.stop()
+    return out
+
+
+def test_master_with_fleet_repair_and_peers_still_raises(tmp_path, monkeypatch):
+    twin(_follower_holds_its_queue, tmp_path, monkeypatch, mp=monkeypatch)
 
 
 # -- the scheduler end to end (test_fleet.py:479, :679) -----------------------------------

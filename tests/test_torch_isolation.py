@@ -3,9 +3,12 @@
 importing the whole port leaves neither in `sys.modules`. The EC and
 storage path needs neither `grpc` nor `google.protobuf`: only the
 transport (`rpc`, `pb.wire`, `security.tls`) and what stands on it (the
-master, the volume server, their client, the operator shell, the fleet
-repair scheduler and the `server` and `shell` commands) import them, and
-`chip_smoke.py` imports none of those at module level."""
+master, its raft node, the volume server, their client, the operator
+shell, the fleet repair scheduler and the `server` and `shell` commands)
+import them, and `chip_smoke.py` imports none of those at module level;
+the tiering path (the remote vendors, the tier moves, the remote backend,
+the SigV4 signer) imports without them, and the master reaches raft only
+when it is given peers."""
 
 import ast
 import json
@@ -61,7 +64,9 @@ def test_port_has_modules_for_every_layer():
                  "ec/placement.py", "ec/spread.py", "command/servers.py",
                  "shell/__init__.py", "shell/command_cluster.py", "shell/command_ec.py",
                  "shell/command_volume.py", "ec/fleet.py", "ec/slo.py",
-                 "command/bench_tools.py", "scripts/weedload.py", "scripts/chaos_soak.py"):
+                 "command/bench_tools.py", "scripts/weedload.py", "scripts/chaos_soak.py",
+                 "cluster/raft.py", "storage/backend.py", "remote_storage/__init__.py",
+                 "remote_storage/tier.py", "s3api/__init__.py", "s3api/auth.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
@@ -103,6 +108,7 @@ WIRE_MODULES = ("seaweedfs_tpu_torch.rpc", "seaweedfs_tpu_torch.pb.wire",
                 "seaweedfs_tpu_torch.security.tls")
 #: the modules that stand on the transport: each fails to import without grpc
 SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.cluster.master",
+                  "seaweedfs_tpu_torch.cluster.raft",
                   "seaweedfs_tpu_torch.cluster.volume_server", "seaweedfs_tpu_torch.ec.fleet",
                   "seaweedfs_tpu_torch.shell", "seaweedfs_tpu_torch.shell.command_cluster",
                   "seaweedfs_tpu_torch.shell.command_ec",
@@ -112,13 +118,20 @@ SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.clu
 SERVER_COMMANDS = "seaweedfs_tpu_torch.command.servers"
 #: chip_smoke.py's cluster, shell, fleet, load and rack phases: the only
 #: functions there that reach them
-CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm", "run_load", "run_rack")
+CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm", "run_load", "run_rack",
+                 "run_ha", "_ha")
 #: the load harnesses: they reach the transport only inside their functions
 HARNESSES = ("seaweedfs_tpu_torch.scripts.weedload", "seaweedfs_tpu_torch.scripts.chaos_soak")
-#: the servers' pure planners and data structures: they import without it
+#: the servers' pure planners and data structures, and the tiering path
+#: (the vendors, the tier moves, the remote backend, the SigV4 signer):
+#: they import without it
 PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec.placement",
                         "seaweedfs_tpu_torch.cluster.sequence",
-                        "seaweedfs_tpu_torch.cluster.topology", "seaweedfs_tpu_torch.ec.slo")
+                        "seaweedfs_tpu_torch.cluster.topology", "seaweedfs_tpu_torch.ec.slo",
+                        "seaweedfs_tpu_torch.remote_storage",
+                        "seaweedfs_tpu_torch.remote_storage.tier",
+                        "seaweedfs_tpu_torch.storage.backend",
+                        "seaweedfs_tpu_torch.s3api.auth")
 
 
 def _port_imports(path: str, top_level: bool = False, skip: tuple = ()) -> set[str]:
@@ -248,6 +261,15 @@ def test_the_servers_import_grpc_and_the_planners_do_not():
     for mod in PLAIN_SERVER_MODULES:
         assert not _imported_roots(path(mod)) & {"grpc", "google"}, mod
         assert not _port_imports(path(mod)) & set(WIRE_MODULES + SERVER_MODULES), mod
+    # the master reaches raft only when it is given peers (inside __init__)
+    master = path("seaweedfs_tpu_torch.cluster.master")
+    raft = "seaweedfs_tpu_torch.cluster.raft"
+    assert raft not in _port_imports(master, top_level=True)
+    assert raft in _port_imports(master)
+    # a Volume reaches the tier module only when it opens a tiered .dat
+    vol = path("seaweedfs_tpu_torch.storage.volume")
+    assert "seaweedfs_tpu_torch.remote_storage.tier" not in _port_imports(vol, top_level=True)
+    assert "seaweedfs_tpu_torch.remote_storage.tier" in _port_imports(vol)
 
 
 def test_a_generator_worker_opens_no_cuda_context(tmp_path):

@@ -3,8 +3,10 @@ command against the reference's: twins of `tests/test_fleet.py`'s
 placement cases, `test_security_stats.py`'s metrics case and
 `test_proto_wire.py`'s cluster round trip; a mixed cluster (port volume
 servers under a reference master, driven by the reference's client); the
-servers' WEEDTPU_* knobs read against the reference's registry; every
-branch the port leaves out raising loudly; and a subprocess smoke of
+servers' WEEDTPU_* knobs read against the reference's registry; the
+`scaffold` templates and the knob table; a master with `peers` and the
+tier RPCs' refusals as the reference's; every branch the port leaves out
+raising loudly; and a subprocess smoke of
 `python -m seaweedfs_tpu_torch server --device cpu`."""
 
 import os
@@ -324,23 +326,99 @@ def test_security_toml_loads_as_the_reference(tmp_path, monkeypatch):
         port_config.load_configuration("nothing_here", required=True)
 
 
-# -- what the port leaves out raises -------------------------------------------------------
+def test_scaffold_and_env_table_as_the_reference(tmp_path, monkeypatch, capsys):
+    """The twin of test_security_stats.py's scaffold case: every template
+    equals the reference's text, the security one loads as the reference
+    case loads it, and `scaffold -config` prints it; `env_table_markdown`
+    renders any registry as the reference's does, and for the knobs both
+    registries hold, the name, type and default columns are equal (the
+    description column too where the port kept the reference's text)."""
+    assert port_config.SCAFFOLDS == ref_config.SCAFFOLDS
+    for name in ref_config.SCAFFOLDS:
+        assert port_config.scaffold(name) == ref_config.scaffold(name)
+    assert port_config.scaffold("nope") is None
+    text = port_config.scaffold("security")
+    assert "[jwt.signing]" in text
+    (tmp_path / "security.toml").write_text(text.replace('key = ""', 'key = "abc"', 1))
+    monkeypatch.setattr(port_config, "SEARCH_PATHS", [str(tmp_path)])
+    conf = port_config.load_configuration("security")
+    assert port_config.get_nested(conf, "jwt.signing.key") == "abc"
+    assert port_config.get_nested(conf, "jwt.signing.read.key") == ""
+    assert port_config.get_nested(conf, "nope.deep", 42) == 42
+    assert port_config.load_configuration("missing") == {}
+    with pytest.raises(FileNotFoundError):
+        port_config.load_configuration("missing", required=True)
+    import argparse
+
+    for name in ("security", "master", "shell", "filer", "nope"):
+        p = argparse.ArgumentParser()
+        servers._scaffold_conf(p)
+        rc = servers._scaffold_run(p.parse_args(["-config", name]))
+        out, err = capsys.readouterr()
+        assert (rc, out) == ((0, ref_config.scaffold(name)) if name != "nope" else (1, ""))
+    monkeypatch.setattr(port_config, "ENV_REGISTRY", ref_config.ENV_REGISTRY)
+    assert port_config.env_table_markdown() == ref_config.env_table_markdown()
+    monkeypatch.undo()
+    rows = {}
+    for pkg, cfg in (("port", port_config), ("ref", ref_config)):
+        for line in cfg.env_table_markdown().splitlines()[2:]:
+            cells = [c.strip() for c in line.strip("|").split(" | ")]
+            rows.setdefault(cells[0], {})[pkg] = cells
+    shared = [r for r in rows.values() if "port" in r]
+    assert len(shared) == len(port_config.ENV_REGISTRY) and all("ref" in r for r in shared)
+    for r in shared:
+        assert r["port"][:3] == r["ref"][:3], r
+        name = r["port"][0].strip("`")
+        same_doc = (" ".join(port_config.ENV_REGISTRY[name].doc.split())
+                    == " ".join(ref_config.ENV_REGISTRY[name].doc.split()))
+        assert (r["port"] == r["ref"]) == same_doc, r
 
 
-def test_master_with_peers_raises():
-    with pytest.raises(NotImplementedError, match="raft"):
-        PORT.MasterServer(port=0, peers=["127.0.0.1:1", "127.0.0.1:2"], http_port=None)
+# -- what the port leaves out raises; raft and tiering answer as the reference ------------
+
+
+def _peers_master(pkg, root):
+    """A master given `peers` builds its package's RaftNode on its own RPC
+    server and, before any election, is a follower that leads nothing:
+    assign answers with the not-leader reply, the status names no leader."""
+    m = pkg.MasterServer(port=0, peers=["127.0.0.1:1", "127.0.0.1:2"], http_port=None,
+                         reap_interval=3600)
+    try:
+        assert type(m.raft).__module__ == f"{pkg.master.__name__.rsplit('.', 1)[0]}.raft"
+        assert m.raft.peers == ["127.0.0.1:1", "127.0.0.1:2"] and m.raft.me == m.address
+        assert not m.is_leader and m.raft.state == "follower" and m.raft.leader is None
+        status = m._rpc_raft_status({}, None)
+        assert status["servers"] == sorted([m.address, "127.0.0.1:1", "127.0.0.1:2"])
+        return {"status": strip(status), "assign": strip(m._rpc_assign({"count": 1}, None)),
+                "not_leader": strip(m._not_leader_response())}
+    finally:
+        m._server.stop()
+
+
+def test_master_with_peers_raises(tmp_path, monkeypatch):
+    out = twin(_peers_master, tmp_path, monkeypatch)
+    assert out["status"] == {"enabled": True, "state": "follower", "term": 0}
+
+
+def _tier_refusal(pkg, root, method):
+    """The tier RPCs' refusals: a move of a volume that is already tiered,
+    a fetch of one that is not."""
+    with cluster(pkg, root, n=1, heartbeat=0.3) as (master, (vs,), client):
+        vid = vid_of(client.submit(b"tier me").fid)
+        with pkg.rpc.RpcClient(vs.grpc_address) as c:
+            dest = {"vendor": "local", "root": str(root / "cold")}
+            if method == "VolumeTierMove":
+                c.call(pkg.VOLUME_SERVICE, method, {"volume_id": vid, "destination": dest})
+            with pytest.raises(grpc.RpcError) as ei:
+                c.call(pkg.VOLUME_SERVICE, method, {"volume_id": vid, "destination": dest})
+        return {"code": ei.value.code(), "detail": ei.value.details()}
 
 
 @pytest.mark.parametrize("method", ["VolumeTierMove", "VolumeTierFetch"])
-def test_tier_rpcs_answer_unimplemented(tmp_path, method):
-    with cluster(PORT, tmp_path, n=1, heartbeat=0.3) as (master, (vs,), client):
-        vid = vid_of(client.assign().fid)
-        with PORT.rpc.RpcClient(vs.grpc_address) as c:
-            with pytest.raises(grpc.RpcError, match="not ported") as ei:
-                c.call(PORT.VOLUME_SERVICE, method,
-                       {"volume_id": vid, "destination": "s3://bucket"})
-        assert ei.value.code() == grpc.StatusCode.UNIMPLEMENTED
+def test_tier_rpcs_answer_unimplemented(tmp_path, monkeypatch, method):
+    out = twin(_tier_refusal, tmp_path, monkeypatch, method=method)
+    assert out["detail"].endswith("already tiered" if method == "VolumeTierMove"
+                                  else "is not tiered")
 
 
 def test_volume_server_without_a_card_or_encoder_raises(tmp_path, monkeypatch):

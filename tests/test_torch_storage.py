@@ -438,10 +438,38 @@ def test_compact_refuses_an_empty_index_over_data(tmp_path):
         assert after < before and after == super_block.SUPER_BLOCK_SIZE
 
 
-def test_tiered_volume_raises_a_clear_error(tmp_path):
-    (tmp_path / "5.tierinfo").write_text("{}")
-    with pytest.raises(IOError, match="tiered to remote storage"):
-        volume.Volume(str(tmp_path), 5)
+def test_tiered_volume_raises_a_clear_error(tmp_path, clock):
+    """A volume whose .dat moved to remote storage (a `.tierinfo` beside its
+    .idx, no .dat) opens through the port's `RemoteDatFile`, read-only, and
+    serves the reference's bytes; writes and compaction raise, as the
+    reference's do."""
+    from seaweedfs_tpu.remote_storage import LocalRemoteStorage as RefLocal
+    from seaweedfs_tpu.remote_storage.tier import tier_move as ref_tier_move
+    from seaweedfs_tpu_torch.storage.backend import RemoteDatFile
+
+    ids = range(1, 30)
+    with ref_volume.Volume(str(tmp_path), 5) as v:
+        for i in ids:
+            v.write_needle(ref_needle.Needle(**{**_needle_kwargs(i), "id": i, "ttl": b""}))
+        v.delete_needle(3)
+    ref_tier_move(os.path.join(str(tmp_path), "5"), RefLocal(str(tmp_path / "cold")))
+    assert not (tmp_path / "5.dat").exists() and (tmp_path / "5.tierinfo").exists()
+    with volume.Volume(str(tmp_path), 5) as v, ref_volume.Volume(str(tmp_path), 5) as rv:
+        assert isinstance(v._dat, RemoteDatFile) and v.tiered and v.read_only
+        assert v.content_size() == rv.content_size()
+        assert v.stats_snapshot() == rv.stats_snapshot()
+        for i in ids:
+            if i == 3:
+                with pytest.raises(KeyError):
+                    v.read_needle(i)
+                continue
+            assert v.read_needle(i).to_bytes(v.version) == rv.read_needle(i).to_bytes(rv.version)
+        assert v.check_integrity() == rv.check_integrity() == len(ids) - 1
+        with pytest.raises(volume.VolumeReadOnly):
+            v.write_needle(needle.Needle(cookie=1, id=99, data=b"x"))
+        with pytest.raises(IOError, match="tiered to remote storage"):
+            v.compact()
+        assert not v.is_expired()
 
 
 # -- scan / fix -------------------------------------------------------------------
