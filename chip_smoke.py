@@ -18,8 +18,10 @@ Phases, one JSON line each:
            graph, replayed between CUDA events, per launch, their inputs
            rotated over as many buffers as take twice the L2 (at most 20,
            so degraded4k's and degraded64k's take less than the L2)), call_ms
-           (one eager call of the wrapper, its host time included), and
-           bound_ms/bound_by (`measure.bound_ms`: bytes, or the product at
+           (one eager call of the wrapper, its host time included), plain_ms
+           (the plain version: the median of three warm eager calls; dma's,
+           which takes a second or more at the large shapes, one warm call
+           after its checking call), and bound_ms/bound_by (`measure.bound_ms`: bytes, or the product at
            the variant's own tensor-core rate, bf16 989e12 op/s); one case
            has rows that are not 16-byte aligned (offset 3), so that the
            dma kernel's masked producer path runs on the card; the repair
@@ -131,12 +133,14 @@ Phases, one JSON line each:
            (3, 20) launch per batch), remounted, and `verify_ec_volume` all
            ok with no quarantine entry left in the cursor
   store    on an emptied scratch directory, upstream's `weed benchmark`
-           volume (1 048 576 files of 1 KiB, collection benchmark,
-           replication 000) through the port's `Store`: every needle written
+           volume (files of 1 KiB, collection benchmark, replication 000;
+           524 288 of its 1 048 576 for the script's time) through the
+           port's `Store`: every needle written
            (needles/s), a seeded tenth deleted, a seeded sample of 4096 read
            with cookies (live ones equal their data, deleted ones not found);
            `fix` from the .dat alone (the rebuilt .idx replays to the same
-           map), `export` (one line per live needle), `compact`, and a
+           map), `export` (one record per live needle, ascending, each with
+           its cookie and size), `compact`, and a
            fresh `Store.load()` with the memory map and twice with the
            sorted_file map (the first builds the .sdx), the sample read after
            each; then `command.local.encode` on the card, shards 0/5/10/13
@@ -209,6 +213,37 @@ Phases, one JSON line each:
            directory resumes a term at least its old one, follows the
            leader within 10 s, and `cluster.raft.ps` against it names the
            leader
+  filer    (on an emptied scratch directory) the SeaweedFS wiki's "Filer
+           Setup" over its "Erasure Coding for warm storage", in this
+           process: a port master, three VolumeServers on the card (racks
+           rack0-rack2, six volumes of collection warm grown up front) and
+           a FilerServer on the log store (4 MiB chunks, its chunk cache
+           off). (1) 1024 seeded files, sizes log-uniform from 4 KiB to 8 MiB,
+           in 4 x 8 directories, each by HTTP PUT from 8 threads (each
+           reply's etag the file's md5; seconds, files/s, MB/s); (2) `lock;
+           ec.encode -collection warm -force; unlock` through the port shell
+           ((4, 10) launches only, every volume of the collection EC'd);
+           (3) data shards 0 and 5 deleted on their holders; (4) every file
+           by HTTP GET through the filer, serially, server caches cleared,
+           hedging off: each file's sha256 the written one, p50/p99 by class
+           (degraded: a chunk on a lost shard; healthy), launches exactly
+           (1, 10) x the lost shards the chunks' needles touch (from the
+           .ecx and `ec.locate`); (5) 256 seeded 64 KiB ranges (server
+           caches off), each equal to the file's bytes, launches predicted
+           the same way; (6) the default caches (the servers' decoded-
+           interval cache, the filer's 64 MiB chunk cache; hedging still
+           off) over 48 MiB of degraded files: first the predicted launches
+           and a chunk cache miss per chunk, then with the chunk cache off
+           an interval cache hit per lost interval and no launch, then with
+           it on a chunk cache hit per chunk and no launch; (7) 32 more
+           files into a fresh plain volume, `fs.du` and `fs.tree` (counts and bytes), `fs.mv` of a
+           leaf directory (the moved files read back, the old paths 404),
+           `fs.rm -r` of leaf directories holding a tenth of the files (they
+           404, their chunks no longer read), `volume.fsck -cutoffTimeAgo 0`
+           (0 orphans, 0 missing); (8) `fs.meta.save` of the namespace, the
+           filer stopped and started again on its store and ports, the
+           second dump byte-equal to the first, files read back. Prints
+           launches by shape and kernel ms x launches against the wall
   shell    (on an emptied scratch directory) the SeaweedFS wiki's EC
            deployment: a port master with WEEDTPU_REPAIR=on and a 256 MiB
            volume size limit, five volume servers in racks r0-r4 (each on
@@ -331,9 +366,10 @@ C12_LOST = (0, 5, 13)
 SCRUB_DAMAGE = {5: "corrupt", 9: "truncated", 21: "missing"}
 #: needles sampled for the convert and scrub phases' reads
 NEEDLES = 64
-#: the store phase: upstream's `weed benchmark` volume (-n 1048576 -size
-#: 1024), a seeded tenth deleted, a seeded sample of reads, and its volume id
-STORE_FILES = 1 << 20
+#: the store phase: upstream's `weed benchmark` volume (-size 1024; half its
+#: -n 1048576, for the script's time), a seeded tenth deleted, a seeded
+#: sample of reads, and its volume id
+STORE_FILES = 1 << 19
 STORE_SIZE = 1024
 STORE_DELETE = 0.10
 STORE_SAMPLE = 4096
@@ -347,6 +383,16 @@ def check(ok: bool, what) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _put_env(knobs: dict) -> None:
+    """Set each environment variable to its value, or unset it where the
+    value is None (as a phase found it, from `os.environ.get`)."""
+    for name, value in knobs.items():
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
 
 
 #: variant -> (kernel name, source, the TPU kernel it replaces)
@@ -444,7 +490,14 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
                 row["rotated_inputs"] = n_bufs
                 del bufs
                 row["call_ms"] = measure.eager_ms(lambda: rs_cuda.apply_matrix(m, data, variant=v), 50)
-                row["plain_ms"] = measure.eager_ms(lambda: rs_cuda.plain_apply(m, data, variant=v), 3)
+                # dma's plain version steps its ring in PyTorch, a second or
+                # more a call at the large shapes: the checking call above
+                # warms it, and one call is timed
+                def plain():
+                    return rs_cuda.plain_apply(m, data, variant=v)
+
+                row["plain_ms"] = (measure.eager_ms(plain, 1, warmed=True) if v == "dma"
+                                   else measure.eager_ms(plain, 3))
                 row["bound_ms"], row["bound_by"] = measure.bound_ms(v, c, r, n, batch)
                 row["kernel_gbps"] = (c + r) * n * batch / row["kernel_ms"] / 1e6
             outs[v] = got
@@ -779,11 +832,7 @@ def degraded_read(base: str, enc, keys: list, size: int, seed: int, card: str) -
                 except cls:
                     pass
     finally:
-        for k, v in env0.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        _put_env(env0)
         read_planner.CACHE.clear()
     n_deg = len(lat["degraded"])
     return {
@@ -1712,7 +1761,8 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     sample = sorted((rng.choice(files, min(STORE_SAMPLE, files), replace=False) + 1).tolist())
     out = {"card": card, "source": "weed/command/benchmark.go: -n 1048576 -size 1024 "
            "-collection benchmark -replication 000",
-           "reduced": [f"{len(deleted)} seeded deletes added (upstream -deletePercent 0)",
+           "reduced": [f"{files} needles, not upstream's -n 1048576 (the script's time)",
+                       f"{len(deleted)} seeded deletes added (upstream -deletePercent 0)",
                        f"reads cut to a seeded sample of {len(sample)} of {files}"],
            "files": files, "file_bytes": STORE_SIZE, "crc32c": native.crc32c_impl()}
 
@@ -1752,14 +1802,19 @@ def run_store(scratch: str, seed: int, card: str, files: int = STORE_FILES,
     out["fix"] = {"seconds": fix_s, "records": fixed["records"],
                   "live": len(maps[1]), "idx_bytes_equal": same_bytes}
 
-    # 4: export the live needles
+    # 4: export the live needles, one JSON line each, ascending by id
     t0 = time.perf_counter()
-    lines = 0
+    live = [i for i in range(1, files + 1) if i not in deleted]
+    lines = wrong = 0
     with open(os.path.join(scratch, "store_export.jsonl"), "w") as f:
         for rec in local.export(base):
+            nid = live[lines] if lines < len(live) else 0
+            wrong += (rec["id"], rec["cookie"], rec["data_size"]) != (
+                f"{nid:x}", f"{cookies[nid - 1]:08x}", STORE_SIZE)
             f.write(json.dumps(rec) + "\n")
             lines += 1
-    check(lines == files - len(deleted), f"export wrote {lines} lines")
+    check(lines == len(live) and not wrong,
+          f"export wrote {lines} lines for {len(live)} live needles, {wrong} of them wrong")
     out["export"] = {"seconds": time.perf_counter() - t0, "lines": lines,
                      "bytes": os.path.getsize(os.path.join(scratch, "store_export.jsonl"))}
     os.remove(os.path.join(scratch, "store_export.jsonl"))
@@ -2030,10 +2085,7 @@ def run_obs(state: dict, seed: int, card: str, device: str = "cuda") -> dict:
         debug.shutdown()
         debug.server_close()
         trace.RING = saved_ring
-        if saved_env is None:
-            os.environ.pop("WEEDTPU_TRACE", None)
-        else:
-            os.environ["WEEDTPU_TRACE"] = saved_env
+        _put_env({"WEEDTPU_TRACE": saved_env})
     cost = {k: {q: (passes["on"]["by_class"][k][q] - passes["off"]["by_class"][k][q])
                 for q in ("p50_ms", "p99_ms")} for k in ("local", "degraded")}
     return {
@@ -2276,10 +2328,7 @@ def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict
         # with the default hedging
         passes = {}
         for name, hedge in (("serial", "off"), ("hedged", None)):
-            if hedge is None:
-                os.environ.pop("WEEDTPU_HEDGE_READS", None)
-            else:
-                os.environ["WEEDTPU_HEDGE_READS"] = hedge
+            _put_env({"WEEDTPU_HEDGE_READS": hedge})
             read_planner.CACHE.clear()
             _cluster_join_warm(servers)
             shape0 = dict(rs_cuda.launches_by_shape)
@@ -2395,10 +2444,7 @@ def run_cluster(state: dict, seed: int, card: str, device: str = "cuda") -> dict
             vs.stop()
         master.stop()
         trace.RING = saved_ring
-        if saved_hedge is None:
-            os.environ.pop("WEEDTPU_HEDGE_READS", None)
-        else:
-            os.environ["WEEDTPU_HEDGE_READS"] = saved_hedge
+        _put_env({"WEEDTPU_HEDGE_READS": saved_hedge})
     out["seconds"] = time.perf_counter() - t_phase
     out["launches"] = dict(rs_cuda.launches_by_variant)
     check(out["launches"].get(a.store.encoder.variant, 0) > 0 or not on_card,
@@ -2766,6 +2812,466 @@ def run_ha(state: dict, seed: int, card: str, device: str = "cuda") -> dict:
     out["launches"] = dict(rs_cuda.launches_by_variant)
     check(out["launches"].get(servers[0].store.encoder.variant, 0) > 0 or not on_card,
           "the ha path never launched the factory's kernel")
+    return out
+
+
+#: the filer phase's deployment: the SeaweedFS wiki's "Filer Setup" (one
+#: `weed filer` over a master, default -maxMB 4 chunking, the log store)
+#: and "Erasure Coding for warm storage" (the filer's collection encoded by
+#: `ec.encode`); 1024 files log-uniform from 4 KiB to 8 MiB in 4 x 8
+#: directories
+FILER_FILES = 1024
+FILER_MIN, FILER_MAX = 4 << 10, 8 << 20
+FILER_TREE = (4, 8)
+FILER_WRITERS = 8
+FILER_VOLUMES = 6  # grown up front, two per server (upstream grows 7 at a time for 000)
+FILER_COLLECTION = "warm"
+FILER_LOST = (0, 5)
+FILER_RANGES = 256
+FILER_RANGE = 64 << 10
+FILER_LATE = 32
+FILER_REPEAT_BYTES = 48 << 20  # the degraded files read again with the default caches
+
+
+def _filer_files(seed: int, n: int, lo: int, hi: int) -> list:
+    """[(path, size, data seed)]: log-uniform sizes in [lo, hi], each file
+    in one of the FILER_TREE leaf directories, all seeded."""
+    rng = np.random.default_rng(seed + 1800)
+    sizes = np.exp(rng.uniform(np.log(lo), np.log(hi), n)).astype(np.int64)
+    leaves = rng.integers(0, FILER_TREE[0] * FILER_TREE[1], n)
+    return [(f"/{FILER_COLLECTION}/t{leaf // FILER_TREE[1]}/d{leaf % FILER_TREE[1]}/f{i:04d}.bin",
+             int(size), seed * 100_000 + i) for i, (size, leaf) in enumerate(zip(sizes, leaves))]
+
+
+def _filer_data(data_seed: int, size: int) -> bytes:
+    return np.random.default_rng(data_seed).bytes(size)
+
+
+def _filer_put(conns: threading.local, url: str, path: str, data: bytes) -> dict:
+    """One HTTP PUT on this thread's keep-alive connection -> its JSON reply."""
+    import http.client
+    import urllib.parse
+
+    conn = getattr(conns, "c", None)
+    if conn is None:
+        host, port = url.rsplit(":", 1)
+        conn = conns.c = http.client.HTTPConnection(host, int(port), timeout=120)
+    conn.request("PUT", urllib.parse.quote(path), body=data)
+    r = conn.getresponse()
+    body = r.read()
+    check(r.status == 201, f"PUT {path}: {r.status} {body[:200]!r}")
+    return json.loads(body)
+
+
+def _filer_get(conn, path: str, rng: tuple | None = None) -> tuple[int, bytes]:
+    import urllib.parse
+
+    headers = {"Range": f"bytes={rng[0]}-{rng[1] - 1}"} if rng else {}
+    conn.request("GET", urllib.parse.quote(path), headers=headers)
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def _filer_chunk_shards(servers: list, vids: set, chunks_of: dict, coll: str) -> dict:
+    """{fid: the shards its needle's intervals lie on}, from each EC
+    volume's .ecx and .eci on a server that holds them."""
+    keys: dict[int, set] = {}
+    for chunks in chunks_of.values():
+        for fid in chunks:
+            vid, rest = fid.split(",")
+            keys.setdefault(int(vid), set()).add(int(rest[:-8], 16))
+    out: dict = {}
+    for vid in vids:
+        base = next((b for b in (vs._base_path_for(vid, coll) for vs in servers)
+                     if os.path.exists(b + ".ecx")), None)
+        check(base is not None, f"no server holds the .ecx of volume {vid}")
+        by_key = _needle_shards(base, sorted(keys.get(vid, ())))
+        for chunks in chunks_of.values():
+            for fid in chunks:
+                v, rest = fid.split(",")
+                if int(v) == vid:
+                    out[fid] = by_key[int(rest[:-8], 16)]
+    return out
+
+
+def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str = "cuda",
+              files: int = FILER_FILES, max_bytes: int = FILER_MAX) -> dict:
+    """The filer phase (see the module doc): files through the port's filer
+    onto card volume servers, EC-encoded, read back degraded."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch import rpc, stats
+    from seaweedfs_tpu_torch.cluster.client import ClusterError, MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.filer import FilerServer, make_store
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.utils.chunk_cache import ChunkCache
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    root, coll = os.path.join(scratch, "filer"), FILER_COLLECTION
+    meta = os.path.join(root, "meta")
+    os.makedirs(meta)
+    http_port, grpc_port = _free_ports(2)
+    rs_cuda.reset_launches()  # the filer path's run starts here
+    master = MasterServer(port=0, reap_interval=3600)
+    servers, envs, filers, conns = [], [], [], []
+    saved_hedge = os.environ.get("WEEDTPU_HEDGE_READS")
+    saved_cache = os.environ.get("WEEDTPU_READ_CACHE_MB")
+    out = {"card": card,
+           "source": "SeaweedFS wiki, Filer Setup (weed filer -maxMB 4 over a master, the "
+                     "leveldb-like log store) and Erasure Coding for warm storage (ec.encode "
+                     "of the filer's collection)",
+           "reduced": [f"{files} files of {FILER_MIN}-{max_bytes} bytes, not a deployment's "
+                       "millions", f"{FILER_VOLUMES} volumes grown up front, each far below "
+                       "30 GB", "one host: master, 3 volume servers, the filer and the shell "
+                       "in one process over loopback gRPC and HTTP"],
+           "files": files, "dirs": FILER_TREE[0] * FILER_TREE[1], "chunk_size": 4 << 20,
+           "volumes": FILER_VOLUMES, "lost": list(FILER_LOST)}
+
+    def start_filer(cache_bytes: int = 0):
+        fs = FilerServer(master.address, store=make_store("log", meta), port=http_port,
+                         grpc_port=grpc_port, log_dir=meta, collection=coll,
+                         chunk_cache_bytes=cache_bytes)
+        fs.start()
+        filers.append(fs)
+        _cluster_wait(lambda: any(f["grpc_address"] == fs.grpc_address for f in
+                                  master._rpc_list_cluster_nodes({}, None)["filers"]),
+                      "the filer to announce itself")
+        return fs
+
+    def shell(script: str) -> tuple[str, float, dict]:
+        env = CommandEnv(master.address, device=device)
+        envs.append(env)
+        buf = io.StringIO()
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t = time.perf_counter()
+        for cmd in script.split(";"):
+            run_command(env, cmd.strip(), buf)
+        return buf.getvalue(), time.perf_counter() - t, _shape_launches(shape0)
+
+    def call(vs, method: str, req: dict) -> dict:
+        with rpc.RpcClient(vs.grpc_address) as c:
+            return c.call(VOLUME_SERVICE, method, {"collection": coll, **req}, timeout=600)
+
+    def connection(fs):
+        c = http.client.HTTPConnection("127.0.0.1", fs.port, timeout=120)
+        conns.append(c)
+        return c
+
+    try:
+        master.start()
+        for i in range(3):
+            d = os.path.join(root, f"srv{i}")
+            os.makedirs(d)
+            vs = VolumeServer([d], master.address, heartbeat_interval=0.4, rack=f"rack{i}",
+                              encoder=rs_codec.new_encoder(device=device))
+            vs.start()
+            servers.append(vs)
+        _cluster_wait(lambda: len(master.topology.nodes) == 3, "three volume servers")
+        grown = master._rpc_volume_grow({"collection": coll, "count": FILER_VOLUMES}, None)
+        check(grown["grown"] == FILER_VOLUMES, f"volume grow: {grown}")
+        fs = start_filer()
+
+        # 1: the seeded files through the filer's HTTP PUT from FILER_WRITERS
+        # threads (each file's sha256 kept, its etag its md5)
+        plan = _filer_files(seed, files, FILER_MIN, max_bytes)
+        local = threading.local()
+
+        def put(item) -> tuple:
+            path, size, ds = item
+            data = _filer_data(ds, size)
+            t = time.perf_counter()
+            reply = _filer_put(local, fs.url, path, data)
+            ms = (time.perf_counter() - t) * 1e3
+            check(reply["size"] == size and reply["etag"] == hashlib.md5(data).hexdigest(),
+                  f"PUT {path}: {reply}")
+            return hashlib.sha256(data).hexdigest(), ms
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(FILER_WRITERS) as pool:
+            puts = list(pool.map(put, plan))
+        write_s = time.perf_counter() - t0
+        total = sum(size for _, size, _ in plan)
+        digest = {path: h for (path, _, _), (h, _) in zip(plan, puts)}
+        sizes = {path: size for path, size, _ in plan}
+        chunks_of = {path: [c.fid for c in fs.filer.find_entry(path).chunks] for path in sizes}
+        check(all(len(c) == -(-sizes[p] // (4 << 20)) for p, c in chunks_of.items()),
+              "a file's chunk count is not ceil(size / 4 MiB)")
+        ms = [m for _, m in puts]
+        out["write"] = {"seconds": write_s, "files_per_s": files / write_s,
+                        "mb_per_s": total / write_s / 1e6, "bytes": total,
+                        "chunks": sum(map(len, chunks_of.values())),
+                        "p50_ms": _pct(ms, 0.5), "p99_ms": _pct(ms, 0.99),
+                        "writers": FILER_WRITERS}
+
+        # 2: ec.encode of every volume of the collection through the shell
+        vids = {v for n in master.topology.nodes.values()
+                for v, vi in n.volumes.items() if vi.collection == coll}
+        check(vids == {int(f.split(",")[0]) for c in chunks_of.values() for f in c},
+              f"the collection's volumes {sorted(vids)} hold other chunks")
+        dat_bytes = sum(os.path.getsize(vs.store.get_volume(v).base_path + ".dat")
+                        for vs in servers for v in vids if vs.store.get_volume(v) is not None)
+        text, enc_s, enc_shape = shell(f"lock; ec.encode -collection {coll} -force; unlock")
+        check(all(f"ec.encode volume {v}" in text for v in vids), f"ec.encode: {text}")
+        _cluster_wait(lambda: all(len(master.topology.lookup_ec_shards(v)) == 14 for v in vids)
+                      and not any(master.topology.lookup(v, coll) for v in vids),
+                      "every volume of the collection EC-encoded")
+        # (4, 10) per batch, and each mounted EC volume's (1, 10) warm-ups
+        check(set(enc_shape) <= {(4, 10), (1, 10)} and (enc_shape.get((4, 10), 0) > 0
+                                                         if on_card else not enc_shape),
+              f"ec.encode launched {enc_shape}")
+        out["encode"] = {"seconds": enc_s, "volumes": len(vids), "dat_bytes": dat_bytes,
+                         "gbps": dat_bytes / enc_s / 1e9,
+                         "launches_by_shape": _shape_keys(enc_shape)}
+
+        # 3: two data shards lost cluster-wide
+        for vid in vids:
+            for vs in servers:
+                ev = vs.store.get_ec_volume(vid)
+                mine = [s for s in FILER_LOST if ev is not None and s in ev.shard_ids]
+                if mine:
+                    call(vs, "VolumeEcShardsDelete", {"volume_id": vid, "shard_ids": mine})
+        _cluster_wait(lambda: all(len([s for s, ns in master.topology.lookup_ec_shards(v).items()
+                                       if ns]) == 12 for v in vids),
+                      "the master to list 12 shards of every volume")
+        for vs in servers:
+            for vid in vids:
+                ev = vs.store.get_ec_volume(vid)
+                if ev is not None and ev.warm_thread is not None:
+                    ev.warm_thread.join()
+        shards = _filer_chunk_shards(servers, vids, chunks_of, coll)
+        lost = set(FILER_LOST)
+        degraded = {p for p, cs in chunks_of.items() if any(shards[f] & lost for f in cs)}
+
+        def predict(fids) -> int:  # one (1, 10) launch per lost shard a needle touches
+            return sum(len(shards[f] & lost) for f in fids)
+
+        # 4: the cold pass: every file by HTTP GET through the filer, serially,
+        # chunk cache off, server caches cleared, hedging off
+        os.environ["WEEDTPU_HEDGE_READS"] = "off"
+        read_planner.CACHE.clear()
+        order = [plan[i][0] for i in np.random.default_rng(seed + 1801).permutation(files)]
+        conn = connection(fs)
+
+        def read_pass(paths) -> dict:
+            by_class = {"degraded": [], "healthy": []}
+            mib = {"degraded": [], "healthy": []}  # the files of 0.5-2 MiB
+            shape0 = dict(rs_cuda.launches_by_shape)
+            t = time.perf_counter()
+            for p in paths:
+                t1 = time.perf_counter()
+                status, body = _filer_get(conn, p)
+                ms = (time.perf_counter() - t1) * 1e3
+                check(status == 200 and len(body) == sizes[p]
+                      and hashlib.sha256(body).hexdigest() == digest[p], f"GET {p} differs")
+                klass = "degraded" if p in degraded else "healthy"
+                by_class[klass].append(ms)
+                if 512 << 10 <= sizes[p] < 2 << 20:
+                    mib[klass].append(ms)
+            seconds = time.perf_counter() - t
+            n = sum(sizes[p] for p in paths)
+            return {"seconds": seconds, "files": len(paths), "mb_per_s": n / seconds / 1e6,
+                    "launches": _shape_launches(shape0), **{
+                        k: {"files": len(v), "p50_ms": _pct(v, 0.5), "p99_ms": _pct(v, 0.99),
+                            "p50_ms_1mib": _pct(mib[k], 0.5)}
+                        for k, v in by_class.items()}}
+
+        cold = read_pass(order)
+        cold_pred = predict([f for p in order for f in chunks_of[p]])
+        check(cold["launches"] == ({(1, 10): cold_pred} if on_card and cold_pred else {}),
+              f"the cold pass launched {cold['launches']}, predicted (1, 10) x {cold_pred}")
+        cold["launches_by_shape"] = _shape_keys(cold.pop("launches"))
+        cold["predicted_1x10"] = cold_pred
+
+        # 5: FILER_RANGES seeded 64 KiB ranges (server caches off: each
+        # range reads its chunks' whole needles, decoding every lost interval)
+        os.environ["WEEDTPU_READ_CACHE_MB"] = "0"
+        rng = np.random.default_rng(seed + 1802)
+        big = [e for e in plan if e[1] > FILER_RANGE]
+        picks = [big[int(i)] for i in rng.integers(0, len(big), FILER_RANGES)]
+        shape0 = dict(rs_cuda.launches_by_shape)
+        range_ms, range_fids = [], []
+        t0 = time.perf_counter()
+        for path, size, ds in picks:
+            lo = int(rng.integers(0, size - FILER_RANGE + 1))
+            t1 = time.perf_counter()
+            status, body = _filer_get(conn, path, (lo, lo + FILER_RANGE))
+            range_ms.append((time.perf_counter() - t1) * 1e3)
+            check(status == 206 and body == _filer_data(ds, size)[lo: lo + FILER_RANGE],
+                  f"range {lo} of {path} differs")
+            c0, c1 = lo // (4 << 20), (lo + FILER_RANGE - 1) // (4 << 20)
+            range_fids += chunks_of[path][c0: c1 + 1]
+        range_s = time.perf_counter() - t0
+        range_shape = _shape_launches(shape0)
+        range_pred = predict(range_fids)
+        check(range_shape == ({(1, 10): range_pred} if on_card and range_pred else {}),
+              f"the range reads launched {range_shape}, predicted (1, 10) x {range_pred}")
+        out["ranges"] = {"reads": FILER_RANGES, "bytes": FILER_RANGE, "seconds": range_s,
+                         "p50_ms": _pct(range_ms, 0.5), "p99_ms": _pct(range_ms, 0.99),
+                         "launches_by_shape": _shape_keys(range_shape),
+                         "predicted_1x10": range_pred}
+
+        # 6: the default caches over the first degraded files of the cold
+        # pass's order (FILER_REPEAT_BYTES in all), hedging still off so that
+        # the prediction holds: (a) the servers' decoded-interval cache at
+        # its defaults and cleared, the filer's 64 MiB chunk cache on: the
+        # predicted launches, a chunk cache miss per chunk; (b) the same files
+        # with the chunk cache off, within the interval cache's TTL: a hit per
+        # lost interval (one per lost shard a needle touches), no launch;
+        # (c) again with the chunk cache: a hit per chunk, no server lookup
+        _put_env({"WEEDTPU_READ_CACHE_MB": saved_cache})
+        read_planner.CACHE.clear()
+        fs.chunk_io.cache = cache = ChunkCache()
+        repeat, held = [], 0
+        for p in [q for q in order if q in degraded]:
+            if held + sizes[p] > FILER_REPEAT_BYTES:
+                break
+            repeat.append(p)
+            held += sizes[p]
+        fids = [f for p in repeat for f in chunks_of[p]]
+        pred = predict(fids)
+
+        def cached_pass() -> tuple[dict, dict]:
+            rc0 = (stats.ReadCacheHits.value, stats.ReadCacheMisses.value)
+            cc0 = (cache.hits, cache.misses)
+            res = read_pass(repeat)
+            launched = res.pop("launches")
+            res["launches_by_shape"] = _shape_keys(launched)
+            res["interval_cache"] = {"hits": stats.ReadCacheHits.value - rc0[0],
+                                     "misses": stats.ReadCacheMisses.value - rc0[1]}
+            res["chunk_cache"] = {"hits": cache.hits - cc0[0], "misses": cache.misses - cc0[1]}
+            return res, launched
+
+        what = f"over {len(repeat)} files, {len(fids)} chunks, predicted (1, 10) x {pred}"
+        first, launched = cached_pass()
+        check(launched == ({(1, 10): pred} if on_card else {})
+              and first["interval_cache"]["hits"] == 0
+              and first["chunk_cache"] == {"hits": 0, "misses": len(fids)},
+              f"the first cached pass {what}: {first}")
+        fs.chunk_io.cache = None
+        by_interval, launched = cached_pass()
+        check(not launched and by_interval["interval_cache"]["hits"] == pred,
+              f"the interval cache's repeat {what}: {by_interval}")
+        fs.chunk_io.cache = cache
+        by_chunk, launched = cached_pass()
+        check(not launched and by_chunk["chunk_cache"] == {"hits": len(fids), "misses": 0}
+              and by_chunk["interval_cache"] == {"hits": 0, "misses": 0},
+              f"the chunk cache's repeat {what}: {by_chunk}")
+        _put_env({"WEEDTPU_HEDGE_READS": saved_hedge})
+        out["reads"] = {"cold": cold, "degraded_files": len(degraded),
+                        "default_caches": {"files": len(repeat), "bytes": held, "chunks": len(fids),
+                                           "predicted_1x10": pred, "first": first,
+                                           "interval_cache": by_interval,
+                                           "chunk_cache": by_chunk}}
+
+        # 7: FILER_LATE more files after the encode (a fresh, plain volume:
+        # the one volume.fsck audits), then fs.du, fs.tree, fs.mv of a leaf
+        # subtree, fs.rm -r of a tenth of the files, volume.fsck
+        late = [(f"/{coll}/t{i % FILER_TREE[0]}/d{i // FILER_TREE[0] % FILER_TREE[1]}/"
+                 f"late{i:02d}.bin", int(s), seed * 100_000 + 50_000 + i)
+                for i, s in enumerate(np.random.default_rng(seed + 1803).integers(
+                    4 << 10, 1 << 20, FILER_LATE))]
+        for path, size, ds in late:
+            data = _filer_data(ds, size)
+            _filer_put(local, fs.url, path, data)
+            digest[path], sizes[path] = hashlib.sha256(data).hexdigest(), size
+            chunks_of[path] = [c.fid for c in fs.filer.find_entry(path).chunks]
+        all_bytes = sum(sizes.values())
+        n_dirs = FILER_TREE[0] + FILER_TREE[0] * FILER_TREE[1]
+        du, du_s, _ = shell(f"fs.du /{coll}")
+        check(f"/{coll}: {len(sizes)} files, {all_bytes} bytes" in du, f"fs.du: {du}")
+        tree, tree_s, _ = shell(f"fs.tree /{coll}")
+        check(tree.rstrip().endswith(f"{n_dirs} directories, {len(sizes)} files"),
+              f"fs.tree: {tree[-200:]}")
+        src, dst = f"/{coll}/t{FILER_TREE[0] - 1}/d{FILER_TREE[1] - 1}", f"/{coll}/t0/moved"
+        moved = sorted(p for p in sizes if p.startswith(src + "/"))
+        mv, mv_s, _ = shell(f"fs.mv {src} {dst}")
+        for p in moved:
+            q = dst + p[len(src):]
+            digest[q], sizes[q], chunks_of[q] = digest.pop(p), sizes.pop(p), chunks_of.pop(p)
+            status, body = _filer_get(conn, q)
+            check(status == 200 and hashlib.sha256(body).hexdigest() == digest[q],
+                  f"{q} after fs.mv")
+            check(_filer_get(conn, p)[0] == 404, f"{p} still there after fs.mv")
+        leaves = sorted({p.rsplit("/", 1)[0] for p in sizes})
+        doomed, gone = [], []
+        for leaf in (leaves[int(i)] for i in np.random.default_rng(seed + 1804).permutation(
+                len(leaves))):
+            if len(gone) * 10 >= len(sizes):
+                break
+            doomed.append(leaf)
+            gone += [p for p in sizes if p.startswith(leaf + "/")]
+        rm, rm_s, _ = shell("; ".join(f"fs.rm -r {d}" for d in doomed))
+        gone_fids = [f for p in gone for f in chunks_of[p]]
+        for p in gone:
+            check(_filer_get(conn, p)[0] == 404, f"{p} still there after fs.rm -r")
+            digest.pop(p), sizes.pop(p), chunks_of.pop(p)
+        reader = MasterClient(master.address)
+        try:
+            for fid in gone_fids[:: max(1, len(gone_fids) // 32)]:
+                try:
+                    reader.read(fid)
+                    check(False, f"a chunk of a removed file still reads: {fid}")
+                except ClusterError:
+                    pass
+        finally:
+            reader.close()
+        fsck, fsck_s, _ = shell("lock; volume.fsck -cutoffTimeAgo 0; unlock")
+        check("volume.fsck: found 0 orphan needles (0 bytes), 0 missing references" in fsck
+              and "orphan" not in fsck.replace("found 0 orphan", ""), f"volume.fsck: {fsck}")
+        out["namespace"] = {"du_s": du_s, "tree_s": tree_s, "mv_s": mv_s, "moved": len(moved),
+                            "rm_s": rm_s, "removed_dirs": len(doomed), "removed": len(gone),
+                            "removed_chunks": len(gone_fids), "live": len(sizes),
+                            "late_files": FILER_LATE, "fsck_s": fsck_s,
+                            "fsck": fsck.strip().splitlines()[-2]}
+
+        # 8: fs.meta.save, a filer restart on the same store and ports, again
+        dumps = [os.path.join(root, "meta_before.jsonl"), os.path.join(root, "meta_after.jsonl")]
+        saved, save_s, _ = shell(f"fs.meta.save -o {dumps[0]} /")
+        conn.close()
+        t0 = time.perf_counter()
+        fs.stop()
+        filers.remove(fs)
+        fs = start_filer(64 << 20)
+        restart_s = time.perf_counter() - t0
+        conn = connection(fs)
+        saved2, _, _ = shell(f"fs.meta.save -o {dumps[1]} /")
+        with open(dumps[0], "rb") as a, open(dumps[1], "rb") as b:
+            before, after = a.read(), b.read()
+        check(before == after and saved.split(" to ")[0] == saved2.split(" to ")[0],
+              "fs.meta.save differs across the filer restart")
+        for p in sorted(sizes)[:: max(1, len(sizes) // 64)]:
+            status, body = _filer_get(conn, p)
+            check(status == 200 and hashlib.sha256(body).hexdigest() == digest[p],
+                  f"{p} after the restart")
+        out["restart"] = {"seconds": restart_s, "meta_save_s": save_s,
+                          "entries": before.count(b"\n"), "bytes": len(before),
+                          "byte_equal": True}
+    finally:
+        _put_env({"WEEDTPU_HEDGE_READS": saved_hedge, "WEEDTPU_READ_CACHE_MB": saved_cache})
+        for c in conns:
+            c.close()
+        for env in envs:
+            env.close()
+        halt = [threading.Thread(target=s.stop) for s in [*filers, *servers, master]]
+        for t in halt:
+            t.start()
+        for t in halt:
+            t.join()
+    out["seconds"] = time.perf_counter() - t_phase
+    by_shape = dict(rs_cuda.launches_by_shape)
+    out["launches_by_shape"] = _shape_keys(by_shape)
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    out["busy"] = _busy(by_shape, kernel_ms, out["seconds"])
+    check(all(c == 10 for _, c in by_shape) and (by_shape.get((1, 10), 0) > 0 if on_card
+                                                  else not by_shape),
+          f"the filer path launched {by_shape}")
     return out
 
 
@@ -3153,10 +3659,7 @@ def run_storm(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
             if i not in stopped:
                 vs.stop()
         master.stop()
-        if saved is None:
-            os.environ.pop("WEEDTPU_REPAIR", None)
-        else:
-            os.environ["WEEDTPU_REPAIR"] = saved
+        _put_env({"WEEDTPU_REPAIR": saved})
     return shell, fleet
 
 
@@ -3470,11 +3973,15 @@ def main(argv=None) -> int:
         slice_lines["ha"] = run_ha(obs_state, args.seed, card)
         del obs_state
         emit({"phase": "ha", **slice_lines["ha"]})
-        shutil.rmtree(SCRATCH)  # the storm starts on an empty directory
-        os.makedirs(SCRATCH)
         int8 = {c["shape"]: c["kernel_ms"] for c in checks["int8"] if "kernel_ms" in c}
         kernel_ms = {(4, 10): int8["encode"], (3, 10): int8["fleet_rebuild3"],
                      (2, 10): int8["fleet_rebuild2"], (1, 10): int8["degraded1m"]}
+        shutil.rmtree(SCRATCH)  # the filer phase starts on an empty directory
+        os.makedirs(SCRATCH)
+        slice_lines["filer"] = run_filer(SCRATCH, args.seed, card, kernel_ms)
+        emit({"phase": "filer", **slice_lines["filer"]})
+        shutil.rmtree(SCRATCH)  # the storm starts on an empty directory
+        os.makedirs(SCRATCH)
         slice_lines["shell"], slice_lines["fleet"] = run_storm(SCRATCH, args.seed, card,
                                                                kernel_ms)
         emit(slice_lines["shell"])

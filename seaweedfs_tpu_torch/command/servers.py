@@ -1,14 +1,17 @@
-"""Process-level commands — version, master, volume, server and shell,
-mirroring weed/command/{master,volume,server,shell}.go. `server` runs a
-master and a volume server in one process, as `weed server` does; `shell`
-is the operator shell (REPL, or `-c` for a `;`-separated script). The
-volume server's EC work, and what the shell builds locally, runs on the
-card (`--device`, default cuda); `--device cpu` gives the plain version.
-`master -peers a,b,c -raftDir D` joins a raft quorum; `scaffold` prints a
-commented TOML template. The filer, S3 and WebDAV front ends of `server`
-are not in this package yet and raise. The transport (and so grpc) is imported only when a server
-or shell command runs, so the local commands that share the registry
-need none of it."""
+"""Process-level commands — version, master, volume, server, filer and
+shell, mirroring weed/command/{master,volume,server,filer,shell}.go.
+`server` runs a master and a volume server in one process, as `weed
+server` does (`-filer` adds a filer); `filer` runs the namespace server
+alone against a master; `shell` is the operator shell (REPL, or `-c` for
+a `;`-separated script). The volume server's EC work, and what the shell
+builds locally, runs on the card (`--device`, default cuda); `--device
+cpu` gives the plain version. The filer runs no kernel, so the `filer`
+command takes no `--device` and never touches the card. `master -peers
+a,b,c -raftDir D` joins a raft quorum; `scaffold` prints a commented TOML
+template. The S3 and WebDAV front ends of `server` are not in this
+package yet and raise. The transport (and so grpc) is imported only when
+a server or shell command runs, so the local commands that share the
+registry need none of it."""
 
 from __future__ import annotations
 
@@ -196,21 +199,26 @@ def _server_conf(p: argparse.ArgumentParser) -> None:
     p.add_argument("-port", type=int, default=8080, help="volume server http port")
     p.add_argument("-dir", action="append", default=None)
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
-    p.add_argument("-filer", action="store_true", help="also run a filer (not ported)")
+    p.add_argument("-filer", action="store_true", help="also run a filer")
+    p.add_argument("-filerPort", type=int, default=8888)
     p.add_argument("-s3", action="store_true", help="also run the S3 gateway (not ported)")
     p.add_argument("-webdav", action="store_true", help="also run WebDAV (not ported)")
     _add_device(p)
+
+
+#: the front ends of `server` this package does not have yet, by ROADMAP item
+_MISSING_FRONTS = {"s3": ("S3 gateway", "3(d)"), "webdav": ("WebDAV server", "3(e)")}
 
 
 def _server_run(args: argparse.Namespace) -> int:
     from seaweedfs_tpu_torch.cluster.master import MasterServer
     from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
 
-    fronts = [f for f in ("filer", "s3", "webdav") if getattr(args, f)]
-    if fronts:
+    missing = [f for f in _MISSING_FRONTS if getattr(args, f)]
+    if missing:
         raise NotImplementedError(
-            f"-{', -'.join(fronts)}: the filer, S3 and WebDAV servers are not ported "
-            "yet (ROADMAP Queue 1 item 5)"
+            "; ".join(f"-{f}: the {_MISSING_FRONTS[f][0]} is not ported yet "
+                      f"(ROADMAP Queue 1 item {_MISSING_FRONTS[f][1]})" for f in missing)
         )
     _security()
     enc = _encoder(args.device)
@@ -224,17 +232,78 @@ def _server_run(args: argparse.Namespace) -> int:
     vs = VolumeServer(args.dir or ["./data"], m.address, port=args.port, host=args.ip,
                       encoder=enc)
     vs.start()
-    print(f"server: master {m.address} (http :{m.http_port}), "
-          f"volume http {vs.url} grpc {vs.grpc_address}", flush=True)
+    parts = [f"master {m.address} (http :{m.http_port})",
+             f"volume http {vs.url} grpc {vs.grpc_address}"]
+    extras = []
     try:
+        if args.filer:
+            from seaweedfs_tpu_torch.filer import FilerServer
+
+            f = FilerServer(m.address, port=args.filerPort, host=args.ip)
+            f.start()
+            extras.append(f)
+            parts.append(f"filer http {f.url} grpc {f.grpc_address}")
+        print("server: " + ", ".join(parts), flush=True)
         _wait_forever()
     finally:
+        for srv in reversed(extras):
+            srv.stop()
         vs.stop()
         m.stop()
     return 0
 
 
 register(Command("server", "run master + volume server in one process", _server_conf, _server_run))
+
+
+def _filer_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-port", type=int, default=8888)
+    p.add_argument("-grpcPort", type=int, default=0)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-store", default="memory", help="memory|sqlite|log|log3 (log3 = per-bucket store separation)")
+    p.add_argument("-dir", default="", help="store/meta-log directory (sqlite/log stores)")
+    p.add_argument("-collection", default="")
+    p.add_argument("-defaultReplicaPlacement", default="")
+    p.add_argument("-maxMB", type=int, default=4, help="chunk size in MiB")
+    p.add_argument("-metricsPort", type=int, default=0)
+
+
+def _filer_run(args: argparse.Namespace) -> int:
+    import os
+
+    from seaweedfs_tpu_torch.filer import FilerServer, make_store
+
+    # share the cluster's jwt keys so chunk deletes/reads work secured
+    guard = _load_guard(_security())
+    if args.store == "sqlite":
+        store_path = os.path.join(args.dir, "filer.db") if args.dir else ""
+    else:  # log-structured store takes its directory
+        store_path = args.dir
+    f = FilerServer(
+        args.master,
+        store=make_store(args.store, store_path),
+        port=args.port,
+        grpc_port=args.grpcPort,
+        host=args.ip,
+        chunk_size=args.maxMB * 1024 * 1024,
+        log_dir=args.dir,
+        collection=args.collection,
+        replication=args.defaultReplicaPlacement,
+        signing_key=guard.signing_key if guard else None,
+        read_signing_key=guard.read_signing_key if guard else None,
+    )
+    f.start()
+    _maybe_metrics(args.metricsPort)
+    print(f"filer on http {f.url} grpc {f.grpc_address}", flush=True)
+    try:
+        _wait_forever()
+    finally:
+        f.stop()
+    return 0
+
+
+register(Command("filer", "run a filer (namespace) server", _filer_conf, _filer_run))
 
 
 def _shell_conf(p: argparse.ArgumentParser) -> None:

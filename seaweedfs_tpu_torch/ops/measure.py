@@ -61,11 +61,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def eager_ms(fn, runs: int) -> float:
+def eager_ms(fn, runs: int, warmed: bool = False) -> float:
     """Median of `runs` warm eager calls of `fn()`, each between two CUDA
     events: the host time of the call lies inside the window whenever the
-    card waits on it."""
-    fn()
+    card waits on it. One call warms first, unless the caller has `warmed`
+    it with a call of its own."""
+    if not warmed:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):

@@ -48,9 +48,8 @@ degraded class keeps existing.
 Shards 5-9 are spread to TWO extra holders so degraded fan-outs cross
 the network and hedged fetches have a second holder to race.
 
-The S3 front (`--front s3`) needs the filer and the S3 gateway, which are
-not in this package yet: it raises NotImplementedError before any server
-starts.
+The S3 front (`--front s3`) needs the S3 gateway, which is not in this
+package yet: it raises NotImplementedError before any server starts.
 
 Usage (real run, on the card):
   python -m seaweedfs_tpu_torch.scripts.weedload --seconds 30 --rps 1000 \
@@ -694,8 +693,8 @@ def main(argv=None) -> int:
         return run_worker(args)
     if args.front == "s3":
         raise NotImplementedError(
-            "--front s3: the filer and the S3 gateway are not ported yet "
-            "(ROADMAP Queue 1 item 5)"
+            "--front s3: the S3 gateway is not ported yet "
+            "(ROADMAP Queue 1 item 3(d))"
         )
     from seaweedfs_tpu_torch.scripts.chaos_soak import Node, prepare_device
 

@@ -8,10 +8,11 @@ Each command is a `ShellCommand(name, help, do)` where
 `do(args: list[str], env: CommandEnv, writer)` mirrors the reference's
 `Do(args, commandEnv, writer)` signature.
 
-The fs.*, s3.* and mq.* commands stand on the filer, the S3 gateway and
-the message queue, which this package does not have yet (ROADMAP Queue 1
-item 5): `commands()` registers the cluster, ec.* and volume.* families,
-and `CommandEnv.filer_client()` raises.
+The fs.* commands reach the filer through `CommandEnv.filer_client()`,
+a FilerClient for the first filer the master lists. The s3.* and mq.*
+commands stand on the S3 gateway and the message queue, which this
+package does not have yet (ROADMAP Queue 1 items 3(d) and 3(g)):
+`commands()` registers the cluster, ec.*, volume.* and fs.* families.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ def commands() -> dict[str, ShellCommand]:
     # import for registration side effects
     from seaweedfs_tpu_torch.shell import command_cluster  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_ec  # noqa: F401
+    from seaweedfs_tpu_torch.shell import command_fs  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_volume  # noqa: F401
 
     return dict(_REGISTRY)
@@ -73,6 +75,7 @@ class CommandEnv:
         self._lock_token = 0
         self._renew_stop: Optional[threading.Event] = None
         self._renew_thread: Optional[threading.Thread] = None
+        self.cwd = "/"  # fs.cd/fs.pwd REPL state; fs.* paths resolve against it
 
     def close(self) -> None:
         if self.is_locked:
@@ -80,6 +83,9 @@ class CommandEnv:
                 self.unlock()
             except Exception:  # noqa: BLE001 — master may be gone
                 pass
+        fc = getattr(self, "_filer_client", None)
+        if fc is not None:
+            fc.close()
         self.client.close()
 
     def __enter__(self):
@@ -95,12 +101,30 @@ class CommandEnv:
         (thread-safe: the lock renewer calls this concurrently)."""
         return self.client.master_call(method, req, timeout=timeout)
 
+    def resolve(self, path: str) -> str:
+        """Resolve an fs.* path argument against the REPL's working
+        directory (fs.cd analog of the reference's shell navigation)."""
+        import posixpath
+
+        if not path.startswith("/"):
+            path = posixpath.join(self.cwd, path)
+        return posixpath.normpath(path)
+
     def filer_client(self):
-        """The filer client of the fs.* commands and volume.fsck's walk: the
-        filer is not in this package yet, so this raises."""
-        raise NotImplementedError(
-            "the filer client (filer/client.py) is not ported yet (ROADMAP Queue 1 item 5)"
-        )
+        """FilerClient for a filer discovered through the master's
+        cluster-node list (fs.* commands, volume.fsck's walk); cached per
+        env."""
+        fc = getattr(self, "_filer_client", None)
+        if fc is not None:
+            return fc
+        filers = self.master_call("ListClusterNodes", {}).get("filers", [])
+        if not filers:
+            raise ShellError("no filer registered with the master")
+        from seaweedfs_tpu_torch.filer.client import FilerClient
+
+        self._filer_client = FilerClient(filers[0]["grpc_address"])
+        self._filer_http = filers[0]["http_address"]
+        return self._filer_client
 
     def volume_list(self) -> dict:
         return self.master_call("VolumeList", {})

@@ -1694,3 +1694,139 @@ def test_card_quorum_serves_a_degraded_read_after_the_leader_stops(card, tmp_pat
         for m in masters:
             if m not in stopped:
                 m.stop()
+
+
+# -- the filer over card volume servers ---------------------------------------------
+
+
+def _filer_put_get(url: str, path: str, data: bytes = None):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{url}{path}", data=data,
+                                 method="PUT" if data is not None else "GET")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read()
+
+
+def test_card_filer_reads_every_file_back_through_degraded_ec_reads(card, tmp_path):
+    """A filer (chunk cache off, 256 KiB chunks) over a card volume server:
+    seeded files PUT through it, their volume EC-encoded by the port shell
+    (16 KiB small blocks, so every shard holds data), data shards 0 and 5
+    lost; every file reads back byte-equal through the filer, and the reads
+    reconstruct on the card ((R, 10) launches)."""
+    import io
+    import json
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.filer import FilerServer
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_script
+
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], master.address, heartbeat_interval=0.3,
+                      encoder=rs_codec.new_encoder())
+    vs.start()
+    fs = FilerServer(master.address, chunk_size=256 << 10, chunk_cache_bytes=0)
+    fs.start()
+    try:
+        rng = np.random.default_rng(29)
+        files = {f"/card/d{i % 4}/f{i:02d}.bin": rng.bytes(int(rng.integers(1000, 900_000)))
+                 for i in range(40)}
+        for path, data in files.items():
+            status, body = _filer_put_get(fs.url, path, data)
+            assert status == 201 and json.loads(body)["size"] == len(data)
+        vids = {int(c.fid.split(",")[0]) for p in files for c in fs.filer.find_entry(p).chunks}
+        _wait(lambda: all(master.topology.lookup(v) for v in vids))
+        with CommandEnv(master.address) as env:
+            out = io.StringIO()
+            run_script(env, "lock; " + "; ".join(
+                f"ec.encode -volumeId {v} -force -largeBlockSize 65536 -smallBlockSize 16384"
+                for v in sorted(vids)) + "; unlock", out)
+        for v in vids:
+            ev = vs.store.get_ec_volume(v)
+            assert ev is not None, out.getvalue()
+            if ev.warm_thread is not None:
+                ev.warm_thread.join()
+            with rpc.RpcClient(vs.grpc_address) as c:
+                c.call(VOLUME_SERVICE, "VolumeEcShardsDelete",
+                       {"volume_id": v, "shard_ids": [0, 5]})
+        _wait(lambda: all(len([s for s, ns in master.topology.lookup_ec_shards(v).items() if ns])
+                          == 12 for v in vids))
+        read_planner.CACHE.clear()
+        rs_cuda.reset_launches()
+        for path, data in files.items():
+            assert _filer_put_get(fs.url, path) == (200, data), path
+        by_shape = dict(rs_cuda.launches_by_shape)
+        assert by_shape and all(c == 10 for _, c in by_shape), by_shape
+    finally:
+        fs.stop()
+        vs.stop()
+        master.stop()
+
+
+def test_the_filer_command_opens_no_context_on_the_card(card, tmp_path):
+    """`python -m seaweedfs_tpu_torch filer` (which takes no --device) as a
+    process of its own in front of a card volume server: files written and
+    read through it; `nvidia-smi` lists no context
+    for it while it serves (contexts are counted: in a container their pids
+    may all read as one of another namespace)."""
+    import re
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.zeros(1, device=card)  # this process's own context, listed before
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], master.address, heartbeat_interval=0.3,
+                      encoder=rs_codec.new_encoder())
+    vs.start()
+    before = _contexts()
+    sk = socket.socket()
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+    sk.close()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "filer", "-port", str(port), "-master",
+         master.address, "-maxMB", "1"],
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert re.search(r"filer on http \S+ grpc \S+", line), line
+        rng = np.random.default_rng(31)
+        files = {f"/ctx/f{i}.bin": rng.bytes(int(rng.integers(1000, 3 << 20))) for i in range(8)}
+        deadline = time.monotonic() + 60
+        for path, data in files.items():
+            while True:
+                try:
+                    assert _filer_put_get(f"127.0.0.1:{port}", path, data)[0] == 201
+                    break
+                except OSError:
+                    assert time.monotonic() < deadline
+                    time.sleep(0.2)
+        for path, data in files.items():
+            assert _filer_put_get(f"127.0.0.1:{port}", path) == (200, data)
+        assert proc.poll() is None
+        assert _contexts() == before
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+        proc.stdout.close()
+        vs.stop()
+        master.stop()

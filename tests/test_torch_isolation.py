@@ -8,7 +8,9 @@ shell, the fleet repair scheduler and the `server` and `shell` commands)
 import them, and `chip_smoke.py` imports none of those at module level;
 the tiering path (the remote vendors, the tier moves, the remote backend,
 the SigV4 signer) imports without them, and the master reaches raft only
-when it is given peers."""
+when it is given peers. The filer stands on the transport too (its
+package imports its server); its entries, rules and stores import no wire
+module themselves, and a filer server opens no CUDA context."""
 
 import ast
 import json
@@ -66,7 +68,11 @@ def test_port_has_modules_for_every_layer():
                  "shell/command_volume.py", "ec/fleet.py", "ec/slo.py",
                  "command/bench_tools.py", "scripts/weedload.py", "scripts/chaos_soak.py",
                  "cluster/raft.py", "storage/backend.py", "remote_storage/__init__.py",
-                 "remote_storage/tier.py", "s3api/__init__.py", "s3api/auth.py"):
+                 "remote_storage/tier.py", "s3api/__init__.py", "s3api/auth.py",
+                 "filer/__init__.py", "filer/entry.py", "filer/filer_conf.py", "filer/store.py",
+                 "filer/logstore.py", "filer/bucketstore.py", "filer/chunks.py",
+                 "filer/filer.py", "filer/server.py", "filer/client.py",
+                 "utils/chunk_cache.py", "shell/command_fs.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
@@ -112,14 +118,22 @@ SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.clu
                   "seaweedfs_tpu_torch.cluster.volume_server", "seaweedfs_tpu_torch.ec.fleet",
                   "seaweedfs_tpu_torch.shell", "seaweedfs_tpu_torch.shell.command_cluster",
                   "seaweedfs_tpu_torch.shell.command_ec",
-                  "seaweedfs_tpu_torch.shell.command_volume")
+                  "seaweedfs_tpu_torch.shell.command_volume",
+                  "seaweedfs_tpu_torch.shell.command_fs", "seaweedfs_tpu_torch.filer",
+                  "seaweedfs_tpu_torch.filer.chunks", "seaweedfs_tpu_torch.filer.filer",
+                  "seaweedfs_tpu_torch.filer.server", "seaweedfs_tpu_torch.filer.client")
+#: the filer's entries, rules and stores: no wire module of their own (their
+#: package's `__init__` imports the server, so they import only with grpc)
+FILER_PLAIN_MODULES = ("seaweedfs_tpu_torch.filer.entry", "seaweedfs_tpu_torch.filer.filer_conf",
+                       "seaweedfs_tpu_torch.filer.store", "seaweedfs_tpu_torch.filer.logstore",
+                       "seaweedfs_tpu_torch.filer.bucketstore")
 #: the server commands: they share the CLI registry with the local
 #: commands, so they reach the transport only when one of them runs
 SERVER_COMMANDS = "seaweedfs_tpu_torch.command.servers"
-#: chip_smoke.py's cluster, shell, fleet, load and rack phases: the only
-#: functions there that reach them
+#: chip_smoke.py's cluster, ha, filer, shell, fleet, load and rack phases:
+#: the only functions there that reach them
 CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm", "run_load", "run_rack",
-                 "run_ha", "_ha")
+                 "run_ha", "_ha", "run_filer", "_filer")
 #: the load harnesses: they reach the transport only inside their functions
 HARNESSES = ("seaweedfs_tpu_torch.scripts.weedload", "seaweedfs_tpu_torch.scripts.chaos_soak")
 #: the servers' pure planners and data structures, and the tiering path
@@ -131,7 +145,7 @@ PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec
                         "seaweedfs_tpu_torch.remote_storage",
                         "seaweedfs_tpu_torch.remote_storage.tier",
                         "seaweedfs_tpu_torch.storage.backend",
-                        "seaweedfs_tpu_torch.s3api.auth")
+                        "seaweedfs_tpu_torch.s3api.auth", "seaweedfs_tpu_torch.utils.chunk_cache")
 
 
 def _port_imports(path: str, top_level: bool = False, skip: tuple = ()) -> set[str]:
@@ -212,7 +226,7 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "from seaweedfs_tpu_torch.__main__ import main\n"
         "from seaweedfs_tpu_torch.command import commands\n"
         "assert {'export', 'encode', 'rebuild', 'master', 'server', 'shell', 'benchmark',\n"
-        "        'upload', 'download'} <= set(commands())\n"
+        "        'upload', 'download', 'filer'} <= set(commands())\n"
         "try:\n"
         "    main(['export', '--help'])\n"
         "except SystemExit as e:\n"
@@ -220,6 +234,7 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "for argv in (['master', '-port', '0'], ['volume', '-dir', '.'],\n"
         "             ['server', '--device', 'cpu', '-dir', '.'],\n"
         "             ['shell', '-master', '127.0.0.1:1', '--device', 'cpu', '-c', 'lock'],\n"
+        "             ['filer', '-port', '0', '-master', '127.0.0.1:1'],\n"
         "             ['benchmark', '-master', '127.0.0.1:1', '-n', '1'],\n"
         "             ['download', '-master', '127.0.0.1:1', '1,1']):\n"
         "    try:\n"
@@ -258,7 +273,7 @@ def test_the_servers_import_grpc_and_the_planners_do_not():
     assert not _imported_roots(path(SERVER_COMMANDS)) & {"grpc", "google"}
     assert not _port_imports(path(SERVER_COMMANDS), top_level=True) & wire
     assert _port_imports(path(SERVER_COMMANDS)) & wire
-    for mod in PLAIN_SERVER_MODULES:
+    for mod in PLAIN_SERVER_MODULES + FILER_PLAIN_MODULES:
         assert not _imported_roots(path(mod)) & {"grpc", "google"}, mod
         assert not _port_imports(path(mod)) & set(WIRE_MODULES + SERVER_MODULES), mod
     # the master reaches raft only when it is given peers (inside __init__)
@@ -296,3 +311,31 @@ def test_a_generator_worker_opens_no_cuda_context(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.split() == ["0", "False"]
     assert json.loads((tmp_path / "out.json").read_text())["issued"] == 0
+
+
+def test_a_filer_server_opens_no_cuda_context(tmp_path):
+    """The filer runs no kernel: a process that starts a `FilerServer` on
+    the log store, serves a listing and a failed upload over HTTP (no
+    master answers) and stops, never imports torch."""
+    code = (
+        "import sys, urllib.request, urllib.error\n"
+        "from seaweedfs_tpu_torch.filer import FilerServer, make_store\n"
+        f"fs = FilerServer('127.0.0.1:1', store=make_store('log', {str(tmp_path)!r}))\n"
+        "fs.start()\n"
+        "with urllib.request.urlopen(f'http://{fs.url}/', timeout=10) as r:\n"
+        "    assert r.status == 200\n"
+        "req = urllib.request.Request(f'http://{fs.url}/a.bin', data=b'x', method='PUT')\n"
+        "try:\n"
+        "    urllib.request.urlopen(req, timeout=30)\n"
+        "    sys.exit('the upload went through with no master')\n"
+        "except urllib.error.HTTPError as e:\n"
+        "    assert e.code == 500, e.code\n"
+        "fs.stop()\n"
+        "print('torch' in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["False"]

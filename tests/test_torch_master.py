@@ -427,18 +427,70 @@ def test_volume_server_without_a_card_or_encoder_raises(tmp_path, monkeypatch):
         VolumeServer([str(tmp_path)], "127.0.0.1:1")
 
 
-@pytest.mark.parametrize("flag", ["-filer", "-s3", "-webdav"])
-def test_server_command_front_end_flags_raise(tmp_path, flag):
+@pytest.mark.parametrize("flags, item", [(["-s3"], "3.d."), (["-webdav"], "3.e."),
+                                         (["-filer", "-s3"], "3.d.")],
+                         ids=["s3", "webdav", "filer-s3"])
+def test_server_command_front_end_flags_raise(tmp_path, flags, item):
+    """The S3 and WebDAV fronts are not ported: `server` refuses them (with
+    or without -filer, which runs) before anything starts, naming their
+    ROADMAP items."""
     import argparse
 
     p = argparse.ArgumentParser()
     servers._server_conf(p)
-    args = p.parse_args(["--device", "cpu", "-dir", str(tmp_path), flag])
-    with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP Queue 1 item 5"):
+    args = p.parse_args(["--device", "cpu", "-dir", str(tmp_path), *flags])
+    with pytest.raises(NotImplementedError, match=f"not ported yet .ROADMAP Queue 1 item {item}"):
         servers._server_run(args)
 
 
 # -- the command -------------------------------------------------------------------------
+
+
+def test_server_command_runs_a_filer(tmp_path):
+    """`server --device cpu -filer -filerPort 0` adds a filer to the master
+    and volume server of the one process: a file PUT through it reads back,
+    the filer has announced itself to the master, and SIGTERM stops all
+    three with exit code 0."""
+    import json as _json
+    import urllib.request
+
+    d = tmp_path / "data"
+    d.mkdir()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "--device", "cpu", "-dir",
+         str(d), "-masterPort", "0", "-port", "0", "-filer", "-filerPort", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"master (\S+) .*, filer http (\S+) grpc (\S+)", line)
+        assert m, line + proc.stderr.read() if proc.poll() is not None else line
+        master_addr, filer_http, filer_grpc = m.groups()
+        payload = os.urandom(9000)
+        deadline = time.monotonic() + 30
+        while True:
+            req = urllib.request.Request(f"http://{filer_http}/srv/a.bin", data=payload,
+                                         method="PUT")
+            try:
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    assert _json.loads(r.read())["size"] == len(payload)
+                    break
+            except urllib.error.HTTPError:
+                assert time.monotonic() < deadline, "the volume tier never took a write"
+                time.sleep(0.2)
+        with urllib.request.urlopen(f"http://{filer_http}/srv/a.bin", timeout=10) as r:
+            assert r.read() == payload
+        with PORT.rpc.RpcClient(master_addr) as c:
+            filers = c.call(PORT.MASTER_SERVICE, "ListClusterNodes", {})["filers"]
+        assert filers == [{"http_address": filer_http, "grpc_address": filer_grpc}]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def test_server_command_writes_reads_and_stops(tmp_path):

@@ -236,7 +236,7 @@ def no_server(monkeypatch):
 
 @pytest.mark.parametrize("extra", [["--device", "cpu"], [], ["--smoke", "--device", "cpu"]])
 def test_front_s3_raises_before_any_server(no_server, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3.d."):
         port_load.main(["--front", "s3", *extra])
 
 
