@@ -48,7 +48,7 @@ Phases, one JSON line each:
            _smoke_tmp/, assembled into a GPU_MEASUREMENT file there; checks
            that `pick_device_backend` on it names the best configuration
            that beats int8, or int8
-  e2e      a seeded volume (default 4 GiB .dat + .idx, small rows only as
+  e2e      a seeded volume (default 2 GiB .dat + .idx, small rows only as
            upstream lays out volumes under 10 GiB) and a second one with
            64 MiB large blocks (default 1 GiB, both tiers) through the CLI's
            own functions with the factory's encoder (int8: no evidence is
@@ -244,6 +244,36 @@ Phases, one JSON line each:
            filer stopped and started again on its store and ports, the
            second dump byte-equal to the first, files read back. Prints
            launches by shape and kernel ms x launches against the wall
+  s3       on the filer phase's cluster before it stops (its own launch
+           count), the SeaweedFS wiki's "Amazon S3 API", "Amazon IAM API"
+           and "Erasure Coding for warm storage": the port's S3ApiServer
+           with an admin identity from a `-config` identities file, an
+           IamApiServer with a bootstrap token and a WebDavServer, all on
+           the filer, its chunk cache off. (1) Through IAM (signed by the
+           admin) CreateUser loader, CreateAccessKey, PutUserPolicy (Read,
+           Write, List on bucket s3warm); `s3.bucket.create -name s3warm`
+           (and s3cold) through the port shell, three volumes of
+           collection s3warm grown up front; (2) 384 seeded objects, sizes
+           log-uniform from 4 KiB to 8 MiB, under 4 x 8 prefixes, by signed
+           PUT from 8 threads under the loader's key (each ETag the md5;
+           seconds, objects/s, MB/s, p50/p99), a 6 x 8 MiB multipart object
+           (ETag the md5 of the part md5s, -6) and an upload abandoned after
+           two parts; (3) `lock; ec.encode -collection s3warm -force;
+           unlock`, data shards 0 and 5 deleted on their holders; (4) every
+           object by signed GET on one keep-alive connection, hedging off,
+           server caches cleared and off: each sha256 the written one,
+           p50/p99 by class, launches exactly (1, 10) x the lost shards the
+           chunks' needles touch (from the .ecx); (5) 128 seeded signed 64
+           KiB ranges (16 inside the multipart object), 16 degraded objects
+           by presigned GET and the same 16 by WebDAV GET, each byte-equal
+           with launches predicted the same way, and a `PROPFIND Depth: 1`
+           of one prefix listing exactly its keys; (6) ListObjectsV2 in
+           pages of 100 returning every key once in order, an unsigned GET
+           403, the loader on s3cold 403 AccessDenied, DeleteObjects of 32
+           keys (each then 404 NoSuchKey), `s3.bucket.list` and
+           `s3.clean.uploads -timeAgoSeconds 0` (the abandoned upload's
+           staged parts gone). Prints launches by shape and kernel ms x
+           launches against the wall
   shell    (on an emptied scratch directory) the SeaweedFS wiki's EC
            deployment: a port master with WEEDTPU_REPAIR=on and a 256 MiB
            volume size limit, five volume servers in racks r0-r4 (each on
@@ -2895,9 +2925,12 @@ def _filer_chunk_shards(servers: list, vids: set, chunks_of: dict, coll: str) ->
 
 
 def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str = "cuda",
-              files: int = FILER_FILES, max_bytes: int = FILER_MAX) -> dict:
+              files: int = FILER_FILES, max_bytes: int = FILER_MAX, then=None) -> dict:
     """The filer phase (see the module doc): files through the port's filer
-    onto card volume servers, EC-encoded, read back degraded."""
+    onto card volume servers, EC-encoded, read back degraded. `then(master,
+    servers, filer)`, when given, runs on the same cluster after the
+    phase's own line is complete and before it stops; what it returns is
+    the line's `_then`."""
     import http.client
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3253,6 +3286,16 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
         out["restart"] = {"seconds": restart_s, "meta_save_s": save_s,
                           "entries": before.count(b"\n"), "bytes": len(before),
                           "byte_equal": True}
+        out["seconds"] = time.perf_counter() - t_phase
+        by_shape = dict(rs_cuda.launches_by_shape)
+        out["launches_by_shape"] = _shape_keys(by_shape)
+        out["launches"] = dict(rs_cuda.launches_by_variant)
+        out["busy"] = _busy(by_shape, kernel_ms, out["seconds"])
+        check(all(c == 10 for _, c in by_shape) and (by_shape.get((1, 10), 0) > 0 if on_card
+                                                      else not by_shape),
+              f"the filer path launched {by_shape}")
+        if then is not None:
+            out["_then"] = then(master, servers, fs)
     finally:
         _put_env({"WEEDTPU_HEDGE_READS": saved_hedge, "WEEDTPU_READ_CACHE_MB": saved_cache})
         for c in conns:
@@ -3264,6 +3307,449 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
             t.start()
         for t in halt:
             t.join()
+    return out
+
+
+#: the s3 phase's deployment (the SeaweedFS wiki's "Amazon S3 API", "Amazon
+#: IAM API" and "Erasure Coding for warm storage"), on the filer phase's cluster
+S3_BUCKET = "s3warm"
+S3_OTHER_BUCKET = "s3cold"
+S3_OBJECTS = 384
+S3_MIN, S3_MAX = 4 << 10, 8 << 20
+S3_TREE = (4, 8)
+S3_WRITERS = 8
+S3_VOLUMES = 3
+S3_PARTS, S3_PART = 6, 8 << 20
+S3_ABANDONED_PARTS = 2
+S3_RANGES = 128
+S3_RANGES_IN_MULTIPART = 16
+S3_RANGE = 64 << 10
+S3_PRESIGNED = 16
+S3_PAGE = 100
+S3_DELETES = 32
+S3_MULTIPART_KEY = "mp/o-multipart.bin"
+
+
+def _s3_request(conn, host: str, creds: tuple, method: str, path: str, body: bytes = b"",
+                query: str = "", headers: dict | None = None) -> tuple[int, dict, bytes]:
+    """One SigV4-signed request (`creds` = (access key, secret key), or None
+    for an unsigned one) on the keep-alive connection `conn`."""
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.s3api.auth import sign_request
+
+    target = urllib.parse.quote(path) + (f"?{query}" if query else "")
+    h = dict(headers or {})
+    if creds is not None:
+        h = sign_request(creds[0], creds[1], method, f"http://{host}{target}", body,
+                         extra_headers=h)
+    conn.request(method, target, body=body or None, headers=h)
+    r = conn.getresponse()
+    return r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+
+
+def _s3_code(body: bytes) -> str:
+    import re
+
+    m = re.search(rb"<Code>([^<]*)</Code>", body)
+    return m.group(1).decode() if m else ""
+
+
+def _iam_request(url: str, creds: tuple, **form) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    from seaweedfs_tpu_torch.s3api.auth import sign_request
+
+    data = urllib.parse.urlencode(form).encode()
+    h = sign_request(creds[0], creds[1], "POST", url, data, service="iam")
+    req = urllib.request.Request(url, data=data, method="POST", headers=h)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _chunks_in(chunks: list, lo: int, hi: int) -> list:
+    """The fids of the chunks (fid, offset, size) that bytes [lo, hi) touch."""
+    return [fid for fid, off, size in chunks if off < hi and lo < off + size]
+
+
+def run_s3(root: str, master, servers: list, fs, seed: int, card: str, kernel_ms: dict,
+           device: str = "cuda", objects: int = S3_OBJECTS, max_bytes: int = S3_MAX,
+           part_bytes: int = S3_PART) -> dict:
+    """The s3 phase (see the module doc), on the filer phase's running
+    master, volume servers and filer: objects through the port's S3 gateway
+    under an IAM-issued key, the bucket's collection EC-encoded, read back
+    degraded by signed, presigned and WebDAV GETs."""
+    import http.client
+    import re
+    import urllib.parse
+    import xml.etree.ElementTree as ET
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.iamapi import IamApiServer
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.s3api import Iam, S3ApiServer
+    from seaweedfs_tpu_torch.s3api.auth import presign_url
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.webdav import WebDavServer
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    rs_cuda.reset_launches()  # the s3 path's run starts here
+    bucket, lost = S3_BUCKET, set(FILER_LOST)
+    rng = np.random.default_rng(seed + 1900)
+    admin = ("s3admin", rng.bytes(15).hex())
+    saved = {k: os.environ.get(k) for k in ("WEEDTPU_HEDGE_READS", "WEEDTPU_READ_CACHE_MB")}
+    chunk_cache = fs.chunk_io.cache
+    fs.chunk_io.cache = None  # the filer's chunk cache off for the whole phase
+    gateways, conns, envs = [], [], []
+    out = {"card": card,
+           "source": "SeaweedFS wiki: Amazon S3 API (weed s3 -config identities.json; "
+                     "/buckets/<name> with its own collection), Amazon IAM API (weed iam), "
+                     "Erasure Coding for warm storage (ec.encode -collection)",
+           "reduced": [f"{objects} objects of {S3_MIN}-{max_bytes} bytes and one "
+                       f"{S3_PARTS} x {part_bytes} byte multipart object, not a "
+                       "deployment's millions", f"{S3_VOLUMES} volumes of collection "
+                       f"{bucket} grown up front, each far below 30 GB", "one host: the "
+                       "filer phase's master, 3 volume servers and filer, with the S3, "
+                       "IAM and WebDAV gateways and the shell, in one process over loopback"],
+           "bucket": bucket, "objects": objects, "volumes": S3_VOLUMES, "lost": sorted(lost)}
+
+    def shell(script: str) -> str:
+        env = CommandEnv(master.address, device=device)
+        envs.append(env)
+        buf = io.StringIO()
+        for cmd in script.split(";"):
+            run_command(env, cmd.strip(), buf)
+        return buf.getvalue()
+
+    def connection(port: int):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conns.append(c)
+        return c
+
+    try:
+        # 1: the gateway with a -config admin identity (the s3 command's file
+        # shape), the IAM API with a bootstrap token, WebDAV; the loader user
+        # and its key minted through IAM, the bucket made by the shell
+        os.makedirs(root)
+        conf = os.path.join(root, "identities.json")
+        with open(conf, "w", encoding="utf-8") as f:
+            json.dump({"identities": [{"name": "admin", "credentials": [
+                {"accessKey": admin[0], "secretKey": admin[1]}], "actions": ["Admin"]}]}, f)
+        with open(conf, encoding="utf-8") as f:
+            s3 = S3ApiServer(fs.url, fs.grpc_address, iam=Iam.from_config(json.load(f)))
+        s3.start()
+        gateways.append(s3)
+        iam = IamApiServer(fs.grpc_address, bootstrap_token=rng.bytes(8).hex())
+        iam.start()
+        gateways.append(iam)
+        dav = WebDavServer(fs.url, fs.grpc_address)
+        dav.start()
+        gateways.append(dav)
+        iam_url = f"http://{iam.url}/"
+        ns = "{https://iam.amazonaws.com/doc/2010-05-08/}"
+        status, body = _iam_request(iam_url, admin, Action="CreateUser", UserName="loader")
+        check(status == 200, f"IAM CreateUser: {status} {body[:200]!r}")
+        status, body = _iam_request(iam_url, admin, Action="CreateAccessKey", UserName="loader")
+        check(status == 200, f"IAM CreateAccessKey: {status} {body[:200]!r}")
+        doc = ET.fromstring(body)
+        loader = (doc.find(f".//{ns}AccessKeyId").text, doc.find(f".//{ns}SecretAccessKey").text)
+        policy = {"Statement": [{"Effect": "Allow", "Action": [
+            "s3:GetObject", "s3:PutObject", "s3:ListBucket"],
+            "Resource": f"arn:aws:s3:::{bucket}/*"}]}
+        status, body = _iam_request(iam_url, admin, Action="PutUserPolicy", UserName="loader",
+                                    PolicyName="warm", PolicyDocument=json.dumps(policy))
+        check(status == 200, f"IAM PutUserPolicy: {status} {body[:200]!r}")
+        granted = sorted(iam.iam.lookup(loader[0]).actions)
+        check(granted == [f"List:{bucket}", f"Read:{bucket}", f"Write:{bucket}"],
+              f"the loader's actions: {granted}")
+        made = shell(f"s3.bucket.create -name {bucket}; s3.bucket.create -name {S3_OTHER_BUCKET}")
+        check(f"created bucket {bucket}" in made, f"s3.bucket.create: {made}")
+        grown = master._rpc_volume_grow({"collection": bucket, "count": S3_VOLUMES}, None)
+        check(grown["grown"] == S3_VOLUMES, f"volume grow: {grown}")
+        out["identities"] = {"loader_actions": granted, "config_identities": 1}
+
+        # 2: the seeded objects by signed PUT from S3_WRITERS threads under
+        # the loader's key (each ETag the object's md5), the multipart
+        # object, and an upload abandoned after its first parts
+        plan = [(f"p{leaf // S3_TREE[1]}/q{leaf % S3_TREE[1]}/o{i:04d}.bin", size, ds)
+                for i, (size, leaf, ds) in enumerate(zip(
+                    np.exp(rng.uniform(np.log(S3_MIN), np.log(max_bytes), objects)).astype(
+                        np.int64).tolist(),
+                    rng.integers(0, S3_TREE[0] * S3_TREE[1], objects).tolist(),
+                    (seed * 100_000 + 70_000 + np.arange(objects)).tolist()))]
+        local = threading.local()
+
+        def put(item) -> tuple:
+            key, size, ds = item
+            data = _filer_data(ds, size)
+            conn = getattr(local, "c", None)
+            if conn is None:
+                conn = local.c = connection(s3.port)
+            t = time.perf_counter()
+            status, h, body = _s3_request(conn, s3.url, loader, "PUT", f"/{bucket}/{key}", data)
+            ms = (time.perf_counter() - t) * 1e3
+            check(status == 200 and h.get("etag") == f'"{hashlib.md5(data).hexdigest()}"',
+                  f"PUT {key}: {status} {h.get('etag')} {body[:200]!r}")
+            return hashlib.sha256(data).hexdigest(), ms
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(S3_WRITERS) as pool:
+            puts = list(pool.map(put, plan))
+        write_s = time.perf_counter() - t0
+        digest = {key: h for (key, _, _), (h, _) in zip(plan, puts)}
+        sizes = {key: size for key, size, _ in plan}
+        data_of = {key: ds for key, _, ds in plan}
+        ms = [m for _, m in puts]
+        total = sum(sizes.values())
+        out["write"] = {"seconds": write_s, "objects_per_s": objects / write_s,
+                        "mb_per_s": total / write_s / 1e6, "bytes": total,
+                        "p50_ms": _pct(ms, 0.5), "p99_ms": _pct(ms, 0.99), "writers": S3_WRITERS}
+
+        conn = connection(s3.port)
+
+        def upload_parts(key: str, n: int, base_seed: int) -> tuple[str, list, list]:
+            status, _, body = _s3_request(conn, s3.url, loader, "POST", f"/{bucket}/{key}",
+                                          query="uploads")
+            check(status == 200, f"CreateMultipartUpload {key}: {status} {body[:200]!r}")
+            upload = re.search(rb"<UploadId>([^<]*)</UploadId>", body).group(1).decode()
+            parts, etags = [], []
+            for i in range(1, n + 1):
+                data = _filer_data(base_seed + i, part_bytes)
+                status, h, body = _s3_request(conn, s3.url, loader, "PUT", f"/{bucket}/{key}",
+                                              data, query=f"partNumber={i}&uploadId={upload}")
+                check(status == 200 and h.get("etag") == f'"{hashlib.md5(data).hexdigest()}"',
+                      f"UploadPart {i} of {key}: {status} {body[:200]!r}")
+                parts.append(data)
+                etags.append(h["etag"])
+            return upload, parts, etags
+
+        t0 = time.perf_counter()
+        upload, parts, etags = upload_parts(S3_MULTIPART_KEY, S3_PARTS, seed * 100_000 + 80_000)
+        done = "".join(f"<Part><PartNumber>{i}</PartNumber><ETag>{t}</ETag></Part>"
+                       for i, t in enumerate(etags, start=1))
+        status, _, body = _s3_request(
+            conn, s3.url, loader, "POST", f"/{bucket}/{S3_MULTIPART_KEY}",
+            f"<CompleteMultipartUpload>{done}</CompleteMultipartUpload>".encode(),
+            query=f"uploadId={upload}")
+        want_etag = hashlib.md5(b"".join(hashlib.md5(p).digest() for p in parts)).hexdigest()
+        check(status == 200 and f"{want_etag}-{S3_PARTS}".encode() in body,
+              f"CompleteMultipartUpload: {status} {body[:300]!r}")
+        multipart_s = time.perf_counter() - t0
+        mp = b"".join(parts)
+        digest[S3_MULTIPART_KEY] = hashlib.sha256(mp).hexdigest()
+        sizes[S3_MULTIPART_KEY] = len(mp)
+        abandoned, _, _ = upload_parts("abandoned.bin", S3_ABANDONED_PARTS,
+                                       seed * 100_000 + 90_000)
+        out["multipart"] = {"parts": S3_PARTS, "part_bytes": part_bytes, "seconds": multipart_s,
+                            "etag": f"{want_etag}-{S3_PARTS}",
+                            "abandoned_parts": S3_ABANDONED_PARTS}
+
+        def entry_chunks(key: str) -> list:
+            e = fs.filer.find_entry(f"/buckets/{bucket}/{key}")
+            return [(c.fid, c.offset, c.size) for c in e.chunks]
+
+        chunks = {key: entry_chunks(key) for key in sizes}
+        chunks_of = {key: [fid for fid, _, _ in cs] for key, cs in chunks.items()}
+
+        # 3: ec.encode of the bucket's collection through the shell, then
+        # data shards 0 and 5 lost cluster-wide
+        vids = {v for n in master.topology.nodes.values()
+                for v, vi in n.volumes.items() if vi.collection == bucket}
+        check({int(f.split(",")[0]) for c in chunks_of.values() for f in c} <= vids,
+              f"an object's chunk lies outside the collection's volumes {sorted(vids)}")
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t0 = time.perf_counter()
+        text = shell(f"lock; ec.encode -collection {bucket} -force; unlock")
+        enc_s = time.perf_counter() - t0
+        check(all(f"ec.encode volume {v}" in text for v in vids), f"ec.encode: {text}")
+        _cluster_wait(lambda: all(len(master.topology.lookup_ec_shards(v)) == 14 for v in vids)
+                      and not any(master.topology.lookup(v, bucket) for v in vids),
+                      "every volume of the bucket's collection EC-encoded")
+        enc_shape = _shape_launches(shape0)
+        check(set(enc_shape) <= {(4, 10), (1, 10)} and (enc_shape.get((4, 10), 0) > 0
+                                                         if on_card else not enc_shape),
+              f"ec.encode launched {enc_shape}")
+        out["encode"] = {"seconds": enc_s, "volumes": len(vids),
+                         "launches_by_shape": _shape_keys(enc_shape)}
+        for vid in vids:
+            for vs in servers:
+                ev = vs.store.get_ec_volume(vid)
+                mine = [sh for sh in sorted(lost) if ev is not None and sh in ev.shard_ids]
+                if mine:
+                    with rpc.RpcClient(vs.grpc_address) as c:
+                        c.call(VOLUME_SERVICE, "VolumeEcShardsDelete",
+                               {"volume_id": vid, "collection": bucket, "shard_ids": mine},
+                               timeout=600)
+        _cluster_wait(lambda: all(len([sh for sh, ns in master.topology.lookup_ec_shards(v).items()
+                                       if ns]) == 12 for v in vids),
+                      "the master to list 12 shards of every volume")
+        for vs in servers:  # the mounts' warm-up launches, before the reads count theirs
+            for vid in vids:
+                ev = vs.store.get_ec_volume(vid)
+                if ev is not None and ev.warm_thread is not None:
+                    ev.warm_thread.join()
+        shards = _filer_chunk_shards(servers, vids, chunks_of, bucket)
+        degraded = {k for k, cs in chunks_of.items() if any(shards[f] & lost for f in cs)}
+
+        def predict(fids) -> int:  # one (1, 10) launch per lost shard a needle touches
+            return sum(len(shards[f] & lost) for f in fids)
+
+        def expect(launched: dict, fids, what: str) -> int:
+            pred = predict(fids)
+            check(launched == ({(1, 10): pred} if on_card and pred else {}),
+                  f"{what} launched {launched}, predicted (1, 10) x {pred}")
+            return pred
+
+        # 4: the cold pass: every object by signed GET, serially on one
+        # keep-alive connection, hedging off, server caches cleared and off
+        _put_env({"WEEDTPU_HEDGE_READS": "off", "WEEDTPU_READ_CACHE_MB": "0"})
+        read_planner.CACHE.clear()
+        order = sorted(sizes)
+        order = [order[i] for i in rng.permutation(len(order))]
+        by_class = {"degraded": [], "healthy": []}
+        mib = {"degraded": [], "healthy": []}  # the objects of 0.5-2 MiB
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t0 = time.perf_counter()
+        for key in order:
+            t1 = time.perf_counter()
+            status, _, body = _s3_request(conn, s3.url, loader, "GET", f"/{bucket}/{key}")
+            ms = (time.perf_counter() - t1) * 1e3
+            check(status == 200 and len(body) == sizes[key]
+                  and hashlib.sha256(body).hexdigest() == digest[key], f"GET {key} differs")
+            klass = "degraded" if key in degraded else "healthy"
+            by_class[klass].append(ms)
+            if 512 << 10 <= sizes[key] < 2 << 20:
+                mib[klass].append(ms)
+        cold_s = time.perf_counter() - t0
+        cold_pred = expect(_shape_launches(shape0), [f for k in order for f in chunks_of[k]],
+                           "the cold pass")
+        out["cold"] = {"seconds": cold_s, "objects": len(order),
+                       "mb_per_s": sum(sizes.values()) / cold_s / 1e6,
+                       "predicted_1x10": cold_pred, "degraded_objects": len(degraded), **{
+                           k: {"objects": len(v), "p50_ms": _pct(v, 0.5), "p99_ms": _pct(v, 0.99),
+                               "p50_ms_1mib": _pct(mib[k], 0.5)} for k, v in by_class.items()}}
+
+        # 5: seeded signed 64 KiB ranges (some inside the multipart object),
+        # presigned GETs and WebDAV GETs of degraded objects, a PROPFIND
+        big = [k for k in sorted(sizes) if sizes[k] > S3_RANGE and k != S3_MULTIPART_KEY]
+        picks = [big[int(i)] for i in rng.integers(0, len(big), S3_RANGES - S3_RANGES_IN_MULTIPART)]
+        picks += [S3_MULTIPART_KEY] * S3_RANGES_IN_MULTIPART
+        range_ms, range_fids = [], []
+        shape0 = dict(rs_cuda.launches_by_shape)
+        for key in picks:
+            lo = int(rng.integers(0, sizes[key] - S3_RANGE + 1))
+            t1 = time.perf_counter()
+            status, _, body = _s3_request(conn, s3.url, loader, "GET", f"/{bucket}/{key}",
+                                          headers={"Range": f"bytes={lo}-{lo + S3_RANGE - 1}"})
+            range_ms.append((time.perf_counter() - t1) * 1e3)
+            whole = mp if key == S3_MULTIPART_KEY else _filer_data(data_of[key], sizes[key])
+            check(status == 206 and body == whole[lo: lo + S3_RANGE], f"range {lo} of {key}")
+            range_fids += _chunks_in(chunks[key], lo, lo + S3_RANGE)
+        ranges_pred = expect(_shape_launches(shape0), range_fids, "the signed ranges")
+        out["ranges"] = {"reads": len(picks), "bytes": S3_RANGE,
+                         "in_multipart": S3_RANGES_IN_MULTIPART, "p50_ms": _pct(range_ms, 0.5),
+                         "p99_ms": _pct(range_ms, 0.99), "predicted_1x10": ranges_pred}
+
+        chosen = [k for k in order if k in degraded and k != S3_MULTIPART_KEY][:S3_PRESIGNED]
+        check(len(chosen) == S3_PRESIGNED, f"only {len(chosen)} degraded objects")
+
+        def unsigned_pass(c, target_of, what: str) -> dict:
+            """The chosen objects by plain GET of `target_of(key)` on `c`."""
+            shape0 = dict(rs_cuda.launches_by_shape)
+            ms = []
+            for key in chosen:
+                t1 = time.perf_counter()
+                c.request("GET", target_of(key))
+                r = c.getresponse()
+                body = r.read()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                check(r.status == 200 and hashlib.sha256(body).hexdigest() == digest[key],
+                      f"{what} {key}: {r.status}")
+            pred = expect(_shape_launches(shape0), [f for k in chosen for f in chunks_of[k]],
+                          f"the {what}s")
+            return {"reads": len(chosen), "p50_ms": _pct(ms, 0.5), "p99_ms": _pct(ms, 0.99),
+                    "predicted_1x10": pred}
+
+        out["presigned"] = unsigned_pass(
+            connection(s3.port), lambda key: presign_url(
+                loader[0], loader[1], "GET", f"http://{s3.url}/{bucket}/{key}",
+                expires=600).split(s3.url, 1)[1], "presigned GET")
+        dconn = connection(dav.port)
+        out["webdav"] = unsigned_pass(dconn, lambda key: f"/buckets/{bucket}/{key}", "WebDAV GET")
+        prefix = "p0/q3"
+        dconn.request("PROPFIND", f"/buckets/{bucket}/{prefix}", headers={"Depth": "1"})
+        r = dconn.getresponse()
+        body = r.read()
+        hrefs = [h.text for h in ET.fromstring(body).findall(".//{DAV:}href")]
+        want = [f"/buckets/{bucket}/{prefix}/"] + sorted(
+            f"/buckets/{bucket}/{k}" for k in sizes if k.startswith(prefix + "/"))
+        check(r.status == 207 and sorted(hrefs) == sorted(want),
+              f"PROPFIND {prefix}: {r.status} {hrefs[:5]} ...")
+        out["webdav"]["propfind_entries"] = len(hrefs) - 1
+
+        # 6: the listing in pages, the refusals, DeleteObjects, the shell
+        listed, token, pages = [], "", 0
+        while True:
+            q = f"list-type=2&max-keys={S3_PAGE}"
+            if token:
+                q += f"&continuation-token={urllib.parse.quote(token)}"
+            status, _, body = _s3_request(conn, s3.url, loader, "GET", f"/{bucket}", query=q)
+            check(status == 200, f"ListObjectsV2 page {pages}: {status}")
+            pages += 1
+            listed += [m.decode() for m in re.findall(rb"<Key>([^<]*)</Key>", body)]
+            if b"<IsTruncated>true</IsTruncated>" not in body:
+                break
+            token = re.search(rb"<NextContinuationToken>([^<]*)<", body).group(1).decode()
+        check(listed == sorted(sizes), f"the listing: {len(listed)} keys in {pages} pages")
+        key0 = order[0]
+        status, _, body = _s3_request(conn, s3.url, None, "GET", f"/{bucket}/{key0}")
+        check(status == 403 and _s3_code(body) == "AccessDenied", f"unsigned GET: {status}")
+        status, _, body = _s3_request(conn, s3.url, loader, "GET", f"/{S3_OTHER_BUCKET}",
+                                      query="list-type=2")
+        check(status == 403 and _s3_code(body) == "AccessDenied",
+              f"the loader on {S3_OTHER_BUCKET}: {status} {_s3_code(body)}")
+        doomed = [k for k in sorted(sizes) if k != S3_MULTIPART_KEY]
+        doomed = [doomed[int(i)] for i in rng.choice(len(doomed), S3_DELETES, replace=False)]
+        xml = "".join(f"<Object><Key>{k}</Key></Object>" for k in doomed)
+        status, _, body = _s3_request(conn, s3.url, loader, "POST", f"/{bucket}",
+                                      f"<Delete>{xml}</Delete>".encode(), query="delete")
+        check(status == 200 and body.count(b"<Deleted>") == S3_DELETES
+              and b"<Error>" not in body, f"DeleteObjects: {status} {body[:300]!r}")
+        for k in doomed:
+            status, _, body = _s3_request(conn, s3.url, loader, "GET", f"/{bucket}/{k}")
+            check(status == 404 and _s3_code(body) == "NoSuchKey", f"{k} after DeleteObjects")
+        buckets = shell("s3.bucket.list")
+        check(f"{bucket}\n" in buckets and "total 2 buckets" in buckets,
+              f"s3.bucket.list: {buckets}")
+        staged = f"/buckets/.uploads/{bucket}/{abandoned}"
+        check(s3.filer.lookup(staged) is not None, "the abandoned upload's staging dir")
+        cleaned = shell("lock; s3.clean.uploads -timeAgoSeconds 0; unlock")
+        check(f"aborted stale upload {bucket}/{abandoned}" in cleaned
+              and "1 aborted, 0 kept" in cleaned, f"s3.clean.uploads: {cleaned}")
+        check(s3.filer.lookup(staged) is None, "the abandoned upload survived")
+        out["checks"] = {"listed": len(listed), "pages": pages, "unsigned": 403,
+                         "other_bucket": "AccessDenied", "deleted": S3_DELETES,
+                         "buckets": buckets.strip().splitlines()[-1],
+                         "clean_uploads": next(ln for ln in cleaned.splitlines()
+                                               if ln.startswith("s3.clean.uploads:"))}
+    finally:
+        _put_env(saved)
+        fs.chunk_io.cache = chunk_cache
+        for c in conns:
+            c.close()
+        for env in envs:
+            env.close()
+        for g in reversed(gateways):
+            g.stop()
     out["seconds"] = time.perf_counter() - t_phase
     by_shape = dict(rs_cuda.launches_by_shape)
     out["launches_by_shape"] = _shape_keys(by_shape)
@@ -3271,7 +3757,7 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
     out["busy"] = _busy(by_shape, kernel_ms, out["seconds"])
     check(all(c == 10 for _, c in by_shape) and (by_shape.get((1, 10), 0) > 0 if on_card
                                                   else not by_shape),
-          f"the filer path launched {by_shape}")
+          f"the s3 path launched {by_shape}")
     return out
 
 
@@ -3842,7 +4328,13 @@ def run_rack(scratch: str, card: str) -> dict:
     with open(out, encoding="utf-8") as f:
         r = json.load(f)
     phases = {p: r.get(p, {}) for p in ("phase1_node", "phase2_rack")}
-    check(rc == 0 and r["ok"] and r["lost"] == [], f"rack: rc {rc}, ok {r['ok']}, lost {r['lost']}")
+    gates = {name: {k: ph.get(k) for k in ("victims", "heal_seconds", "coverage_complete",
+                                            "priority_ok")}
+                    | {"block_missing": [b["block_missing"] for b in ph.get("batches", [])]}
+             for name, ph in phases.items()}
+    check(rc == 0 and r["ok"] and r["lost"] == [],
+          f"rack: rc {rc}, ok {r['ok']}, lost {r['lost']}, phases {gates}, fusion "
+          f"{r.get('fusion')}, violations {r.get('placement_violations')}")
     for name, ph in phases.items():
         check(ph.get("priority_ok") and ph.get("coverage_complete"), f"rack {name}: {ph}")
     check(r["placement_violations"] == [], f"rack: violations {r['placement_violations']}")
@@ -3881,7 +4373,7 @@ def _version_if_importable(name: str) -> str | None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dat-gib", type=float, default=4.0)
+    ap.add_argument("--dat-gib", type=float, default=2.0)
     ap.add_argument("--second-gib", type=float, default=1.0)
     ap.add_argument("--variant-gib", type=float, default=0.5)
     args = ap.parse_args(argv)
@@ -3978,8 +4470,15 @@ def main(argv=None) -> int:
                      (2, 10): int8["fleet_rebuild2"], (1, 10): int8["degraded1m"]}
         shutil.rmtree(SCRATCH)  # the filer phase starts on an empty directory
         os.makedirs(SCRATCH)
-        slice_lines["filer"] = run_filer(SCRATCH, args.seed, card, kernel_ms)
+        # the s3 phase runs on the filer phase's cluster before it stops, and
+        # counts its own launches (reset inside, read after)
+        slice_lines["filer"] = run_filer(
+            SCRATCH, args.seed, card, kernel_ms,
+            then=lambda master, servers, fs: run_s3(os.path.join(SCRATCH, "s3"), master, servers,
+                                                    fs, args.seed, card, kernel_ms))
+        slice_lines["s3"] = slice_lines["filer"].pop("_then")
         emit({"phase": "filer", **slice_lines["filer"]})
+        emit({"phase": "s3", **slice_lines["s3"]})
         shutil.rmtree(SCRATCH)  # the storm starts on an empty directory
         os.makedirs(SCRATCH)
         slice_lines["shell"], slice_lines["fleet"] = run_storm(SCRATCH, args.seed, card,

@@ -1,16 +1,17 @@
-"""Process-level commands — version, master, volume, server, filer and
-shell, mirroring weed/command/{master,volume,server,filer,shell}.go.
-`server` runs a master and a volume server in one process, as `weed
-server` does (`-filer` adds a filer); `filer` runs the namespace server
-alone against a master; `shell` is the operator shell (REPL, or `-c` for
-a `;`-separated script). The volume server's EC work, and what the shell
+"""Process-level commands — version, master, volume, server, filer, s3,
+webdav, iam and shell, mirroring weed/command/{master,volume,server,filer,
+s3,webdav,iam,shell}.go. `server` runs a master and a volume server in one
+process, as `weed server` does (`-filer` adds a filer, `-s3` and
+`-webdav` a filer and that gateway); `filer` runs the namespace server
+alone against a master; `s3`, `webdav` and `iam` run a gateway alone
+against a filer; `shell` is the operator shell (REPL, or `-c` for a
+`;`-separated script). The volume server's EC work, and what the shell
 builds locally, runs on the card (`--device`, default cuda); `--device
-cpu` gives the plain version. The filer runs no kernel, so the `filer`
-command takes no `--device` and never touches the card. `master -peers
-a,b,c -raftDir D` joins a raft quorum; `scaffold` prints a commented TOML
-template. The S3 and WebDAV front ends of `server` are not in this
-package yet and raise. The transport (and so grpc) is imported only when
-a server or shell command runs, so the local commands that share the
+cpu` gives the plain version. The filer and the gateways run no kernel,
+so their commands take no `--device` and never touch the card. `master
+-peers a,b,c -raftDir D` joins a raft quorum; `scaffold` prints a
+commented TOML template. The transport (and so grpc) is imported only
+when a server or shell command runs, so the local commands that share the
 registry need none of it."""
 
 from __future__ import annotations
@@ -201,25 +202,27 @@ def _server_conf(p: argparse.ArgumentParser) -> None:
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
     p.add_argument("-filer", action="store_true", help="also run a filer")
     p.add_argument("-filerPort", type=int, default=8888)
-    p.add_argument("-s3", action="store_true", help="also run the S3 gateway (not ported)")
-    p.add_argument("-webdav", action="store_true", help="also run WebDAV (not ported)")
+    p.add_argument("-s3", action="store_true", help="also run the S3 gateway (implies -filer)")
+    p.add_argument("-s3Port", type=int, default=8333)
+    p.add_argument("-webdav", action="store_true", help="also run WebDAV (implies -filer)")
+    p.add_argument("-webdavPort", type=int, default=7333)
+    p.add_argument(
+        "-allowedHosts",
+        default="",
+        help="comma-separated advertised host:port names accepted as the "
+        "signed Host header by the S3 gateway besides the bind address",
+    )
     _add_device(p)
 
 
-#: the front ends of `server` this package does not have yet, by ROADMAP item
-_MISSING_FRONTS = {"s3": ("S3 gateway", "3(d)"), "webdav": ("WebDAV server", "3(e)")}
+def _hosts(arg: str) -> set[str]:
+    return {h.strip() for h in arg.split(",") if h.strip()}
 
 
 def _server_run(args: argparse.Namespace) -> int:
     from seaweedfs_tpu_torch.cluster.master import MasterServer
     from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
 
-    missing = [f for f in _MISSING_FRONTS if getattr(args, f)]
-    if missing:
-        raise NotImplementedError(
-            "; ".join(f"-{f}: the {_MISSING_FRONTS[f][0]} is not ported yet "
-                      f"(ROADMAP Queue 1 item {_MISSING_FRONTS[f][1]})" for f in missing)
-        )
     _security()
     enc = _encoder(args.device)
     m = MasterServer(
@@ -236,13 +239,28 @@ def _server_run(args: argparse.Namespace) -> int:
              f"volume http {vs.url} grpc {vs.grpc_address}"]
     extras = []
     try:
-        if args.filer:
+        if args.filer or args.s3 or args.webdav:
             from seaweedfs_tpu_torch.filer import FilerServer
 
             f = FilerServer(m.address, port=args.filerPort, host=args.ip)
             f.start()
             extras.append(f)
             parts.append(f"filer http {f.url} grpc {f.grpc_address}")
+            if args.s3:
+                from seaweedfs_tpu_torch.s3api import S3ApiServer
+
+                s3 = S3ApiServer(f.url, f.grpc_address, port=args.s3Port, host=args.ip,
+                                 extra_hosts=_hosts(args.allowedHosts))
+                s3.start()
+                extras.append(s3)
+                parts.append(f"s3 {s3.url}")
+            if args.webdav:
+                from seaweedfs_tpu_torch.webdav import WebDavServer
+
+                w = WebDavServer(f.url, f.grpc_address, port=args.webdavPort, host=args.ip)
+                w.start()
+                extras.append(w)
+                parts.append(f"webdav {w.url}")
         print("server: " + ", ".join(parts), flush=True)
         _wait_forever()
     finally:
@@ -304,6 +322,128 @@ def _filer_run(args: argparse.Namespace) -> int:
 
 
 register(Command("filer", "run a filer (namespace) server", _filer_conf, _filer_run))
+
+
+def _s3_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-port", type=int, default=8333)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="127.0.0.1:8888", help="filer http host:port")
+    p.add_argument("-filerGrpc", default="", help="filer grpc host:port")
+    p.add_argument("-config", default="", help="identities JSON file (upstream's -s3.config shape)")
+    p.add_argument("-metricsPort", type=int, default=0)
+    p.add_argument(
+        "-allowedHosts",
+        default="",
+        help="comma-separated advertised host:port names (DNS/LB fronts) "
+        "accepted as the signed Host header besides the bind address",
+    )
+
+
+def _s3_run(args: argparse.Namespace) -> int:
+    import json
+
+    from seaweedfs_tpu_torch.s3api import Iam, S3ApiServer
+
+    if not args.filerGrpc:
+        raise SystemExit("-filerGrpc is required")
+    _security()
+    iam = Iam()
+    if args.config:
+        with open(args.config, encoding="utf-8") as f:
+            iam = Iam.from_config(json.load(f))
+    if not iam.identities:
+        # no static config: pick up identities the IAM API persisted in
+        # the filer KV store (and _auth re-reads on unknown access keys)
+        from seaweedfs_tpu_torch.filer.client import FilerClient
+        from seaweedfs_tpu_torch.s3api.auth import load_identities
+
+        try:
+            with FilerClient(args.filerGrpc) as fc:
+                stored = load_identities(fc)
+            if stored is not None:
+                iam = stored
+        except Exception:  # noqa: BLE001 — filer may not be up yet
+            pass
+    s3 = S3ApiServer(args.filer, args.filerGrpc, port=args.port, host=args.ip, iam=iam,
+                     extra_hosts=_hosts(args.allowedHosts))
+    s3.start()
+    _maybe_metrics(args.metricsPort)
+    print(f"s3 gateway on {s3.url} -> filer {args.filer}", flush=True)
+    try:
+        _wait_forever()
+    finally:
+        s3.stop()
+    return 0
+
+
+register(Command("s3", "run an S3-compatible gateway against a filer", _s3_conf, _s3_run))
+
+
+def _webdav_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-port", type=int, default=7333)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-filerGrpc", default="")
+    p.add_argument("-root", default="/", help="filer directory to expose")
+
+
+def _webdav_run(args: argparse.Namespace) -> int:
+    from seaweedfs_tpu_torch.webdav import WebDavServer
+
+    if not args.filerGrpc:
+        raise SystemExit("-filerGrpc is required")
+    _security()
+    w = WebDavServer(args.filer, args.filerGrpc, port=args.port, host=args.ip, root=args.root)
+    w.start()
+    print(f"webdav on {w.url} -> filer {args.filer}", flush=True)
+    try:
+        _wait_forever()
+    finally:
+        w.stop()
+    return 0
+
+
+register(Command("webdav", "run a WebDAV gateway against a filer", _webdav_conf, _webdav_run))
+
+
+def _iam_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-port", type=int, default=8111)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filerGrpc", default="", help="filer grpc host:port")
+    p.add_argument(
+        "-bootstrapToken",
+        default="",
+        help="pre-shared token allowing the first admin to be minted on a "
+        "fresh cluster; without it the API stays closed until identities "
+        "are seeded via config or the S3 gateway",
+    )
+    p.add_argument(
+        "-allowedHosts",
+        default="",
+        help="comma-separated advertised host:port names accepted as the "
+        "signed Host header besides the bind address",
+    )
+
+
+def _iam_run(args: argparse.Namespace) -> int:
+    from seaweedfs_tpu_torch.iamapi import IamApiServer
+
+    if not args.filerGrpc:
+        raise SystemExit("-filerGrpc is required")
+    _security()
+    srv = IamApiServer(args.filerGrpc, port=args.port, host=args.ip,
+                       bootstrap_token=args.bootstrapToken or None,
+                       extra_hosts=_hosts(args.allowedHosts))
+    srv.start()
+    print(f"iam api on {srv.url}", flush=True)
+    try:
+        _wait_forever()
+    finally:
+        srv.stop()
+    return 0
+
+
+register(Command("iam", "run an AWS-IAM-compatible identity API", _iam_conf, _iam_run))
 
 
 def _shell_conf(p: argparse.ArgumentParser) -> None:

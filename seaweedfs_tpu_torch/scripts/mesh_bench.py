@@ -81,12 +81,19 @@ def _delta(before: dict) -> dict:
 
 
 def host_topology(n_cards: int) -> dict:
-    """`nvidia-smi topo -m` and the peer-access matrix of the host's cards."""
+    """`nvidia-smi topo -m` and the peer-access matrix of the host's cards.
+    Where nvidia-smi cannot read the topology (it exits 255 with "Failed
+    to run topology matrix" on some hosts) `topology` is None and
+    `topology_error` says why; the peer-access matrix is read either way."""
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
-                          timeout=60, check=True).stdout
+                          timeout=60)
     peers = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n_cards)]
              for i in range(n_cards)]
-    return {"topology": topo, "peer_access": peers}
+    if topo.returncode != 0:
+        return {"topology": None, "peer_access": peers,
+                "topology_error": f"exit {topo.returncode}: "
+                                  f"{(topo.stdout + topo.stderr).strip()[:200]}"}
+    return {"topology": topo.stdout, "peer_access": peers}
 
 
 def measure_mesh(

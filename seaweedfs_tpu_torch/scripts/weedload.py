@@ -1,16 +1,16 @@
 """weedload: open-loop SLO load harness for hot-set and degraded EC reads.
 
 Grown out of chaos_soak.py's real-cluster harness: a live master + volume
-servers, zipfian keys over the master HTTP front, a CONFIGURABLE degraded
-fraction (data shards of the EC'd volume dropped cluster-wide, so their
-needles reconstruct on every read), and mid-run chaos (SIGKILL restarts
-and SIGSTOP wedges of shard holders). Unlike the soak, the generator is
-OPEN-LOOP: arrivals fire on a Poisson schedule at the target rate whether
-or not earlier requests returned, and each latency is measured from the
-request's SCHEDULED arrival: a stalled server shows up as queueing delay
-in the tail, exactly like it would for real users, instead of silently
-throttling the offered load (the closed-loop "coordinated omission"
-failure mode).
+servers, zipfian keys over the master HTTP front (or the S3 gateway with
+--front s3), a CONFIGURABLE degraded fraction (data shards of the EC'd
+volume dropped cluster-wide, so their needles reconstruct on every read),
+and mid-run chaos (SIGKILL restarts and SIGSTOP wedges of shard holders).
+Unlike the soak, the generator is OPEN-LOOP: arrivals fire on a Poisson
+schedule at the target rate whether or not earlier requests returned, and
+each latency is measured from the request's SCHEDULED arrival: a stalled
+server shows up as queueing delay in the tail, exactly like it would for
+real users, instead of silently throttling the offered load (the
+closed-loop "coordinated omission" failure mode).
 
 Every volume server is its own `python -m seaweedfs_tpu_torch volume ...
 --device <device>` process (chaos_soak.Node), with its own CUDA context on
@@ -48,8 +48,9 @@ degraded class keeps existing.
 Shards 5-9 are spread to TWO extra holders so degraded fan-outs cross
 the network and hedged fetches have a second holder to race.
 
-The S3 front (`--front s3`) needs the S3 gateway, which is not in this
-package yet: it raises NotImplementedError before any server starts.
+The S3 front (`--front s3`) runs a filer and the S3 gateway in this
+process and sends signed V4 requests through them into bucket `load`;
+it takes --procs 1 and no --corrupt, --rebuild-storm or --put-fraction.
 
 Usage (real run, on the card):
   python -m seaweedfs_tpu_torch.scripts.weedload --seconds 30 --rps 1000 \
@@ -78,6 +79,9 @@ from concurrent.futures import ThreadPoolExecutor
 #: the directory that holds the `seaweedfs_tpu_torch` package: the generator
 #: workers' working directory, so `python -m` resolves this copy
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+#: S3-front credentials (loopback bench identity, not a secret)
+S3_AK, S3_SK = "weedloadAccessKey", "weedloadSecretKey"
 
 #: serving classes the volume server's read-class header may answer; a
 #: header value outside this set (or a front that strips it) falls back
@@ -135,8 +139,9 @@ def parse_args(argv):
     p.add_argument("--front", choices=("master", "s3"), default="master",
                    help="serving front the load goes through: the master "
                         "HTTP redirect front (direct fid reads, per-read "
-                        "class header); s3 (the S3 gateway) is not ported "
-                        "and raises")
+                        "class header), or the S3 gateway (signed V4 "
+                        "requests through filer+s3 in-process; classes "
+                        "come from the objects' chunk fids)")
     p.add_argument("--objects", type=int, default=160, help="preloaded objects")
     p.add_argument("--zipf", type=float, default=1.1, help="zipf skew s")
     p.add_argument("--concurrency", type=int, default=64,
@@ -153,7 +158,7 @@ def parse_args(argv):
                         "every PUT streams through the encode-on-write "
                         "stripe encoders — the write-heavy workload. PUT "
                         "latency lands in the report under class `put`. "
-                        "Requires --procs 1")
+                        "Requires --procs 1 and --front master")
     p.add_argument("--dropped-shards", type=int, nargs="*", default=[0, 1],
                    help="data shards deleted cluster-wide (degraded fraction)")
     p.add_argument("--ec-large-block", type=int, default=1 << 20,
@@ -434,7 +439,8 @@ def ec_encode_and_spread(
     """EC-encode `vid` on its owner, spread shards 5-9 to two other
     holders (hedging needs a second holder to race), drop `dropped`
     cluster-wide, and return the owner's base path (for classification).
-    `collection` must match the volume's collection (the on-disk base is
+    `collection` must match the volume's collection (s3-front objects
+    land in their bucket's collection, so the on-disk base is
     `<collection>_<vid>`, and every shard RPC resolves paths from it).
     `nodes` entries expose .grpc (port) and .dir — true for both the
     subprocess Node and the in-process shim."""
@@ -691,11 +697,6 @@ def main(argv=None) -> int:
     args = parse_args(argv if argv is not None else sys.argv[1:])
     if args.gen_worker:
         return run_worker(args)
-    if args.front == "s3":
-        raise NotImplementedError(
-            "--front s3: the S3 gateway is not ported yet "
-            "(ROADMAP Queue 1 item 3(d))"
-        )
     from seaweedfs_tpu_torch.scripts.chaos_soak import Node, prepare_device
 
     prepare_device(args.device)
@@ -717,6 +718,11 @@ def main(argv=None) -> int:
         args.procs = 1
     if args.put_fraction > 0:
         assert args.procs == 1, "--put-fraction requires --procs 1"
+        assert args.front == "master", "--put-fraction requires --front master"
+    if args.front == "s3":
+        assert args.procs == 1, "--front s3 requires --procs 1"
+        assert not args.corrupt, "--corrupt requires --front master"
+        assert not args.rebuild_storm, "--rebuild-storm requires --front master"
     if args.out is None:
         name = "SLO_smoke" if args.smoke else "SLO_corrupt" if args.corrupt else "SLO"
         args.out = os.path.join(tempfile.gettempdir(), name + ".json")
@@ -802,6 +808,7 @@ def main(argv=None) -> int:
         master.start()
         nodes = []
         client = None
+        filer_srv = s3_srv = filer_client = None
         try:
             if args.smoke:
                 for i in range(3):
@@ -822,18 +829,73 @@ def main(argv=None) -> int:
             assert len(master.topology.nodes) == 3, "cluster did not form"
             mark("cluster_form")
 
-            # -- front adapter: how objects get written, read back, and
+            # -- front adapters: how objects get written, read back, and
             # mapped to the needle fids the stripe math classifies ----------
-            def fids_of(key: str) -> list[str]:
-                return [key]
+            if args.front == "s3":
+                from seaweedfs_tpu_torch.filer import FilerServer
+                from seaweedfs_tpu_torch.filer.client import FilerClient
+                from seaweedfs_tpu_torch.s3api import (
+                    Iam, Identity, S3ApiServer, sign_request,
+                )
 
-            def write_one_blob(payload: bytes) -> str:
-                a = client.assign(replication="001")
-                client.upload(a.fid, payload)
-                return a.fid
+                filer_srv = FilerServer(master.address, chunk_size=1 << 20)
+                filer_srv.start()
+                s3_srv = S3ApiServer(
+                    filer_srv.url,
+                    filer_srv.grpc_address,
+                    iam=Iam([Identity("weedload", S3_AK, S3_SK)]),
+                )
+                s3_srv.start()
+                filer_client = FilerClient(filer_srv.grpc_address)
 
-            def read_fn(key: str):
-                return client.read_ex(key)
+                def _s3_req(method, key, body=b""):
+                    url = f"http://{s3_srv.url}{key}"
+                    h = sign_request(S3_AK, S3_SK, method, url, body)
+                    req = urllib.request.Request(
+                        url, data=body if body else None, method=method,
+                        headers=h,
+                    )
+                    with urllib.request.urlopen(
+                        req, timeout=args.client_timeout + 10
+                    ) as r:
+                        return r.read(), r.headers
+
+                _s3_req("PUT", "/load")
+                s3_seq = [0]
+                _chunk_cache: dict[str, list[str]] = {}
+
+                def fids_of(key: str) -> list[str]:
+                    chunks = _chunk_cache.get(key)
+                    if chunks is None:
+                        ent = filer_client.lookup(f"/buckets{key}")
+                        chunks = [c.fid for c in (ent.chunks or [])] if ent else []
+                        _chunk_cache[key] = chunks
+                    return chunks
+
+                def write_one_blob(payload: bytes) -> str:
+                    key = f"/load/o{s3_seq[0]:06d}"
+                    s3_seq[0] += 1
+                    _s3_req("PUT", key, payload)
+                    return key
+
+                def read_fn(key: str):
+                    # the s3 gateway reads needles filer-side, so the
+                    # read-class header does not reach this client:
+                    # classification stays the static chunk-fid class
+                    body, _headers = _s3_req("GET", key)
+                    return body, None
+            else:
+
+                def fids_of(key: str) -> list[str]:
+                    return [key]
+
+                def write_one_blob(payload: bytes) -> str:
+                    a = client.assign(replication="001")
+                    client.upload(a.fid, payload)
+                    return a.fid
+
+                def read_fn(key: str):
+                    return client.read_ex(key)
 
             # -- preload batch 1: the objects that will live on the EC'd
             # volume (written first so they share one volume) --------------
@@ -858,8 +920,10 @@ def main(argv=None) -> int:
                     by_vid[vid] = by_vid.get(vid, 0) + 1
             ec_vid = max(by_vid, key=lambda v: by_vid[v])
             dropped = set(args.dropped_shards)
-            # master-front assigns land in the default (empty) collection
-            ec_collection = ""
+            # s3-front objects live in their bucket's collection, which
+            # prefixes the on-disk base (`load_<vid>`); master-front
+            # assigns land in the default (empty) collection
+            ec_collection = "load" if args.front == "s3" else ""
             base = ec_encode_and_spread(
                 rpc_mod, VOLUME_SERVICE, nodes, ec_vid, sorted(dropped),
                 args.ec_large_block, args.ec_small_block,
@@ -1303,7 +1367,7 @@ def main(argv=None) -> int:
             # -- tracing-overhead gate (smoke): leave-it-on is a design
             # claim, so the smoke MEASURES it — interleaved trace-on vs
             # trace-off healthy reads on the same live cluster ------------
-            if args.smoke:
+            if args.smoke and args.front == "master":
                 healthy_fids = [
                     f for f in client_blobs if klass_of(f) == "healthy"
                 ]
@@ -1325,6 +1389,13 @@ def main(argv=None) -> int:
         finally:
             if client is not None:
                 client.close()
+            teardown = [filer_client.close] if filer_client is not None else []
+            teardown += [srv.stop for srv in (s3_srv, filer_srv) if srv is not None]
+            for step in teardown:
+                try:
+                    step()
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    pass
             for n in nodes:
                 try:
                     if args.smoke:
@@ -1351,7 +1422,7 @@ def main(argv=None) -> int:
             "ec_volume": ec_vid,
             "concurrency": args.concurrency,
             "procs": args.procs,
-            "front": "master-http",
+            "front": "s3" if args.front == "s3" else "master-http",
             "servers": "in-process" if args.smoke else "subprocess",
             "put_fraction": args.put_fraction,
             "puts_acked": puts_done[0],
@@ -1430,7 +1501,7 @@ def main(argv=None) -> int:
         return 1
     if args.corrupt and not report["corruption"]["all_healed"]:
         return 1  # an unhealed injection is as disqualifying as a lost byte
-    if args.smoke and report["cache"]["hits"] < 1:
+    if args.smoke and args.front == "master" and report["cache"]["hits"] < 1:
         # the cache-hit-rate gate: a hot zipf set over a warmed cache that
         # never hits means the decoded-interval cache is broken or off —
         # the smoke exists to catch exactly that before a real run does

@@ -8,11 +8,11 @@ Each command is a `ShellCommand(name, help, do)` where
 `do(args: list[str], env: CommandEnv, writer)` mirrors the reference's
 `Do(args, commandEnv, writer)` signature.
 
-The fs.* commands reach the filer through `CommandEnv.filer_client()`,
-a FilerClient for the first filer the master lists. The s3.* and mq.*
-commands stand on the S3 gateway and the message queue, which this
-package does not have yet (ROADMAP Queue 1 items 3(d) and 3(g)):
-`commands()` registers the cluster, ec.*, volume.* and fs.* families.
+The fs.* and s3.* commands reach the filer through
+`CommandEnv.filer_client()`, a FilerClient for the first filer the master
+lists. The mq.* commands stand on the message queue, which this package
+does not have yet (ROADMAP Queue 1 item 3(g)): `commands()` registers the
+cluster, ec.*, volume.*, fs.* and s3.* families.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ def commands() -> dict[str, ShellCommand]:
     from seaweedfs_tpu_torch.shell import command_cluster  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_ec  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_fs  # noqa: F401
+    from seaweedfs_tpu_torch.shell import command_s3  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_volume  # noqa: F401
 
     return dict(_REGISTRY)

@@ -1284,16 +1284,31 @@ def hold_smoke_report(report: dict, took: float, timed: bool) -> None:
         assert overhead["ok"], f"tracing overhead gate failed: {overhead}"
 
 
-def run_smoke(tmp_path, device: str) -> tuple[dict, float]:
-    """`weedload.main(["--smoke", ...])` on `device` in a fresh interpreter
-    (no thread or cache of an earlier test shares its host time), timed
-    around the call as the reference's case times it."""
+def hold_s3_smoke_report(report: dict, took: float, timed: bool) -> None:
+    """Every assertion of the reference's S3-front smoke case
+    (`tests/test_slo_harness.py::test_weedload_smoke_s3_front`) on a port
+    report; `timed` adds its 40 s budget, which holds on a host with
+    nothing else running, not under parallel test workers."""
+    assert report["lost"] == [] and report["ok"]
+    assert report["workload"]["front"] == "s3"
+    by_class = report["workload"]["objects_by_class"]
+    assert by_class["healthy"] > 0 and by_class["degraded"] > 0
+    assert report["counters"]["weedtpu_degraded_read_seconds_count"] > 0
+    assert report["overall"]["degraded"]["count"] > 0
+    if timed:
+        assert took < 40.0, f"s3 smoke must stay inside the CI budget ({took:.1f}s)"
+
+
+def run_smoke(tmp_path, device: str, front: str = "master") -> tuple[dict, float]:
+    """`weedload.main(["--smoke", "--front", front, ...])` on `device` in a
+    fresh interpreter (no thread or cache of an earlier test shares its
+    host time), timed around the call as the reference's case times it."""
     import json
     import subprocess
     import sys
 
     out = tmp_path / "SLO_smoke.json"
-    argv = ["--smoke", "--device", device, "--out", str(out),
+    argv = ["--smoke", "--front", front, "--device", device, "--out", str(out),
             "--trace-out", str(tmp_path / "TRACE_ATTRIB_smoke.json")]
     code = (
         "import json, sys, time\n"
@@ -1318,6 +1333,16 @@ def test_card_weedload_smoke_holds_the_reference_smoke(card, tmp_path):
     select the cuda backend."""
     report, took = run_smoke(tmp_path, "cuda")
     hold_smoke_report(report, took, timed=True)
+    assert report["server_backends"]["n0"] == [["cuda"]]
+
+
+def test_card_weedload_s3_smoke_holds_the_reference_s3_smoke(card, tmp_path):
+    """`--smoke --front s3` with the in-process volume servers on the
+    factory's card encoder: signed requests through the port's filer and
+    S3 gateway, the reference S3 smoke's assertions with its 40 s budget,
+    and the servers' /metrics select the cuda backend."""
+    report, took = run_smoke(tmp_path, "cuda", front="s3")
+    hold_s3_smoke_report(report, took, timed=True)
     assert report["server_backends"]["n0"] == [["cuda"]]
 
 
@@ -1764,6 +1789,79 @@ def test_card_filer_reads_every_file_back_through_degraded_ec_reads(card, tmp_pa
         by_shape = dict(rs_cuda.launches_by_shape)
         assert by_shape and all(c == 10 for _, c in by_shape), by_shape
     finally:
+        fs.stop()
+        vs.stop()
+        master.stop()
+
+
+def test_card_s3_gateway_reads_degraded_objects_back(card, tmp_path):
+    """The S3 gateway over a filer (chunk cache off, 256 KiB chunks) and a
+    card volume server: seeded objects PUT by signed requests into a bucket,
+    the bucket's collection EC-encoded by the port shell (16 KiB small
+    blocks), data shards 0 and 5 lost; every object reads back byte-equal by
+    signed GET through the gateway, and the reads reconstruct on the card
+    ((1, 10) launches)."""
+    import io
+    import urllib.request
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.filer import FilerServer
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.s3api import Iam, Identity, S3ApiServer, sign_request
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_script
+
+    def s3_call(method, path, body=b""):
+        url = f"http://{s3.url}{path}"
+        req = urllib.request.Request(url, data=body or None, method=method,
+                                     headers=sign_request("ak", "sk", method, url, body))
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], master.address, heartbeat_interval=0.3,
+                      encoder=rs_codec.new_encoder())
+    vs.start()
+    fs = FilerServer(master.address, chunk_size=256 << 10, chunk_cache_bytes=0)
+    fs.start()
+    s3 = S3ApiServer(fs.url, fs.grpc_address, iam=Iam([Identity("admin", "ak", "sk")]))
+    s3.start()
+    try:
+        assert s3_call("PUT", "/cardbkt")[0] == 200
+        rng = np.random.default_rng(37)
+        objects = {f"/cardbkt/p{i % 4}/o{i:02d}.bin": rng.bytes(int(rng.integers(1000, 900_000)))
+                   for i in range(40)}
+        for path, data in objects.items():
+            assert s3_call("PUT", path, data)[0] == 200
+        vids = {int(c.fid.split(",")[0]) for p in objects
+                for c in fs.filer.find_entry("/buckets" + p).chunks}
+        _wait(lambda: all(master.topology.lookup(v, "cardbkt") for v in vids))
+        with CommandEnv(master.address) as env:
+            out = io.StringIO()
+            run_script(env, "lock; ec.encode -collection cardbkt -force -largeBlockSize 65536 "
+                            "-smallBlockSize 16384; unlock", out)
+        for v in vids:
+            ev = vs.store.get_ec_volume(v)
+            assert ev is not None, out.getvalue()
+            if ev.warm_thread is not None:
+                ev.warm_thread.join()
+            with rpc.RpcClient(vs.grpc_address) as c:
+                c.call(VOLUME_SERVICE, "VolumeEcShardsDelete",
+                       {"volume_id": v, "collection": "cardbkt", "shard_ids": [0, 5]})
+        _wait(lambda: all(len([s for s, ns in master.topology.lookup_ec_shards(v).items() if ns])
+                          == 12 for v in vids))
+        read_planner.CACHE.clear()
+        rs_cuda.reset_launches()
+        for path, data in objects.items():
+            assert s3_call("GET", path) == (200, data), path
+        by_shape = dict(rs_cuda.launches_by_shape)
+        assert by_shape.get((1, 10), 0) > 0 and all(c == 10 for _, c in by_shape), by_shape
+    finally:
+        s3.stop()
         fs.stop()
         vs.stop()
         master.stop()

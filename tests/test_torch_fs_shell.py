@@ -1,8 +1,9 @@
-"""The port's fs.* shell commands, its filer's registration with the
-master and its TTL enforcement against the reference's: a twin of each
-filer-only case of `tests/test_fs_shell.py` (`fs_commands_roundtrip`,
+"""The port's fs.* and s3.* shell commands, its filer's registration with
+the master and its TTL enforcement against the reference's: a twin of each
+filer case of `tests/test_fs_shell.py` (`fs_commands_roundtrip`,
 `filer_ttl_expiry`, `fs_tree`, `fs_configure_rules`, `volume_fsck`, both
-`fs_configure_readonly_*` and `fs_cd_pwd_relative_paths`), each running
+`fs_configure_readonly_*`, `fs_cd_pwd_relative_paths`, `s3_bucket_commands`
+and `fs_meta_cat_and_s3_clean_uploads`), each running
 the reference case's steps and assertions on a stack of each package (a
 master, a volume server on the package's CPU encoder, a filer) and
 requiring the shell's output, the HTTP codes and the namespace to be equal
@@ -328,6 +329,74 @@ def _fs_cd_pwd_relative_paths(p, root, master, vs, fs):
 
 def test_fs_cd_pwd_relative_paths(tmp_path):
     twin(_fs_cd_pwd_relative_paths, tmp_path)
+
+
+def _s3_bucket_commands(p, root, master, vs, fs):
+    out = {}
+    with p.shell.CommandEnv(master.address) as env:
+        out["create"] = _run(p, env, "s3.bucket.create -name shellbkt")
+        assert "created bucket shellbkt" in out["create"]
+        out["list"] = _run(p, env, "s3.bucket.list")
+        assert "shellbkt" in out["list"] and "total" in out["list"]
+        with pytest.raises(p.shell.ShellError, match="already exists") as dup:
+            _run(p, env, "s3.bucket.create -name shellbkt")
+        fs.write_file("/buckets/shellbkt/obj", io.BytesIO(b"data"))
+        with pytest.raises(p.shell.ShellError, match="not empty") as full:
+            _run(p, env, "s3.bucket.delete -name shellbkt")
+        out["delete"] = _run(p, env, "s3.bucket.delete -name shellbkt -force")
+        assert "deleted bucket" in out["delete"]
+        out["after"] = _run(p, env, "s3.bucket.list")
+        assert "shellbkt" not in out["after"]
+        with pytest.raises(p.shell.ShellError, match="not found") as gone:
+            _run(p, env, "s3.bucket.delete -name shellbkt")
+        out["errors"] = [str(e.value) for e in (dup, full, gone)]
+    out["tree"] = _tree(fs)
+    return out
+
+
+def test_s3_bucket_commands(tmp_path):
+    """The shell's output and errors are equal, and so is the namespace
+    after the forced delete (which drops the bucket's collection)."""
+    twin(_s3_bucket_commands, tmp_path)
+
+
+def _fs_meta_cat_and_s3_clean_uploads(p, root, master, vs, fs):
+    out = {}
+    fs.write_file("/catdemo/x.bin", io.BytesIO(b"z" * 123))
+    with p.shell.CommandEnv(master.address) as env:
+        meta = json.loads(_run(p, env, "fs.meta.cat /catdemo/x.bin"))
+        assert meta["chunks"] and meta["attributes"]["file_size"] == 123
+        out["meta"] = mask(meta)
+        with pytest.raises(p.shell.ShellError, match="not found"):
+            _run(p, env, "fs.meta.cat /catdemo/ghost")
+        # stale multipart staging dirs get aborted; fresh ones survive
+        fs.write_file("/buckets/.uploads/bkt/stale123/0001.part", io.BytesIO(b"p"))
+        fs.write_file("/buckets/.uploads/bkt/fresh456/0001.part", io.BytesIO(b"p"))
+        # age the dir AND its newest part: liveness is judged by the
+        # latest activity under the staging dir, not dir creation time
+        for path in ("/buckets/.uploads/bkt/stale123",
+                     "/buckets/.uploads/bkt/stale123/0001.part"):
+            e = fs.filer.find_entry(path)
+            e.attributes.mtime = time.time() - 7200
+            fs.filer.update_entry(e)
+        # a fresh part keeps an otherwise-old upload alive
+        old_dir = fs.filer.find_entry("/buckets/.uploads/bkt/fresh456")
+        old_dir.attributes.mtime = time.time() - 7200
+        fs.filer.update_entry(old_dir)
+        _run(p, env, "lock")
+        out["clean"] = _run(p, env, "s3.clean.uploads -timeAgoSeconds 3600")
+        assert "aborted stale upload bkt/stale123" in out["clean"]
+        assert "1 aborted, 1 kept" in out["clean"]
+        with pytest.raises(p.f.EntryNotFound):
+            fs.filer.find_entry("/buckets/.uploads/bkt/stale123")
+        assert fs.filer.find_entry("/buckets/.uploads/bkt/fresh456")
+        _run(p, env, "unlock")
+    out["tree"] = _tree(fs)
+    return out
+
+
+def test_fs_meta_cat_and_s3_clean_uploads(tmp_path):
+    twin(_fs_meta_cat_and_s3_clean_uploads, tmp_path)
 
 
 # -- fs.meta.save across the packages -------------------------------------------------------

@@ -72,7 +72,9 @@ def test_port_has_modules_for_every_layer():
                  "filer/__init__.py", "filer/entry.py", "filer/filer_conf.py", "filer/store.py",
                  "filer/logstore.py", "filer/bucketstore.py", "filer/chunks.py",
                  "filer/filer.py", "filer/server.py", "filer/client.py",
-                 "utils/chunk_cache.py", "shell/command_fs.py"):
+                 "utils/chunk_cache.py", "shell/command_fs.py", "s3api/policy.py",
+                 "s3api/server.py", "iamapi/__init__.py", "iamapi/server.py",
+                 "webdav/__init__.py", "webdav/server.py", "shell/command_s3.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
@@ -121,7 +123,10 @@ SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.clu
                   "seaweedfs_tpu_torch.shell.command_volume",
                   "seaweedfs_tpu_torch.shell.command_fs", "seaweedfs_tpu_torch.filer",
                   "seaweedfs_tpu_torch.filer.chunks", "seaweedfs_tpu_torch.filer.filer",
-                  "seaweedfs_tpu_torch.filer.server", "seaweedfs_tpu_torch.filer.client")
+                  "seaweedfs_tpu_torch.filer.server", "seaweedfs_tpu_torch.filer.client",
+                  "seaweedfs_tpu_torch.s3api.server", "seaweedfs_tpu_torch.iamapi",
+                  "seaweedfs_tpu_torch.iamapi.server", "seaweedfs_tpu_torch.webdav",
+                  "seaweedfs_tpu_torch.webdav.server", "seaweedfs_tpu_torch.shell.command_s3")
 #: the filer's entries, rules and stores: no wire module of their own (their
 #: package's `__init__` imports the server, so they import only with grpc)
 FILER_PLAIN_MODULES = ("seaweedfs_tpu_torch.filer.entry", "seaweedfs_tpu_torch.filer.filer_conf",
@@ -130,14 +135,15 @@ FILER_PLAIN_MODULES = ("seaweedfs_tpu_torch.filer.entry", "seaweedfs_tpu_torch.f
 #: the server commands: they share the CLI registry with the local
 #: commands, so they reach the transport only when one of them runs
 SERVER_COMMANDS = "seaweedfs_tpu_torch.command.servers"
-#: chip_smoke.py's cluster, ha, filer, shell, fleet, load and rack phases:
+#: chip_smoke.py's cluster, ha, filer, s3, shell, fleet, load and rack phases:
 #: the only functions there that reach them
 CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm", "run_load", "run_rack",
-                 "run_ha", "_ha", "run_filer", "_filer")
+                 "run_ha", "_ha", "run_filer", "_filer", "run_s3")
 #: the load harnesses: they reach the transport only inside their functions
 HARNESSES = ("seaweedfs_tpu_torch.scripts.weedload", "seaweedfs_tpu_torch.scripts.chaos_soak")
 #: the servers' pure planners and data structures, and the tiering path
-#: (the vendors, the tier moves, the remote backend, the SigV4 signer):
+#: (the vendors, the tier moves, the remote backend, the SigV4 signer and
+#: verifier, the bucket policies):
 #: they import without it
 PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec.placement",
                         "seaweedfs_tpu_torch.cluster.sequence",
@@ -145,7 +151,8 @@ PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec
                         "seaweedfs_tpu_torch.remote_storage",
                         "seaweedfs_tpu_torch.remote_storage.tier",
                         "seaweedfs_tpu_torch.storage.backend",
-                        "seaweedfs_tpu_torch.s3api.auth", "seaweedfs_tpu_torch.utils.chunk_cache")
+                        "seaweedfs_tpu_torch.s3api.auth", "seaweedfs_tpu_torch.s3api.policy",
+                        "seaweedfs_tpu_torch.utils.chunk_cache")
 
 
 def _port_imports(path: str, top_level: bool = False, skip: tuple = ()) -> set[str]:
@@ -226,7 +233,7 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "from seaweedfs_tpu_torch.__main__ import main\n"
         "from seaweedfs_tpu_torch.command import commands\n"
         "assert {'export', 'encode', 'rebuild', 'master', 'server', 'shell', 'benchmark',\n"
-        "        'upload', 'download', 'filer'} <= set(commands())\n"
+        "        'upload', 'download', 'filer', 's3', 'webdav', 'iam'} <= set(commands())\n"
         "try:\n"
         "    main(['export', '--help'])\n"
         "except SystemExit as e:\n"
@@ -235,6 +242,9 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "             ['server', '--device', 'cpu', '-dir', '.'],\n"
         "             ['shell', '-master', '127.0.0.1:1', '--device', 'cpu', '-c', 'lock'],\n"
         "             ['filer', '-port', '0', '-master', '127.0.0.1:1'],\n"
+        "             ['s3', '-port', '0', '-filerGrpc', '127.0.0.1:1'],\n"
+        "             ['webdav', '-port', '0', '-filerGrpc', '127.0.0.1:1'],\n"
+        "             ['iam', '-port', '0', '-filerGrpc', '127.0.0.1:1'],\n"
         "             ['benchmark', '-master', '127.0.0.1:1', '-n', '1'],\n"
         "             ['download', '-master', '127.0.0.1:1', '1,1']):\n"
         "    try:\n"
@@ -331,6 +341,49 @@ def test_a_filer_server_opens_no_cuda_context(tmp_path):
         "except urllib.error.HTTPError as e:\n"
         "    assert e.code == 500, e.code\n"
         "fs.stop()\n"
+        "print('torch' in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["False"]
+
+
+def test_the_gateways_open_no_cuda_context(tmp_path):
+    """The S3, WebDAV and IAM gateways run no kernel: a process that starts
+    a `FilerServer` on the log store and the three gateways on it, creates
+    a bucket by signed S3 request, lists it, answers a WebDAV PROPFIND and
+    an unsigned IAM call (403), and stops, never imports torch."""
+    code = (
+        "import sys, urllib.request, urllib.error\n"
+        "from seaweedfs_tpu_torch.filer import FilerServer, make_store\n"
+        "from seaweedfs_tpu_torch.iamapi import IamApiServer\n"
+        "from seaweedfs_tpu_torch.s3api import Iam, Identity, S3ApiServer, sign_request\n"
+        "from seaweedfs_tpu_torch.webdav import WebDavServer\n"
+        f"fs = FilerServer('127.0.0.1:1', store=make_store('log', {str(tmp_path)!r}))\n"
+        "fs.start()\n"
+        "s3 = S3ApiServer(fs.url, fs.grpc_address, iam=Iam([Identity('a', 'ak', 'sk')]))\n"
+        "s3.start()\n"
+        "dav = WebDavServer(fs.url, fs.grpc_address)\n"
+        "dav.start()\n"
+        "iam = IamApiServer(fs.grpc_address)\n"
+        "iam.start()\n"
+        "def call(url, method='GET', headers=None, data=None):\n"
+        "    req = urllib.request.Request(url, data=data, method=method, headers=headers or {})\n"
+        "    try:\n"
+        "        with urllib.request.urlopen(req, timeout=30) as r:\n"
+        "            return r.status\n"
+        "    except urllib.error.HTTPError as e:\n"
+        "        return e.code\n"
+        "for method in ('PUT', 'GET'):\n"
+        "    url = f'http://{s3.url}/bkt'\n"
+        "    assert call(url, method, sign_request('ak', 'sk', method, url)) == 200\n"
+        "assert call(f'http://{dav.url}/buckets/', 'PROPFIND', {'Depth': '1'}) == 207\n"
+        "assert call(f'http://{iam.url}/', 'POST', data=b'Action=ListUsers') == 403\n"
+        "for srv in (iam, dav, s3, fs):\n"
+        "    srv.stop()\n"
         "print('torch' in sys.modules)\n"
     )
     proc = subprocess.run(

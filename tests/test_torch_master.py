@@ -427,20 +427,66 @@ def test_volume_server_without_a_card_or_encoder_raises(tmp_path, monkeypatch):
         VolumeServer([str(tmp_path)], "127.0.0.1:1")
 
 
-@pytest.mark.parametrize("flags, item", [(["-s3"], "3.d."), (["-webdav"], "3.e."),
-                                         (["-filer", "-s3"], "3.d.")],
-                         ids=["s3", "webdav", "filer-s3"])
-def test_server_command_front_end_flags_raise(tmp_path, flags, item):
-    """The S3 and WebDAV fronts are not ported: `server` refuses them (with
-    or without -filer, which runs) before anything starts, naming their
-    ROADMAP items."""
-    import argparse
+@pytest.mark.parametrize("flags", [["-s3"], ["-webdav"], ["-filer", "-s3", "-webdav"]],
+                         ids=["s3", "webdav", "filer-s3-webdav"])
+def test_server_command_runs_the_s3_and_webdav_fronts(tmp_path, flags):
+    """`server --device cpu -s3 -s3Port 0` and/or `-webdav -webdavPort 0`
+    start a filer (as `-filer` does) and the gateway beside the master and
+    the volume server: a signed S3 PUT of a bucket and an object reads back
+    by signed GET, a WebDAV PUT reads back by WebDAV GET, and with both an
+    S3 object reads back through WebDAV under /buckets; SIGTERM stops all
+    with exit code 0."""
+    import urllib.error
 
-    p = argparse.ArgumentParser()
-    servers._server_conf(p)
-    args = p.parse_args(["--device", "cpu", "-dir", str(tmp_path), *flags])
-    with pytest.raises(NotImplementedError, match=f"not ported yet .ROADMAP Queue 1 item {item}"):
-        servers._server_run(args)
+    from seaweedfs_tpu_torch.s3api.auth import sign_request
+
+    def call(url, method="GET", data=None, sign=False):
+        headers = sign_request("ak", "sk", method, url, data or b"") if sign else {}
+        req = urllib.request.Request(url, data=data, method=method, headers=headers)
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, r.read()
+
+    d = tmp_path / "data"
+    d.mkdir()
+    ports = ["-s3Port", "0", "-webdavPort", "0", "-filerPort", "0"]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "--device", "cpu", "-dir",
+         str(d), "-masterPort", "0", "-port", "0", *ports, *flags],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        line = proc.stdout.readline()
+        assert "filer http " in line, line + proc.stderr.read() if proc.poll() is not None else line
+        s3 = re.search(r", s3 (\S+?)(,|$)", line.strip())
+        dav = re.search(r", webdav (\S+?)(,|$)", line.strip())
+        assert bool(s3) == ("-s3" in flags) and bool(dav) == ("-webdav" in flags), line
+        payload = os.urandom(9000)
+        deadline = time.monotonic() + 30
+        while True:  # the first write waits for the volume server's heartbeat
+            try:
+                if s3:
+                    assert call(f"http://{s3.group(1)}/bkt", "PUT", sign=True)[0] == 200
+                    url = f"http://{s3.group(1)}/bkt/a.bin"
+                    assert call(url, "PUT", payload, sign=True)[0] == 200
+                else:
+                    assert call(f"http://{dav.group(1)}/a.bin", "PUT", payload)[0] == 201
+                break
+            except urllib.error.HTTPError:
+                assert time.monotonic() < deadline, "the volume tier never took a write"
+                time.sleep(0.2)
+        if s3:
+            assert call(url, sign=True) == (200, payload)
+        if dav:
+            path = "/buckets/bkt/a.bin" if s3 else "/a.bin"
+            assert call(f"http://{dav.group(1)}{path}") == (200, payload)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 # -- the command -------------------------------------------------------------------------

@@ -100,6 +100,30 @@ def test_mesh_bench_smoke_schema_and_byte_verify(tmp_path):
     assert mesh_bench.default_shapes(4) == [(4, 1), (2, 2), (1, 4)]
 
 
+@pytest.mark.parametrize("returncode", [0, 255])
+def test_mesh_bench_topology_survives_an_unreadable_topology(monkeypatch, returncode):
+    """`host_topology` runs after the whole measurement: where `nvidia-smi
+    topo -m` fails (exit 255, "Failed to run topology matrix", as on some
+    multi-card hosts) it records the failure and the peer-access matrix
+    instead of raising and losing the bench's body."""
+    import subprocess
+    import types
+
+    def run(argv, **kw):
+        assert argv == ["nvidia-smi", "topo", "-m"] and "check" not in kw
+        return types.SimpleNamespace(returncode=returncode, stderr="",
+                                     stdout="GPU0 X" if returncode == 0 else
+                                     "Failed to run topology matrix")
+
+    monkeypatch.setattr(subprocess, "run", run)
+    got = mesh_bench.host_topology(0)
+    if returncode:
+        assert got == {"topology": None, "peer_access": [],
+                       "topology_error": "exit 255: Failed to run topology matrix"}
+    else:
+        assert got == {"topology": "GPU0 X", "peer_access": []}
+
+
 # -- dispatch-level byte identity ----------------------------------------------
 
 

@@ -1,0 +1,2008 @@
+"""The port's S3 gateway: a twin of each of the 41 cases of
+`tests/test_s3.py`, with the reference case's own steps and assertions run
+on a port stack (master, one volume server on `Encoder(10, 4,
+device="cpu")`, filer and S3 gateway on loopback, driven by raw HTTP with
+the port's SigV4 signer); then cross-package cases (at the end): one
+request script through a reference stack and a port stack gives the same
+statuses, error codes, ETags and XML bodies, a filer store written through
+one package's gateway is served byte-equal by the other's, identities
+saved by one package load in the other, and both signers agree at a pinned
+time. Tolerance 0 everywhere."""
+
+import contextlib
+import hashlib
+import json
+import os
+import random
+import re
+import time
+import types
+import urllib.error
+import urllib.parse
+import urllib.request
+import xml.etree.ElementTree as ET
+
+import numpy as np
+import pytest
+
+from seaweedfs_tpu_torch.cluster.master import MasterServer
+from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+from seaweedfs_tpu_torch.filer import FilerServer
+from seaweedfs_tpu_torch.ops.rs_codec import Encoder
+from seaweedfs_tpu_torch.s3api import Iam, Identity, S3ApiServer, sign_request
+
+import seaweedfs_tpu.s3api.auth as ref_auth
+import seaweedfs_tpu.s3api.policy as ref_policy
+import seaweedfs_tpu.s3api.server as ref_s3server
+import seaweedfs_tpu_torch.s3api.auth as port_auth
+import seaweedfs_tpu_torch.s3api.policy as port_policy
+import seaweedfs_tpu_torch.s3api.server as port_s3server
+
+from test_torch_cluster import stop_all
+from test_torch_filer import PORT as PORT_FILER
+from test_torch_filer import REF as REF_FILER
+
+AK, SK = "testAccessKey1", "testSecretKey1"
+
+
+@pytest.fixture(scope="module")
+def stack(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("s3stack")
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp / "vol").mkdir()
+    # per-bucket collections (a volume set per bucket) need headroom on
+    # the single test volume server
+    vs = VolumeServer(
+        [str(tmp / "vol")], master.address, heartbeat_interval=0.4,
+        max_volume_count=200, encoder=Encoder(10, 4, device="cpu"),
+    )
+    vs.start()
+    fs = FilerServer(master.address, chunk_size=1024 * 1024)
+    fs.start()
+    s3 = S3ApiServer(
+        fs.url,
+        fs.grpc_address,
+        iam=Iam([Identity("tester", AK, SK)]),
+    )
+    s3.start()
+    yield s3
+    s3.stop()
+    fs.stop()
+    vs.stop()
+    master.stop()
+
+
+def _req(s3, method, path, body=b"", headers=None, sign=True, query=""):
+    url = f"http://{s3.url}{path}" + (f"?{query}" if query else "")
+    h = dict(headers or {})
+    if sign:
+        h = {**sign_request(AK, SK, method, url, body, extra_headers=h)}
+    req = urllib.request.Request(url, data=body if body else None, method=method, headers=h)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.headers, r.read()  # HTTPMessage: case-insensitive
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _xml(body):
+    return ET.fromstring(body)
+
+
+def test_bucket_lifecycle(stack):
+    s3 = stack
+    code, _, _ = _req(s3, "PUT", "/bkt1")
+    assert code == 200
+    code, _, body = _req(s3, "GET", "/")
+    assert code == 200 and b"bkt1" in body
+    # duplicate create
+    code, _, body = _req(s3, "PUT", "/bkt1")
+    assert code == 409
+    code, _, _ = _req(s3, "HEAD", "/bkt1")
+    assert code == 200
+    code, _, _ = _req(s3, "DELETE", "/bkt1")
+    assert code == 204
+    code, _, _ = _req(s3, "HEAD", "/bkt1")
+    assert code == 404
+
+
+def test_object_put_get_delete(stack):
+    s3 = stack
+    _req(s3, "PUT", "/objs")
+    payload = os.urandom(3 * 1024 * 1024)  # 3 chunks through the filer
+    code, headers, _ = _req(
+        s3, "PUT", "/objs/dir/data.bin", payload,
+        {"Content-Type": "application/x-test", "x-amz-meta-tag": "v1"},
+    )
+    assert code == 200 and headers["ETag"]
+    code, headers, got = _req(s3, "GET", "/objs/dir/data.bin")
+    assert code == 200 and got == payload
+    assert headers["Content-Type"] == "application/x-test"
+    assert headers.get("x-amz-meta-tag") == "v1"
+    # range
+    code, headers, got = _req(
+        s3, "GET", "/objs/dir/data.bin", headers={"Range": "bytes=100-199"}
+    )
+    assert code == 206 and got == payload[100:200]
+    # head
+    code, headers, _ = _req(s3, "HEAD", "/objs/dir/data.bin")
+    assert code == 200 and int(headers["Content-Length"]) == len(payload)
+    # missing key
+    code, _, body = _req(s3, "GET", "/objs/missing.bin")
+    assert code == 404 and b"NoSuchKey" in body
+    # delete is idempotent
+    assert _req(s3, "DELETE", "/objs/dir/data.bin")[0] == 204
+    assert _req(s3, "DELETE", "/objs/dir/data.bin")[0] == 204
+    assert _req(s3, "GET", "/objs/dir/data.bin")[0] == 404
+
+
+def test_object_key_needing_percent_encoding(stack):
+    """Signer and verifier must canonicalize encoded paths identically."""
+    s3 = stack
+    _req(s3, "PUT", "/enc")
+    code, _, _ = _req(s3, "PUT", "/enc/sp%20ace%2Bplus.txt", b"odd key")
+    assert code == 200
+    code, _, got = _req(s3, "GET", "/enc/sp%20ace%2Bplus.txt")
+    assert code == 200 and got == b"odd key"
+
+
+def test_copy_object(stack):
+    s3 = stack
+    _req(s3, "PUT", "/cpy")
+    _req(s3, "PUT", "/cpy/src.txt", b"copy me")
+    code, _, body = _req(
+        s3, "PUT", "/cpy/dst.txt", headers={"x-amz-copy-source": "/cpy/src.txt"}
+    )
+    assert code == 200 and b"CopyObjectResult" in body
+    # delete source; copy must survive (fresh needles)
+    _req(s3, "DELETE", "/cpy/src.txt")
+    code, _, got = _req(s3, "GET", "/cpy/dst.txt")
+    assert code == 200 and got == b"copy me"
+
+
+def test_list_objects_v2(stack):
+    s3 = stack
+    _req(s3, "PUT", "/lst")
+    for k in ("a/1.txt", "a/2.txt", "b/3.txt", "top.txt"):
+        _req(s3, "PUT", f"/lst/{k}", b"x")
+    # flat listing
+    code, _, body = _req(s3, "GET", "/lst", query="list-type=2")
+    root = _xml(body)
+    ns = {"s3": "http://s3.amazonaws.com/doc/2006-03-01/"}
+    keys = [e.text for e in root.findall("s3:Contents/s3:Key", ns)]
+    assert set(keys) == {"a/1.txt", "a/2.txt", "b/3.txt", "top.txt"}
+    # delimiter grouping
+    code, _, body = _req(s3, "GET", "/lst", query="list-type=2&delimiter=%2F")
+    root = _xml(body)
+    keys = [e.text for e in root.findall("s3:Contents/s3:Key", ns)]
+    prefixes = [e.text for e in root.findall("s3:CommonPrefixes/s3:Prefix", ns)]
+    assert keys == ["top.txt"] and set(prefixes) == {"a/", "b/"}
+    # prefix
+    code, _, body = _req(s3, "GET", "/lst", query="list-type=2&prefix=a%2F")
+    root = _xml(body)
+    keys = [e.text for e in root.findall("s3:Contents/s3:Key", ns)]
+    assert keys == ["a/1.txt", "a/2.txt"]
+    # pagination
+    code, _, body = _req(s3, "GET", "/lst", query="list-type=2&max-keys=2")
+    root = _xml(body)
+    assert root.find("s3:IsTruncated", ns).text == "true"
+    token = root.find("s3:NextContinuationToken", ns).text
+    code, _, body = _req(
+        s3, "GET", "/lst",
+        query=f"list-type=2&max-keys=10&continuation-token={urllib.parse.quote(token)}",
+    )
+    root = _xml(body)
+    page2 = [e.text for e in root.findall("s3:Contents/s3:Key", ns)]
+    assert len(page2) == 2 and root.find("s3:IsTruncated", ns).text == "false"
+
+
+def test_list_objects_delimiter_pagination_dedup(stack):
+    """CommonPrefixes must not repeat across pages when the continuation
+    token lands inside a prefix group."""
+    s3 = stack
+    ns = {"s3": "http://s3.amazonaws.com/doc/2006-03-01/"}
+    _req(s3, "PUT", "/pagi")
+    for k in ("a/1", "a/2", "b/1", "c"):
+        _req(s3, "PUT", f"/pagi/{k}", b"x")
+    seen_prefixes, seen_keys, token = [], [], ""
+    for _ in range(10):
+        q = "list-type=2&delimiter=%2F&max-keys=1"
+        if token:
+            q += f"&continuation-token={urllib.parse.quote(token)}"
+        _, _, body = _req(s3, "GET", "/pagi", query=q)
+        root = _xml(body)
+        seen_prefixes += [e.text for e in root.findall("s3:CommonPrefixes/s3:Prefix", ns)]
+        seen_keys += [e.text for e in root.findall("s3:Contents/s3:Key", ns)]
+        if root.find("s3:IsTruncated", ns).text != "true":
+            break
+        token = root.find("s3:NextContinuationToken", ns).text
+    assert seen_keys == ["c"]
+    assert seen_prefixes == ["a/", "b/"]  # no duplicates across pages
+
+
+def test_delete_objects_bulk(stack):
+    s3 = stack
+    _req(s3, "PUT", "/bulk")
+    for k in ("x1", "x2", "x3"):
+        _req(s3, "PUT", f"/bulk/{k}", b"d")
+    body = (
+        b'<Delete><Object><Key>x1</Key></Object>'
+        b'<Object><Key>x3</Key></Object></Delete>'
+    )
+    code, _, resp = _req(s3, "POST", "/bulk", body, query="delete=")
+    assert code == 200 and b"<Deleted>" in resp
+    code, _, body = _req(s3, "GET", "/bulk", query="list-type=2")
+    keys = [e.text for e in _xml(body).findall(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}Contents/"
+        "{http://s3.amazonaws.com/doc/2006-03-01/}Key")]
+    assert keys == ["x2"]
+
+
+def test_multipart_upload(stack):
+    s3 = stack
+    _req(s3, "PUT", "/mp")
+    code, _, body = _req(s3, "POST", "/mp/big.bin", query="uploads=")
+    assert code == 200
+    upload_id = _xml(body).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+    parts = [os.urandom(1024 * 1024 + 7), os.urandom(512 * 1024), os.urandom(99)]
+    etags = []
+    for i, p in enumerate(parts, start=1):
+        code, headers, _ = _req(
+            s3, "PUT", "/mp/big.bin", p,
+            query=f"partNumber={i}&uploadId={upload_id}",
+        )
+        assert code == 200
+        assert headers["ETag"].strip('"') == hashlib.md5(p).hexdigest()
+        etags.append(headers["ETag"])
+    # list parts
+    code, _, body = _req(s3, "GET", "/mp/big.bin", query=f"uploadId={upload_id}")
+    assert code == 200 and body.count(b"<Part>") == 3
+    # complete validates the client's part list: wrong ETag rejected
+    bad = ("<CompleteMultipartUpload><Part><PartNumber>1</PartNumber>"
+           "<ETag>deadbeef</ETag></Part></CompleteMultipartUpload>").encode()
+    code, _, body = _req(s3, "POST", "/mp/big.bin", bad,
+                         query=f"uploadId={upload_id}")
+    assert code == 400 and b"InvalidPart" in body
+    # out-of-order part list rejected
+    ooo = ("<CompleteMultipartUpload>"
+           f"<Part><PartNumber>2</PartNumber><ETag>{etags[1]}</ETag></Part>"
+           f"<Part><PartNumber>1</PartNumber><ETag>{etags[0]}</ETag></Part>"
+           "</CompleteMultipartUpload>").encode()
+    code, _, body = _req(s3, "POST", "/mp/big.bin", ooo,
+                         query=f"uploadId={upload_id}")
+    assert code == 400 and b"InvalidPartOrder" in body
+    payload = "".join(
+        f"<Part><PartNumber>{i}</PartNumber><ETag>{t}</ETag></Part>"
+        for i, t in enumerate(etags, start=1)
+    )
+    code, _, body = _req(
+        s3, "POST", "/mp/big.bin",
+        f"<CompleteMultipartUpload>{payload}</CompleteMultipartUpload>".encode(),
+        query=f"uploadId={upload_id}")
+    assert code == 200 and b"CompleteMultipartUploadResult" in body
+    code, headers, got = _req(s3, "GET", "/mp/big.bin")
+    assert code == 200 and got == b"".join(parts)
+    assert headers["ETag"].endswith('-3"')
+    # staging dir is gone
+    assert stack.filer.lookup(f"/buckets/.uploads/mp/{upload_id}") is None
+
+
+def test_multipart_abort(stack):
+    s3 = stack
+    _req(s3, "PUT", "/mpab")
+    _, _, body = _req(s3, "POST", "/mpab/f.bin", query="uploads=")
+    upload_id = _xml(body).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+    _req(s3, "PUT", "/mpab/f.bin", b"part", query=f"partNumber=1&uploadId={upload_id}")
+    code, _, _ = _req(s3, "DELETE", "/mpab/f.bin", query=f"uploadId={upload_id}")
+    assert code == 204
+    code, _, _ = _req(s3, "PUT", "/mpab/f.bin", b"p2",
+                      query=f"partNumber=2&uploadId={upload_id}")
+    assert code == 404
+
+
+def test_auth_required(stack):
+    s3 = stack
+    # unsigned request rejected
+    code, _, body = _req(s3, "GET", "/", sign=False)
+    assert code == 403
+    # bad secret rejected
+    url = f"http://{s3.url}/"
+    h = sign_request(AK, "wrongSecret", "GET", url, b"")
+    req = urllib.request.Request(url, headers=h)
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        urllib.request.urlopen(req, timeout=10)
+    assert ei.value.code == 403
+
+
+def test_action_scoping(stack):
+    s3 = stack
+    s3.iam.add(Identity("ro", "roKey", "roSecret", ["Read", "List"]))
+    _req(s3, "PUT", "/scoped")
+    _req(s3, "PUT", "/scoped/f.txt", b"data")
+    url = f"http://{s3.url}/scoped/f.txt"
+    h = sign_request("roKey", "roSecret", "GET", url, b"")
+    with urllib.request.urlopen(urllib.request.Request(url, headers=h), timeout=10) as r:
+        assert r.read() == b"data"
+    h = sign_request("roKey", "roSecret", "PUT", url, b"nope")
+    req = urllib.request.Request(url, data=b"nope", method="PUT", headers=h)
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        urllib.request.urlopen(req, timeout=10)
+    assert ei.value.code == 403
+    s3.iam.remove("roKey")
+
+
+def test_path_traversal_rejected(stack):
+    s3 = stack
+    _req(s3, "PUT", "/trav")
+    _req(s3, "PUT", "/trav/secret.txt", b"top secret")
+    # '.'/'..'/empty segments anywhere in bucket or key -> 400, never
+    # resolved through the filer's path normalization
+    for path in ("/trav/../trav/secret.txt", "/trav/a/../secret.txt",
+                 "/../buckets/trav/secret.txt", "/trav/..", "/trav/./x"):
+        code, _, body = _req(s3, "GET", path)
+        assert code == 400 and b"InvalidArgument" in body, path
+    code, _, _ = _req(s3, "PUT", "/trav/a//b", b"d")
+    assert code == 400
+    # dot-prefixed buckets (the .uploads staging area) are unreachable
+    code, _, _ = _req(s3, "GET", "/.uploads", query="list-type=2")
+    assert code == 400
+    # bulk delete validates keys from the XML body as well
+    xml_body = b'<Delete><Object><Key>../other/x</Key></Object></Delete>'
+    code, _, resp = _req(s3, "POST", "/trav", xml_body, query="delete=")
+    assert code == 200 and b"<Error>" in resp and b"<Deleted>" not in resp
+    # copy-source traversal rejected
+    code, _, _ = _req(s3, "PUT", "/trav/copy.txt",
+                      headers={"x-amz-copy-source": "/trav/../trav/secret.txt"})
+    assert code == 400
+    # the original object is still readable through the legitimate path
+    code, _, got = _req(s3, "GET", "/trav/secret.txt")
+    assert code == 200 and got == b"top secret"
+
+
+def test_content_sha256_required(stack):
+    s3 = stack
+    _req(s3, "PUT", "/shabkt")
+    url = f"http://{s3.url}/shabkt/f.txt"
+    body = b"payload"
+    # a signed request whose x-amz-content-sha256 header is stripped (and
+    # removed from SignedHeaders) must be rejected, not verified against
+    # the empty-payload hash
+    h = sign_request(AK, SK, "PUT", url, body)
+    h.pop("x-amz-content-sha256")
+    signed = [s for s in ("host", "x-amz-date") ]
+    # re-sign without the header so only its absence is under test
+    from seaweedfs_tpu_torch.s3api import auth as auth_mod
+    amz_date = h["x-amz-date"]
+    sig = auth_mod._signature(SK, "PUT", "/shabkt/f.txt", "", h, signed,
+                              "UNSIGNED-PAYLOAD", amz_date, "us-east-1", "s3")
+    scope = f"{amz_date[:8]}/us-east-1/s3/aws4_request"
+    h["authorization"] = (f"AWS4-HMAC-SHA256 Credential={AK}/{scope}, "
+                          f"SignedHeaders={';'.join(signed)}, Signature={sig}")
+    req = urllib.request.Request(url, data=body, method="PUT", headers=h)
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        urllib.request.urlopen(req, timeout=10)
+    assert ei.value.code == 403
+    assert b"MissingSecurityHeader" in ei.value.read()
+
+
+def test_upload_id_traversal_rejected(stack):
+    s3 = stack
+    _req(s3, "PUT", "/victim")
+    _req(s3, "PUT", "/victim/data.txt", b"keep me")
+    _req(s3, "PUT", "/mine")
+    # an attacker with Write on their own bucket must not reach outside
+    # the staging area via a crafted uploadId (Abort recursively deletes
+    # the target path)
+    evil = urllib.parse.quote("../../victim", safe="")
+    for method, query in (
+        ("DELETE", f"uploadId={evil}"),
+        ("GET", f"uploadId={evil}"),
+        ("POST", f"uploadId={evil}"),
+        ("PUT", f"partNumber=1&uploadId={evil}"),
+    ):
+        code, _, body = _req(s3, method, "/mine/x", b"<x/>" if method == "POST" else b"",
+                             query=query)
+        assert code == 404 and b"NoSuchUpload" in body, (method, code, body)
+    # victim bucket untouched
+    code, _, got = _req(s3, "GET", "/victim/data.txt")
+    assert code == 200 and got == b"keep me"
+
+
+def test_copy_object_with_declared_body(stack):
+    s3 = stack
+    _req(s3, "PUT", "/cpbody")
+    _req(s3, "PUT", "/cpbody/src.txt", b"copy payload")
+    # a legally-signed copy request may declare a non-empty body that the
+    # server ignores; auth must not re-verify the signature against b""
+    code, _, _ = _req(s3, "PUT", "/cpbody/dst.txt", b"ignored-body",
+                      headers={"x-amz-copy-source": "/cpbody/src.txt"})
+    assert code == 200
+    code, _, got = _req(s3, "GET", "/cpbody/dst.txt")
+    assert code == 200 and got == b"copy payload"
+
+
+def test_host_binding_enforced(stack):
+    s3 = stack
+    _req(s3, "PUT", "/hostbkt")
+    # a request signed for some other endpoint's host must not verify
+    url = f"http://{s3.url}/hostbkt"
+    h = sign_request(AK, SK, "GET", f"http://other.example:9999/hostbkt", b"")
+    req = urllib.request.Request(url, method="GET", headers=h)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            code = r.status
+    except urllib.error.HTTPError as e:
+        code = e.code
+    assert code == 403
+
+
+def test_presigned_url_get_and_put(stack):
+    """Query-string SigV4 (presigned URLs): a bare urllib client with no
+    credentials reads/writes through a signed link until it expires."""
+    from seaweedfs_tpu_torch.s3api.auth import presign_url
+
+    s3 = stack
+    _req(s3, "PUT", "/presign-bkt")
+    _req(s3, "PUT", "/presign-bkt/hello.txt", b"presigned world")
+
+    url = presign_url(AK, SK, "GET", f"http://{s3.url}/presign-bkt/hello.txt", expires=60)
+    with urllib.request.urlopen(url, timeout=10) as r:  # NO auth headers
+        assert r.read() == b"presigned world"
+
+    # presigned PUT uploads without credentials
+    purl = presign_url(AK, SK, "PUT", f"http://{s3.url}/presign-bkt/up.bin", expires=60)
+    req = urllib.request.Request(purl, data=b"via-presign", method="PUT")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        assert r.status in (200, 201)
+    url2 = presign_url(AK, SK, "GET", f"http://{s3.url}/presign-bkt/up.bin")
+    with urllib.request.urlopen(url2, timeout=10) as r:
+        assert r.read() == b"via-presign"
+
+    # tampering with the signature is rejected
+    bad = url.replace("X-Amz-Signature=", "X-Amz-Signature=0")
+    code, _, body = _raw_get(bad)
+    assert code == 403 and b"SignatureDoesNotMatch" in body
+
+    # a link signed by an unknown key is rejected
+    code, _, body = _raw_get(
+        presign_url("nobody", "nosecret", "GET", f"http://{s3.url}/presign-bkt/hello.txt")
+    )
+    assert code == 403 and b"InvalidAccessKeyId" in body
+
+    # method is part of the signature: a GET link cannot DELETE
+    del_try = urllib.request.Request(url, method="DELETE")
+    try:
+        urllib.request.urlopen(del_try, timeout=10)
+        raise AssertionError("GET link performed a DELETE")
+    except urllib.error.HTTPError as e:
+        assert e.code == 403
+
+
+def test_presigned_url_expiry(stack, monkeypatch):
+    from seaweedfs_tpu_torch.s3api import auth as auth_mod
+    from seaweedfs_tpu_torch.s3api.auth import presign_url
+
+    s3 = stack
+    _req(s3, "PUT", "/presign-exp")
+    _req(s3, "PUT", "/presign-exp/f.txt", b"x")
+    url = presign_url(AK, SK, "GET", f"http://{s3.url}/presign-exp/f.txt", expires=1)
+    with urllib.request.urlopen(url, timeout=10) as r:
+        assert r.status == 200
+    real_time = auth_mod.time.time
+    monkeypatch.setattr(auth_mod.time, "time", lambda: real_time() + 5)
+    code, _, body = _raw_get(url)
+    assert code == 403, "expired presigned link must be refused"
+    # out-of-range X-Amz-Expires is malformed
+    monkeypatch.undo()
+    giant = presign_url(AK, SK, "GET", f"http://{s3.url}/presign-exp/f.txt",
+                        expires=8 * 24 * 3600)
+    code, _, body = _raw_get(giant)
+    assert code in (400, 403)
+
+
+def _raw_get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def test_object_tagging(stack):
+    s3 = stack
+    _req(s3, "PUT", "/tagbkt")
+    # tags via the x-amz-tagging PUT header
+    code, _, _ = _req(
+        s3, "PUT", "/tagbkt/tagged.txt", b"data",
+        {"x-amz-tagging": "env=prod&team=storage"},
+    )
+    assert code == 200
+    code, headers, _ = _req(s3, "GET", "/tagbkt/tagged.txt")
+    assert code == 200 and headers.get("x-amz-tagging-count") == "2"
+    assert headers.get("x-amz-tagging") is None  # tags never leak as a header
+    code, _, body = _req(s3, "GET", "/tagbkt/tagged.txt", query="tagging")
+    root = _xml(body)
+    ns = root.tag[: root.tag.index("}") + 1]
+    tags = {
+        t.find(f"{ns}Key").text: t.find(f"{ns}Value").text
+        for t in root.findall(f"{ns}TagSet/{ns}Tag")
+    }
+    assert tags == {"env": "prod", "team": "storage"}
+
+    # PutObjectTagging replaces the whole set
+    new = (
+        b'<Tagging xmlns="http://s3.amazonaws.com/doc/2006-03-01/"><TagSet>'
+        b"<Tag><Key>tier</Key><Value>cold</Value></Tag>"
+        b"</TagSet></Tagging>"
+    )
+    code, _, _ = _req(s3, "PUT", "/tagbkt/tagged.txt", new, query="tagging")
+    assert code == 200
+    code, _, body = _req(s3, "GET", "/tagbkt/tagged.txt", query="tagging")
+    assert b"tier" in body and b"env" not in body
+    code, headers, _ = _req(s3, "HEAD", "/tagbkt/tagged.txt")
+    assert headers.get("x-amz-tagging-count") == "1"
+
+    # validation: >10 tags and duplicate keys are rejected
+    many = "&".join(f"k{i}=v" for i in range(11))
+    code, _, _ = _req(
+        s3, "PUT", "/tagbkt/toomany.txt", b"x", {"x-amz-tagging": many}
+    )
+    assert code == 400
+    dup = (
+        b"<Tagging><TagSet>"
+        b"<Tag><Key>a</Key><Value>1</Value></Tag>"
+        b"<Tag><Key>a</Key><Value>2</Value></Tag>"
+        b"</TagSet></Tagging>"
+    )
+    code, _, body = _req(s3, "PUT", "/tagbkt/tagged.txt", dup, query="tagging")
+    assert code == 400 and b"InvalidTag" in body
+
+    # DeleteObjectTagging clears; GET tagging then returns an empty set
+    code, _, _ = _req(s3, "DELETE", "/tagbkt/tagged.txt", query="tagging")
+    assert code == 204
+    code, _, body = _req(s3, "GET", "/tagbkt/tagged.txt", query="tagging")
+    assert code == 200 and b"<Tag>" not in body
+    code, headers, _ = _req(s3, "GET", "/tagbkt/tagged.txt")
+    assert headers.get("x-amz-tagging-count") is None
+    # tagging a missing key 404s
+    code, _, body = _req(s3, "GET", "/tagbkt/ghost.txt", query="tagging")
+    assert code == 404 and b"NoSuchKey" in body
+
+
+def test_object_tagging_blank_value(stack):
+    """A tag with an empty value is legal in S3 and must survive the
+    round-trip (parse_qsl drops blank values unless told otherwise)."""
+    s3 = stack
+    _req(s3, "PUT", "/blankbkt")
+    code, _, _ = _req(
+        s3, "PUT", "/blankbkt/o", b"x", {"x-amz-tagging": "flag=&k=v"}
+    )
+    assert code == 200
+    code, headers, _ = _req(s3, "HEAD", "/blankbkt/o")
+    assert headers.get("x-amz-tagging-count") == "2"
+    code, _, body = _req(s3, "GET", "/blankbkt/o", query="tagging")
+    assert b"flag" in body
+
+
+def test_bucket_collection_mapping_and_reclaim(stack):
+    """Objects land in a collection named after their bucket, and bucket
+    deletion drops those volumes cluster-wide (per-bucket collections)."""
+    s3 = stack
+    _req(s3, "PUT", "/collbkt")
+    code, _, _ = _req(s3, "PUT", "/collbkt/obj1", b"d" * 2048)
+    assert code == 200
+    # the chunk's volume carries the bucket collection
+    entry = s3.filer.lookup("/buckets/collbkt/obj1")
+    assert entry.attributes.collection == "collbkt"
+    import time as _time
+
+    _time.sleep(0.8)  # heartbeat registers the new volume's collection
+    # delete the object then the bucket; the collection's volumes drop
+    _req(s3, "DELETE", "/collbkt/obj1")
+    code, _, _ = _req(s3, "DELETE", "/collbkt")
+    assert code == 204
+    _time.sleep(0.8)
+    from seaweedfs_tpu_torch import rpc as _rpc
+
+    # discover the master through the filer config and check the topology
+    cfg = s3.filer.configuration()
+    with _rpc.RpcClient(cfg["masters"][0]) as c:
+        topo = c.call("weedtpu.Master", "VolumeList", {})
+    colls = {
+        v.get("collection")
+        for racks in topo["data_centers"].values()
+        for nodes in racks.values()
+        for n in nodes
+        for v in n.get("volumes", [])
+    }
+    assert "collbkt" not in colls, colls
+
+
+def test_multipart_parts_inherit_bucket_collection(stack):
+    """Multipart part needles must land in the bucket's collection (they
+    are spliced verbatim into the final object) or the bucket's
+    collection drop could never reclaim multipart objects."""
+    s3 = stack
+    _req(s3, "PUT", "/mpcoll")
+    code, _, body = _req(s3, "POST", "/mpcoll/big.bin", query="uploads")
+    assert code == 200
+    upload_id = _xml(body).findtext(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId"
+    )
+    part = os.urandom(1024)
+    code, headers, _ = _req(
+        s3, "PUT", "/mpcoll/big.bin", part,
+        query=f"partNumber=1&uploadId={upload_id}",
+    )
+    assert code == 200
+    etag = headers["ETag"]
+    staged = s3.filer.list(f"/buckets/.uploads/mpcoll/{upload_id}", limit=10)
+    assert staged and staged[0].attributes.collection == "mpcoll"
+    complete = (
+        "<CompleteMultipartUpload><Part><PartNumber>1</PartNumber>"
+        f"<ETag>{etag}</ETag></Part></CompleteMultipartUpload>"
+    ).encode()
+    code, _, _ = _req(
+        s3, "POST", "/mpcoll/big.bin", complete, query=f"uploadId={upload_id}"
+    )
+    assert code == 200
+    entry = s3.filer.lookup("/buckets/mpcoll/big.bin")
+    vid = int(entry.chunks[0].fid.split(",", 1)[0])
+    # the final object's needles sit in a collection-mpcoll volume
+    cfg = s3.filer.configuration()
+    from seaweedfs_tpu_torch import rpc as _rpc
+
+    import time as _time
+
+    _time.sleep(0.8)
+    with _rpc.RpcClient(cfg["masters"][0]) as c:
+        topo = c.call("weedtpu.Master", "VolumeList", {})
+    vol = next(
+        v
+        for racks in topo["data_centers"].values()
+        for nodes in racks.values()
+        for n in nodes
+        for v in n.get("volumes", [])
+        if int(v["id"]) == vid
+    )
+    assert vol.get("collection") == "mpcoll"
+
+
+def test_delete_collection_guards_default_and_rules(stack):
+    """DeleteCollection must refuse names that would destroy non-bucket
+    data: the filer default collection and fs.configure-pinned ones."""
+    import grpc as _grpc
+    import pytest as _pytest
+
+    s3 = stack
+    fs_client = s3.filer
+    # simulate a filer default collection collision
+    # (the stack's filer has no default; use an fs.configure rule)
+    fs_client.set_filer_conf("/media/", collection="mediacoll")
+    try:
+        with _pytest.raises(_grpc.RpcError) as ei:
+            fs_client.delete_collection("mediacoll")
+        assert ei.value.code() == _grpc.StatusCode.FAILED_PRECONDITION
+    finally:
+        fs_client.set_filer_conf("/media/", delete=True)
+
+
+def test_bucket_delete_cleans_staged_uploads(stack):
+    """Deleting a bucket must also clear its multipart staging area —
+    otherwise the collection drop leaves staged entries pointing at dead
+    volumes and a later Complete splices dead fids."""
+    s3 = stack
+    _req(s3, "PUT", "/stagebkt")
+    code, _, body = _req(s3, "POST", "/stagebkt/pending.bin", query="uploads")
+    upload_id = _xml(body).findtext(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId"
+    )
+    _req(s3, "PUT", "/stagebkt/pending.bin", b"p" * 256,
+         query=f"partNumber=1&uploadId={upload_id}")
+    assert s3.filer.lookup(f"/buckets/.uploads/stagebkt/{upload_id}")
+    code, _, _ = _req(s3, "DELETE", "/stagebkt")
+    assert code == 204
+    assert s3.filer.lookup("/buckets/.uploads/stagebkt") is None
+
+
+def test_conditional_get_and_bucket_location(stack):
+    s3 = stack
+    _req(s3, "PUT", "/condbkt")
+    code, _, body = _req(s3, "GET", "/condbkt", query="location")
+    assert code == 200 and b"LocationConstraint" in body
+    code, _, _ = _req(s3, "GET", "/ghostbkt", query="location")
+    assert code == 404
+    code, headers, _ = _req(s3, "PUT", "/condbkt/c.txt", b"cache me")
+    etag = headers["ETag"].strip('"')
+    # If-None-Match with the current etag -> 304 with no body
+    code, headers, body = _req(
+        s3, "GET", "/condbkt/c.txt", headers={"If-None-Match": f'"{etag}"'}
+    )
+    assert code == 304 and body == b""
+    code, _, body = _req(
+        s3, "GET", "/condbkt/c.txt", headers={"If-None-Match": '"stale"'}
+    )
+    assert code == 200 and body == b"cache me"
+    # If-Modified-Since in the future -> 304; far past -> 200
+    code, _, _ = _req(
+        s3, "GET", "/condbkt/c.txt",
+        headers={"If-Modified-Since": "Tue, 01 Jan 2030 00:00:00 GMT"},
+    )
+    assert code == 304
+    code, _, body = _req(
+        s3, "GET", "/condbkt/c.txt",
+        headers={"If-Modified-Since": "Mon, 01 Jan 2001 00:00:00 GMT"},
+    )
+    assert code == 200 and body == b"cache me"
+
+
+def test_upload_part_copy_and_acl(stack):
+    s3 = stack
+    _req(s3, "PUT", "/upcbkt")
+    src_data = os.urandom(5000)
+    _req(s3, "PUT", "/upcbkt/src.bin", src_data)
+    # initiate, then copy a RANGE of the source as part 1 and body as part 2
+    code, _, body = _req(s3, "POST", "/upcbkt/assembled.bin", query="uploads")
+    upload_id = _xml(body).findtext(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId"
+    )
+    code, _, body = _req(
+        s3, "PUT", "/upcbkt/assembled.bin",
+        query=f"partNumber=1&uploadId={upload_id}",
+        headers={"x-amz-copy-source": "/upcbkt/src.bin",
+                 "x-amz-copy-source-range": "bytes=0-2047"},
+    )
+    assert code == 200 and b"CopyPartResult" in body, body
+    etag1 = _xml(body).findtext("{http://s3.amazonaws.com/doc/2006-03-01/}ETag")
+    tail = os.urandom(100)
+    code, headers, _ = _req(
+        s3, "PUT", "/upcbkt/assembled.bin", tail,
+        query=f"partNumber=2&uploadId={upload_id}",
+    )
+    etag2 = headers["ETag"]
+    complete = (
+        "<CompleteMultipartUpload>"
+        f"<Part><PartNumber>1</PartNumber><ETag>{etag1}</ETag></Part>"
+        f"<Part><PartNumber>2</PartNumber><ETag>{etag2}</ETag></Part>"
+        "</CompleteMultipartUpload>"
+    ).encode()
+    code, _, _ = _req(
+        s3, "POST", "/upcbkt/assembled.bin", complete,
+        query=f"uploadId={upload_id}",
+    )
+    assert code == 200
+    code, _, got = _req(s3, "GET", "/upcbkt/assembled.bin")
+    assert code == 200 and got == src_data[:2048] + tail
+    # missing copy-source object -> 404
+    code, _, _ = _req(
+        s3, "PUT", "/upcbkt/assembled.bin",
+        query=f"partNumber=3&uploadId={upload_id}",
+        headers={"x-amz-copy-source": "/upcbkt/ghost.bin"},
+    )
+    assert code == 404
+    # a directory as copy-source must 404, never serve the JSON listing
+    _req(s3, "PUT", "/upcbkt/dir/nested.bin", b"nested")
+    code, _, _ = _req(
+        s3, "PUT", "/upcbkt/assembled.bin",
+        query=f"partNumber=3&uploadId={upload_id}",
+        headers={"x-amz-copy-source": "/upcbkt/dir"},
+    )
+    assert code == 404
+    # an identity WITHOUT Read on the source bucket gets 403 (the copy
+    # auth path, exercised directly against the resolution helper)
+    from seaweedfs_tpu_torch.s3api.auth import Identity as _Id
+
+    class _Rec:
+        def __init__(self):
+            self.replies = []
+        def _error(self, code, *a):
+            self.replies.append(code)
+    rec = _Rec()
+    limited = _Id("limited", "k", "s", actions=["Write:upcbkt"])
+    from seaweedfs_tpu_torch.s3api import server as s3server
+
+    out = s3server._Handler._resolve_copy_source.__get__(rec, _Rec)
+    rec.s3 = s3  # consulted for the source bucket's policy (none here)
+    rec._policy_verdict = s3server._Handler._policy_verdict.__get__(rec, _Rec)
+    rec._is_anonymous = s3server._Handler._is_anonymous
+    assert out("/upcbkt/src.bin", limited) is None
+    assert rec.replies == [403]
+    # ACL endpoints: canned responses, never 501
+    for path, q in (("/upcbkt", "acl"), ("/upcbkt/src.bin", "acl")):
+        code, _, body = _req(s3, "GET", path, query=q)
+        assert code == 200 and b"FULL_CONTROL" in body, (path, body)
+    code, _, _ = _req(s3, "PUT", "/upcbkt/src.bin", query="acl",
+                      headers={"x-amz-acl": "private"})
+    assert code == 200
+    code, _, _ = _req(s3, "GET", "/upcbkt/ghost.bin", query="acl")
+    assert code == 404
+
+
+def test_bucket_policy_engine(stack):
+    """Resource policies with IAM evaluation order: explicit Deny beats an
+    identity allow, Allow grants anonymous principals (public-read), no
+    match falls back to identity grants; Get/Put/DeleteBucketPolicy
+    endpoints round-trip the document."""
+    import json as _json
+
+    s3 = stack
+    assert _req(s3, "PUT", "/polbkt")[0] == 200
+    assert _req(s3, "PUT", "/polbkt/pub/hello.txt", b"public bytes")[0] == 200
+    assert _req(s3, "PUT", "/polbkt/secret/s.txt", b"secret bytes")[0] == 200
+
+    # before any policy: anonymous reads are refused, policy GET is a 404
+    code, _, body = _req(s3, "GET", "/polbkt/pub/hello.txt", sign=False)
+    assert code == 403
+    code, _, body = _req(s3, "GET", "/polbkt", query="policy")
+    assert code == 404 and b"NoSuchBucketPolicy" in body
+
+    # malformed documents are rejected with MalformedPolicy
+    code, _, body = _req(s3, "PUT", "/polbkt", b"{not json", query="policy")
+    assert code == 400 and b"MalformedPolicy" in body
+    bad = _json.dumps({"Statement": [{"Effect": "Allow", "Principal": "*",
+                                      "Action": "s3:GetObject",
+                                      "Resource": "arn:aws:s3:::otherbucket/*"}]})
+    code, _, body = _req(s3, "PUT", "/polbkt", bad.encode(), query="policy")
+    assert code == 400 and b"MalformedPolicy" in body
+
+    # public-read on /pub/* + explicit deny on /secret/* for everyone
+    doc = {
+        "Version": "2012-10-17",
+        "Statement": [
+            {"Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",
+             "Resource": "arn:aws:s3:::polbkt/pub/*"},
+            {"Effect": "Deny", "Principal": "*", "Action": "s3:GetObject",
+             "Resource": "arn:aws:s3:::polbkt/secret/*"},
+        ],
+    }
+    code, _, _ = _req(s3, "PUT", "/polbkt", _json.dumps(doc).encode(), query="policy")
+    assert code == 204
+
+    # anonymous: granted exactly where the Allow says, nowhere else
+    code, _, body = _req(s3, "GET", "/polbkt/pub/hello.txt", sign=False)
+    assert code == 200 and body == b"public bytes"
+    assert _req(s3, "GET", "/polbkt/other.txt", sign=False)[0] == 403
+    assert _req(s3, "PUT", "/polbkt/pub/nope.txt", b"x", sign=False)[0] == 403
+    assert _req(s3, "GET", "/polbkt", sign=False)[0] == 403  # list not granted
+
+    # explicit deny overrides the signed admin identity's grant
+    code, _, body = _req(s3, "GET", "/polbkt/secret/s.txt")
+    assert code == 403 and b"bucket policy" in body
+    # ...but only for the denied action: the same identity still writes
+    assert _req(s3, "PUT", "/polbkt/secret/new.txt", b"w")[0] == 200
+    # and undenied objects still read fine
+    assert _req(s3, "GET", "/polbkt/pub/hello.txt")[0] == 200
+
+    # round-trip the stored document
+    code, _, body = _req(s3, "GET", "/polbkt", query="policy")
+    assert code == 200 and _json.loads(body) == doc
+
+    # lockout safety: even a blanket deny cannot take the policy
+    # endpoints away from an admin identity
+    nuke = {"Statement": [{"Effect": "Deny", "Principal": "*", "Action": "s3:*",
+                           "Resource": ["arn:aws:s3:::polbkt",
+                                        "arn:aws:s3:::polbkt/*"]}]}
+    assert _req(s3, "PUT", "/polbkt", _json.dumps(nuke).encode(), query="policy")[0] == 204
+    assert _req(s3, "GET", "/polbkt/pub/hello.txt")[0] == 403  # deny bites
+    assert _req(s3, "DELETE", "/polbkt", query="policy")[0] == 204  # escape hatch
+    assert _req(s3, "GET", "/polbkt/pub/hello.txt")[0] == 200
+    assert _req(s3, "GET", "/polbkt", query="policy")[0] == 404
+    # anonymous grant gone with the policy
+    assert _req(s3, "GET", "/polbkt/pub/hello.txt", sign=False)[0] == 403
+
+
+def test_bucket_policy_principal_scoping(stack):
+    """Principal lists scope statements to named identities; others keep
+    their identity-grant behavior; anonymous never matches a named
+    principal."""
+    import json as _json
+
+    s3 = stack
+    assert _req(s3, "PUT", "/pribkt")[0] == 200
+    assert _req(s3, "PUT", "/pribkt/a.txt", b"data")[0] == 200
+    doc = {
+        "Statement": [
+            {"Effect": "Deny", "Principal": {"AWS": ["arn:aws:iam:::user/tester"]},
+             "Action": "s3:GetObject", "Resource": "arn:aws:s3:::pribkt/*"},
+        ]
+    }
+    assert _req(s3, "PUT", "/pribkt", _json.dumps(doc).encode(), query="policy")[0] == 204
+    # the named identity ("tester" is the stack's admin) is denied
+    assert _req(s3, "GET", "/pribkt/a.txt")[0] == 403
+    # anonymous does NOT match the named principal; falls through to
+    # identity grants and fails there (no credentials)
+    assert _req(s3, "GET", "/pribkt/a.txt", sign=False)[0] == 403
+    assert _req(s3, "DELETE", "/pribkt", query="policy")[0] == 204
+    assert _req(s3, "GET", "/pribkt/a.txt")[0] == 200
+
+
+def test_policy_evaluator_unit():
+    """Wildcard/principal/precedence semantics of the evaluator proper."""
+    import pytest as _pytest
+
+    from seaweedfs_tpu_torch.s3api import policy as P
+
+    def ev(doc, **kw):
+        kw.setdefault("identity_name", "alice")
+        kw.setdefault("access_key", "AKALICE")
+        kw.setdefault("anonymous", False)
+        return P.evaluate(doc, **kw)
+
+    allow_all = {"Statement": [{"Effect": "Allow", "Principal": "*",
+                                "Action": "s3:*", "Resource": "arn:aws:s3:::b/*"}]}
+    assert ev(allow_all, action="s3:GetObject", resource="arn:aws:s3:::b/x") is True
+    # action matching is case-insensitive; resource matching is not a
+    # prefix match — 'b/*' does not cover the bucket ARN itself
+    assert ev(allow_all, action="S3:GETOBJECT", resource="arn:aws:s3:::b/x") is True
+    assert ev(allow_all, action="s3:ListBucket", resource="arn:aws:s3:::b") is None
+    # deny wins over a matching allow regardless of statement order
+    doc = {"Statement": [
+        {"Effect": "Deny", "Principal": "*", "Action": "s3:GetObject",
+         "Resource": "arn:aws:s3:::b/priv/*"},
+        {"Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",
+         "Resource": "arn:aws:s3:::b/*"},
+    ]}
+    assert ev(doc, action="s3:GetObject", resource="arn:aws:s3:::b/priv/x") is False
+    assert ev(doc, action="s3:GetObject", resource="arn:aws:s3:::b/pub/x") is True
+    # principal forms: bare name, access key, ARN suffix; anonymous only *
+    named = {"Statement": [{"Effect": "Allow",
+                            "Principal": {"AWS": "arn:aws:iam:::user/alice"},
+                            "Action": "s3:GetObject",
+                            "Resource": "arn:aws:s3:::b/*"}]}
+    assert ev(named, action="s3:GetObject", resource="arn:aws:s3:::b/x") is True
+    assert ev(named, identity_name="bob", access_key="AKBOB",
+              action="s3:GetObject", resource="arn:aws:s3:::b/x") is None
+    assert ev(named, anonymous=True, identity_name="anonymous", access_key="",
+              action="s3:GetObject", resource="arn:aws:s3:::b/x") is None
+    # '?' wildcard and bracket-literal safety
+    q = {"Statement": [{"Effect": "Allow", "Principal": "*",
+                        "Action": "s3:GetObject",
+                        "Resource": "arn:aws:s3:::b/v?/[data]/*"}]}
+    assert ev(q, action="s3:GetObject", resource="arn:aws:s3:::b/v1/[data]/f") is True
+    assert ev(q, action="s3:GetObject", resource="arn:aws:s3:::b/v12/[data]/f") is None
+    # parse errors
+    for raw in (b"nope", b"{}", b'{"Statement": []}',
+                b'{"Statement": [{"Effect": "Maybe"}]}'):
+        with _pytest.raises(P.PolicyError):
+            P.parse_policy(raw, "b")
+    with _pytest.raises(P.PolicyError):
+        P.parse_policy(
+            b'{"Statement": [{"Effect": "Allow", "Principal": "*",'
+            b'"Action": "s3:GetObject", "Resource": "arn:aws:s3:::other/*"}]}',
+            "b",
+        )
+
+
+def test_object_versioning_lifecycle(stack):
+    """The VERDICT's SDK-shaped flow: enable versioning, put 2 versions,
+    list them, get the old one by id, delete (marker appears), read old
+    versions through the marker, remove the marker (restore)."""
+    s3 = stack
+    assert _req(s3, "PUT", "/verbkt")[0] == 200
+    # pre-versioning object: becomes the 'null' version later
+    assert _req(s3, "PUT", "/verbkt/doc.txt", b"v0 pre-versioning")[0] == 200
+
+    # enable
+    cfg = (b'<VersioningConfiguration xmlns="http://s3.amazonaws.com/doc/2006-03-01/">'
+           b"<Status>Enabled</Status></VersioningConfiguration>")
+    assert _req(s3, "PUT", "/verbkt", cfg, query="versioning")[0] == 200
+    code, _, body = _req(s3, "GET", "/verbkt", query="versioning")
+    assert code == 200 and b"<Status>Enabled</Status>" in body
+
+    # two puts -> two version ids
+    code, h1, _ = _req(s3, "PUT", "/verbkt/doc.txt", b"version one")
+    vid1 = h1.get("x-amz-version-id")
+    assert code == 200 and vid1
+    code, h2, _ = _req(s3, "PUT", "/verbkt/doc.txt", b"version two!")
+    vid2 = h2.get("x-amz-version-id")
+    assert code == 200 and vid2 and vid2 != vid1
+
+    # latest read; version-id reads; null version still reachable
+    code, h, body = _req(s3, "GET", "/verbkt/doc.txt")
+    assert code == 200 and body == b"version two!"
+    assert h.get("x-amz-version-id") == vid2
+    code, _, body = _req(s3, "GET", f"/verbkt/doc.txt", query=f"versionId={vid1}")
+    assert code == 200 and body == b"version one"
+    code, _, body = _req(s3, "GET", "/verbkt/doc.txt", query="versionId=null")
+    assert code == 200 and body == b"v0 pre-versioning"
+    code, _, body = _req(s3, "GET", "/verbkt/doc.txt", query="versionId=" + "0" * 24)
+    assert code == 404 and b"NoSuchVersion" in body
+    # versionId is path material: anything outside the minted-id/null
+    # grammar (e.g. a '..' traversal at another bucket's objects) is 400
+    for evil in ("nonexistent", "..%2F..%2Fother%2Fsecret.txt", "a/../b"):
+        code, _, body = _req(s3, "GET", "/verbkt/doc.txt", query=f"versionId={evil}")
+        assert code == 400, evil
+        code, _, _ = _req(s3, "DELETE", "/verbkt/doc.txt", query=f"versionId={evil}")
+        assert code == 400, evil
+
+    # list versions: newest first, IsLatest on the head
+    code, _, body = _req(s3, "GET", "/verbkt", query="versions")
+    assert code == 200
+    tree = _xml(body)
+    ns = tree.tag[: tree.tag.index("}") + 1]
+    vers = tree.findall(f"{ns}Version")
+    assert [v.find(f"{ns}VersionId").text for v in vers] == [vid2, vid1, "null"]
+    assert [v.find(f"{ns}IsLatest").text for v in vers] == ["true", "false", "false"]
+
+    # plain delete -> marker; key 404s but versions still read
+    code, h, _ = _req(s3, "DELETE", "/verbkt/doc.txt")
+    assert code == 204 and h.get("x-amz-delete-marker") == "true"
+    marker_vid = h.get("x-amz-version-id")
+    assert marker_vid
+    code, h, _ = _req(s3, "GET", "/verbkt/doc.txt")
+    assert code == 404 and h.get("x-amz-delete-marker") == "true"
+    code, _, body = _req(s3, "GET", f"/verbkt/doc.txt", query=f"versionId={vid2}")
+    assert code == 200 and body == b"version two!"
+    # marker shows in the listing as the latest
+    code, _, body = _req(s3, "GET", "/verbkt", query="versions")
+    tree = _xml(body)
+    dms = tree.findall(f"{ns}DeleteMarker")
+    assert len(dms) == 1 and dms[0].find(f"{ns}IsLatest").text == "true"
+    assert dms[0].find(f"{ns}VersionId").text == marker_vid
+    # GET of the marker version itself is 405
+    assert _req(s3, "GET", f"/verbkt/doc.txt", query=f"versionId={marker_vid}")[0] == 405
+
+    # deleting the marker restores the newest real version
+    code, h, _ = _req(s3, "DELETE", f"/verbkt/doc.txt", query=f"versionId={marker_vid}")
+    assert code == 204 and h.get("x-amz-delete-marker") == "true"
+    code, _, body = _req(s3, "GET", "/verbkt/doc.txt")
+    assert code == 200 and body == b"version two!"
+
+    # permanent delete of the latest promotes the next-newest
+    code, _, _ = _req(s3, "DELETE", f"/verbkt/doc.txt", query=f"versionId={vid2}")
+    assert code == 204
+    code, _, body = _req(s3, "GET", "/verbkt/doc.txt")
+    assert code == 200 and body == b"version one"
+    code, _, body = _req(s3, "GET", "/verbkt", query="versions")
+    tree = _xml(body)
+    vers = tree.findall(f"{ns}Version")
+    assert [v.find(f"{ns}VersionId").text for v in vers] == [vid1, "null"]
+
+    # versioned keys stay invisible to plain listings' archives
+    code, _, body = _req(s3, "GET", "/verbkt")
+    assert body.count(b"<Key>doc.txt</Key>") == 1 and b".s3versions" not in body
+
+    # reserved suffix refused everywhere
+    assert _req(s3, "PUT", "/verbkt/evil.s3versions", b"x")[0] == 400
+    assert _req(s3, "PUT", "/verbkt/a.s3versions/b", b"x")[0] == 400
+
+
+def test_versioning_suspended_and_bulk_markers(stack):
+    """Suspended buckets overwrite the 'null' version in place but keep
+    the archive readable; bulk DeleteObjects plants markers when enabled."""
+    s3 = stack
+    assert _req(s3, "PUT", "/susbkt")[0] == 200
+    cfg_on = (b"<VersioningConfiguration><Status>Enabled</Status>"
+              b"</VersioningConfiguration>")
+    cfg_off = (b"<VersioningConfiguration><Status>Suspended</Status>"
+               b"</VersioningConfiguration>")
+    assert _req(s3, "PUT", "/susbkt", cfg_on, query="versioning")[0] == 200
+    code, h, _ = _req(s3, "PUT", "/susbkt/f.txt", b"enabled-era")
+    vid_real = h.get("x-amz-version-id")
+    assert vid_real and vid_real != "null"
+    assert _req(s3, "PUT", "/susbkt", cfg_off, query="versioning")[0] == 200
+    # suspended puts carry the null id and replace each other
+    code, h, _ = _req(s3, "PUT", "/susbkt/f.txt", b"null one")
+    assert h.get("x-amz-version-id") == "null"
+    code, h, _ = _req(s3, "PUT", "/susbkt/f.txt", b"null two")
+    assert h.get("x-amz-version-id") == "null"
+    code, _, body = _req(s3, "GET", "/susbkt/f.txt")
+    assert body == b"null two"
+    # the enabled-era version survived the suspended overwrites
+    code, _, body = _req(s3, "GET", "/susbkt/f.txt", query=f"versionId={vid_real}")
+    assert code == 200 and body == b"enabled-era"
+    code, _, body = _req(s3, "GET", "/susbkt", query="versions")
+    tree = _xml(body)
+    ns = tree.tag[: tree.tag.index("}") + 1]
+    vids = [v.find(f"{ns}VersionId").text for v in tree.findall(f"{ns}Version")]
+    assert vids == ["null", vid_real]
+
+    # bulk delete on an Enabled bucket reports the marker per key
+    assert _req(s3, "PUT", "/susbkt", cfg_on, query="versioning")[0] == 200
+    payload = (b"<Delete><Object><Key>f.txt</Key></Object></Delete>")
+    code, _, body = _req(s3, "POST", "/susbkt", payload, query="delete")
+    assert code == 200 and b"<DeleteMarker>true</DeleteMarker>" in body
+    assert _req(s3, "GET", "/susbkt/f.txt")[0] == 404
+    # both old versions still listed beneath the marker
+    code, _, body = _req(s3, "GET", "/susbkt", query="versions")
+    tree = _xml(body)
+    assert len(tree.findall(f"{ns}Version")) == 2
+    assert len(tree.findall(f"{ns}DeleteMarker")) == 1
+
+
+def test_multipart_upload_versioned_bucket(stack):
+    """CompleteMultipartUpload on a versioned bucket mints a version id
+    and archives the previous latest instead of destroying it."""
+    s3 = stack
+    assert _req(s3, "PUT", "/mpver")[0] == 200
+    cfg = b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>"
+    assert _req(s3, "PUT", "/mpver", cfg, query="versioning")[0] == 200
+    code, h, _ = _req(s3, "PUT", "/mpver/big.bin", b"old small version")
+    old_vid = h.get("x-amz-version-id")
+    code, _, body = _req(s3, "POST", "/mpver/big.bin", query="uploads=")
+    upload_id = _xml(body).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+    part = os.urandom(256 * 1024)
+    code, headers, _ = _req(
+        s3, "PUT", "/mpver/big.bin", part,
+        query=f"partNumber=1&uploadId={upload_id}",
+    )
+    etag = headers["ETag"]
+    done = (f"<CompleteMultipartUpload><Part><PartNumber>1</PartNumber>"
+            f"<ETag>{etag}</ETag></Part></CompleteMultipartUpload>").encode()
+    code, h, _ = _req(s3, "POST", "/mpver/big.bin", done, query=f"uploadId={upload_id}")
+    new_vid = h.get("x-amz-version-id")
+    assert code == 200 and new_vid and new_vid != old_vid
+    code, _, body = _req(s3, "GET", "/mpver/big.bin")
+    assert code == 200 and body == part
+    code, _, body = _req(s3, "GET", "/mpver/big.bin", query=f"versionId={old_vid}")
+    assert code == 200 and body == b"old small version"
+
+
+def test_policy_binds_copy_source_and_bulk_delete(stack):
+    """A policy-denied object must not leak through CopyObject, and
+    per-prefix s3:DeleteObject denies must bind inside bulk DeleteObjects
+    (both bypass the plain per-request resource check)."""
+    import json as _json
+
+    s3 = stack
+    assert _req(s3, "PUT", "/srcb")[0] == 200
+    assert _req(s3, "PUT", "/dstb")[0] == 200
+    assert _req(s3, "PUT", "/srcb/secret/x.txt", b"classified")[0] == 200
+    assert _req(s3, "PUT", "/srcb/keep/y.txt", b"precious")[0] == 200
+    doc = {"Statement": [
+        {"Effect": "Deny", "Principal": "*", "Action": "s3:GetObject",
+         "Resource": "arn:aws:s3:::srcb/secret/*"},
+        {"Effect": "Deny", "Principal": "*", "Action": "s3:DeleteObject",
+         "Resource": "arn:aws:s3:::srcb/keep/*"},
+    ]}
+    assert _req(s3, "PUT", "/srcb", _json.dumps(doc).encode(), query="policy")[0] == 204
+    # CopyObject with a denied source: 403, nothing written
+    code, _, body = _req(s3, "PUT", "/dstb/stolen.txt",
+                         headers={"x-amz-copy-source": "/srcb/secret/x.txt"})
+    assert code == 403 and b"source bucket policy" in body
+    assert _req(s3, "GET", "/dstb/stolen.txt")[0] == 404
+    # UploadPartCopy rides the same resolver
+    code, _, body = _req(s3, "POST", "/dstb/big.bin", query="uploads=")
+    upload_id = _xml(body).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+    code, _, _ = _req(s3, "PUT", "/dstb/big.bin",
+                      query=f"partNumber=1&uploadId={upload_id}",
+                      headers={"x-amz-copy-source": "/srcb/secret/x.txt"})
+    assert code == 403
+    # bulk delete: the protected prefix survives, the rest deletes
+    payload = (b"<Delete><Object><Key>keep/y.txt</Key></Object>"
+               b"<Object><Key>secret/x.txt</Key></Object></Delete>")
+    code, _, body = _req(s3, "POST", "/srcb", payload, query="delete")
+    assert code == 200
+    assert b"<Code>AccessDenied</Code>" in body and b"keep/y.txt" in body
+    assert _req(s3, "GET", "/srcb/keep/y.txt")[0] == 200  # survived
+    # the unprotected key really went (GetObject denied -> check via list)
+    code, _, listing = _req(s3, "GET", "/srcb")
+    assert b"secret/x.txt" not in listing
+    assert _req(s3, "DELETE", "/srcb", query="policy")[0] == 204
+
+
+def test_versioning_suspended_delete_removes_null(stack):
+    """DELETE (no versionId) on a Suspended bucket removes the 'null'
+    version and leaves a null marker — the key must read 404, not serve
+    the supposedly deleted bytes."""
+    s3 = stack
+    assert _req(s3, "PUT", "/susdel")[0] == 200
+    cfg = (b"<VersioningConfiguration><Status>Suspended</Status>"
+           b"</VersioningConfiguration>")
+    assert _req(s3, "PUT", "/susdel", cfg, query="versioning")[0] == 200
+    assert _req(s3, "PUT", "/susdel/f.txt", b"null bytes")[0] == 200
+    code, h, _ = _req(s3, "DELETE", "/susdel/f.txt")
+    assert code == 204 and h.get("x-amz-delete-marker") == "true"
+    assert h.get("x-amz-version-id") == "null"
+    assert _req(s3, "GET", "/susdel/f.txt")[0] == 404
+    code, _, body = _req(s3, "GET", "/susdel", query="versions")
+    tree = _xml(body)
+    ns = tree.tag[: tree.tag.index("}") + 1]
+    assert len(tree.findall(f"{ns}Version")) == 0
+    assert len(tree.findall(f"{ns}DeleteMarker")) == 1
+
+
+def test_policy_rejects_unsupported_statement_fields(stack):
+    """A Condition the evaluator does not implement must be rejected at
+    PUT time — silently ignoring it would turn a conditional Allow into
+    an unconditional public grant."""
+    import json as _json
+
+    s3 = stack
+    assert _req(s3, "PUT", "/uncond")[0] == 200
+    doc = {"Statement": [{"Effect": "Allow", "Principal": "*",
+                          "Action": "s3:GetObject",
+                          "Resource": "arn:aws:s3:::uncond/*",
+                          "Condition": {"IpAddress": {"aws:SourceIp": "10.0.0.0/8"}}}]}
+    code, _, body = _req(s3, "PUT", "/uncond", _json.dumps(doc).encode(), query="policy")
+    assert code == 400 and b"Condition" in body
+    assert _req(s3, "GET", "/uncond", query="policy")[0] == 404  # nothing stored
+
+
+def test_copy_object_from_specific_version(stack):
+    """x-amz-copy-source with ?versionId addresses an archived version;
+    markers and bogus ids answer 404/400; the reply names the source
+    version (x-amz-copy-source-version-id)."""
+    s3 = stack
+    assert _req(s3, "PUT", "/cpver")[0] == 200
+    assert _req(s3, "PUT", "/cpdst")[0] == 200
+    cfg = b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>"
+    assert _req(s3, "PUT", "/cpver", cfg, query="versioning")[0] == 200
+    _, h1, _ = _req(s3, "PUT", "/cpver/f.txt", b"old version bytes")
+    vid1 = h1.get("x-amz-version-id")
+    _, h2, _ = _req(s3, "PUT", "/cpver/f.txt", b"new version bytes")
+    assert h2.get("x-amz-version-id") != vid1
+    # copy the OLD version into another bucket
+    code, ch, body = _req(
+        s3, "PUT", "/cpdst/restored.txt",
+        headers={"x-amz-copy-source": f"/cpver/f.txt?versionId={vid1}"},
+    )
+    assert code == 200 and ch.get("x-amz-copy-source-version-id") == vid1
+    assert _req(s3, "GET", "/cpdst/restored.txt")[2] == b"old version bytes"
+    # a delete marker version has no bytes to copy
+    _, dh, _ = _req(s3, "DELETE", "/cpver/f.txt")
+    marker = dh.get("x-amz-version-id")
+    code, _, body = _req(
+        s3, "PUT", "/cpdst/nope.txt",
+        headers={"x-amz-copy-source": f"/cpver/f.txt?versionId={marker}"},
+    )
+    assert code == 400 and b"delete marker" in body  # AWS: InvalidRequest
+    # malformed version ids are rejected as path material
+    code, _, _ = _req(
+        s3, "PUT", "/cpdst/nope2.txt",
+        headers={"x-amz-copy-source": "/cpver/f.txt?versionId=../../evil"},
+    )
+    assert code == 400
+    # UploadPartCopy names the source version in its reply too
+    code, _, body = _req(s3, "POST", "/cpdst/mp.bin", query="uploads=")
+    upload_id = _xml(body).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+    code, ph, body = _req(
+        s3, "PUT", "/cpdst/mp.bin",
+        query=f"partNumber=1&uploadId={upload_id}",
+        headers={"x-amz-copy-source": f"/cpver/f.txt?versionId={vid1}"},
+    )
+    assert code == 200 and ph.get("x-amz-copy-source-version-id") == vid1
+    assert b"CopyPartResult" in body
+    _req(s3, "DELETE", "/cpdst/mp.bin", query=f"uploadId={upload_id}")
+
+
+def test_delete_object_prunes_empty_folders(stack):
+    """Deleting the last object under a nested prefix removes the empty
+    folder husks, so an emptied bucket can actually be deleted (AWS has
+    no real folders)."""
+    s3 = stack
+    assert _req(s3, "PUT", "/prune")[0] == 200
+    assert _req(s3, "PUT", "/prune/a/b/c/deep.txt", b"x")[0] == 200
+    assert _req(s3, "PUT", "/prune/a/side.txt", b"y")[0] == 200
+    assert _req(s3, "DELETE", "/prune/a/b/c/deep.txt")[0] == 204
+    # /a survives (side.txt), /a/b and /a/b/c are pruned
+    code, _, body = _req(s3, "GET", "/prune", query="list-type=2")
+    assert b"side.txt" in body and b"a/b" not in body
+    assert _req(s3, "DELETE", "/prune/a/side.txt")[0] == 204
+    code, _, _ = _req(s3, "DELETE", "/prune")
+    assert code == 204  # fully prunable: bucket delete succeeds
+
+
+def test_versioned_bucket_fully_emptied_is_deletable(stack):
+    """Permanently deleting every version and marker of every key must
+    leave a versioned bucket deletable (archive dirs and folder husks
+    pruned)."""
+    s3 = stack
+    assert _req(s3, "PUT", "/vprune")[0] == 200
+    cfg = b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>"
+    assert _req(s3, "PUT", "/vprune", cfg, query="versioning")[0] == 200
+    _, h1, _ = _req(s3, "PUT", "/vprune/a/b/f.txt", b"v1")
+    vid1 = h1.get("x-amz-version-id")
+    _, dh, _ = _req(s3, "DELETE", "/vprune/a/b/f.txt")  # marker
+    marker = dh.get("x-amz-version-id")
+    assert _req(s3, "DELETE", "/vprune/a/b/f.txt", query=f"versionId={marker}")[0] == 204
+    # marker gone re-exposed v1 at the plain path; now delete it for good
+    assert _req(s3, "DELETE", "/vprune/a/b/f.txt", query=f"versionId={vid1}")[0] == 204
+    code, _, body = _req(s3, "GET", "/vprune", query="versions")
+    tree = _xml(body)
+    ns = tree.tag[: tree.tag.index("}") + 1]
+    assert not tree.findall(f"{ns}Version") and not tree.findall(f"{ns}DeleteMarker")
+    assert _req(s3, "DELETE", "/vprune")[0] == 204  # no husks left
+
+
+def test_version_granular_policy_actions(stack):
+    """Versioned requests authorize under the s3:*Version action names:
+    a public-read grant of s3:GetObject must NOT expose ?versionId reads,
+    s3:ListBucket must not expose ?versions listings, and a Deny written
+    against s3:DeleteObjectVersion actually matches."""
+    import json as _json
+
+    s3 = stack
+    assert _req(s3, "PUT", "/vact")[0] == 200
+    cfg = b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>"
+    assert _req(s3, "PUT", "/vact", cfg, query="versioning")[0] == 200
+    _, h1, _ = _req(s3, "PUT", "/vact/doc.txt", b"old version")
+    vid1 = h1.get("x-amz-version-id")
+    _, h2, _ = _req(s3, "PUT", "/vact/doc.txt", b"new version")
+    assert vid1 and h2.get("x-amz-version-id")
+
+    # public-read: base actions only
+    doc = {"Statement": [
+        {"Effect": "Allow", "Principal": "*",
+         "Action": ["s3:GetObject", "s3:ListBucket"],
+         "Resource": ["arn:aws:s3:::vact", "arn:aws:s3:::vact/*"]},
+    ]}
+    assert _req(s3, "PUT", "/vact", _json.dumps(doc).encode(), query="policy")[0] == 204
+    code, _, body = _req(s3, "GET", "/vact/doc.txt", sign=False)
+    assert code == 200 and body == b"new version"
+    assert _req(s3, "GET", "/vact", sign=False)[0] == 200
+    # ...but historical versions and version listings stay closed
+    assert _req(s3, "GET", "/vact/doc.txt", sign=False, query=f"versionId={vid1}")[0] == 403
+    assert _req(s3, "GET", "/vact", sign=False, query="versions")[0] == 403
+    # a BLANK ?versionId= is served as the current object, so it must
+    # authorize under the base name (and not smuggle past a base Deny)
+    code, _, body = _req(s3, "GET", "/vact/doc.txt", sign=False, query="versionId=")
+    assert code == 200 and body == b"new version"
+    # duplicate versionId keys: authorization and serving must agree on
+    # the SAME (first) value — a trailing blank copy must not downgrade
+    # the action name to s3:GetObject while the handler serves <vid1>
+    code, _, _ = _req(
+        s3, "GET", "/vact/doc.txt", sign=False, query=f"versionId={vid1}&versionId="
+    )
+    assert code == 403
+
+    # granting the *Version names opens exactly those
+    doc["Statement"].append(
+        {"Effect": "Allow", "Principal": "*",
+         "Action": ["s3:GetObjectVersion", "s3:ListBucketVersions"],
+         "Resource": ["arn:aws:s3:::vact", "arn:aws:s3:::vact/*"]})
+    assert _req(s3, "PUT", "/vact", _json.dumps(doc).encode(), query="policy")[0] == 204
+    code, _, body = _req(s3, "GET", "/vact/doc.txt", sign=False, query=f"versionId={vid1}")
+    assert code == 200 and body == b"old version"
+    assert _req(s3, "GET", "/vact", sign=False, query="versions")[0] == 200
+
+    # a Deny on s3:DeleteObjectVersion binds the signed identity's
+    # permanent versioned deletes but not its logical (marker) delete
+    deny = {"Statement": [
+        {"Effect": "Deny", "Principal": "*", "Action": "s3:DeleteObjectVersion",
+         "Resource": "arn:aws:s3:::vact/*"},
+    ]}
+    assert _req(s3, "PUT", "/vact", _json.dumps(deny).encode(), query="policy")[0] == 204
+    assert _req(s3, "DELETE", "/vact/doc.txt", query=f"versionId={vid1}")[0] == 403
+    code, dh, _ = _req(s3, "DELETE", "/vact/doc.txt")  # marker: s3:DeleteObject
+    assert code == 204 and dh.get("x-amz-delete-marker") == "true"
+    assert _req(s3, "DELETE", "/vact", query="policy")[0] == 204
+
+
+def test_version_archive_pagination(stack, monkeypatch):
+    """A key with more versions than one filer page must keep its NEWEST
+    versions visible: promotion after a permanent delete of the latest must
+    pick the true next-newest (the one-shot limited listing used to drop
+    it), and ListObjectVersions must show every record."""
+    from seaweedfs_tpu_torch.s3api import server as s3server
+
+    monkeypatch.setattr(s3server._Handler, "_VERSION_PAGE", 3)
+    s3 = stack
+    assert _req(s3, "PUT", "/vpage")[0] == 200
+    cfg = b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>"
+    assert _req(s3, "PUT", "/vpage", cfg, query="versioning")[0] == 200
+    vids = []
+    for i in range(8):
+        _, h, _ = _req(s3, "PUT", "/vpage/k.txt", f"content {i}".encode())
+        vids.append(h.get("x-amz-version-id"))
+    assert all(vids) and len(set(vids)) == 8
+    # permanent delete of the live latest: promotion must resurrect
+    # version 6 (newest archived), which lives beyond the first page
+    assert _req(s3, "DELETE", "/vpage/k.txt", query=f"versionId={vids[7]}")[0] == 204
+    code, _, body = _req(s3, "GET", "/vpage/k.txt")
+    assert code == 200 and body == b"content 6"
+    # the listing walks every page: all 7 remaining versions show
+    code, _, body = _req(s3, "GET", "/vpage", query="versions")
+    tree = _xml(body)
+    ns = tree.tag[: tree.tag.index("}") + 1]
+    listed = {v.find(f"{ns}VersionId").text for v in tree.findall(f"{ns}Version")}
+    assert listed == set(vids[:7])
+
+
+def test_policy_and_versioning_caches_stay_bounded(stack):
+    """Unauthenticated probes of nonexistent buckets must not grow the
+    policy/versioning caches, expired entries are evicted on insert, and
+    the size cap holds."""
+    s3 = stack
+    assert _req(s3, "PUT", "/cachebkt")[0] == 200
+    for i in range(50):
+        assert s3.get_bucket_policy(f"no-such-bucket-{i}") is None
+        assert s3.get_bucket_versioning(f"no-such-bucket-{i}") == ""
+    assert not any(k.startswith("no-such-") for k in s3._policy_cache)
+    assert not any(k.startswith("no-such-") for k in s3._versioning_cache)
+    # expired entries go on the next insert (the TTL used to only gate reuse)
+    s3._policy_cache["stale-entry"] = (0.0, None)
+    s3.get_bucket_policy("cachebkt")
+    assert "stale-entry" not in s3._policy_cache
+    assert "cachebkt" in s3._policy_cache
+    # cap: a flood past _CACHE_MAX resets rather than grows
+    import time as _time
+
+    cache = {}
+    now = _time.monotonic()
+    for i in range(type(s3)._CACHE_MAX + 10):
+        type(s3)._cache_put(cache, f"b{i}", None, now)
+    assert len(cache) <= type(s3)._CACHE_MAX + 1
+
+
+# -- across the packages --------------------------------------------------------------------
+#
+# One request script through a reference stack and a port stack; a filer store
+# written through one package's gateway and served by the other's; identities
+# saved by one package and loaded by the other; both signers and verifiers at a
+# pinned clock. The script's replies mask what carries a clock or a random id
+# (`MASKED`): LastModified and CreationDate (the filer's mtime/crtime and the
+# gateway's clock), UploadId (uuid4) and every version id (hex time_ns +
+# random), in XML bodies and in the x-amz-version-id and Last-Modified headers.
+
+
+PKGS = {
+    "ref": types.SimpleNamespace(name="ref", f=REF_FILER, auth=ref_auth, policy=ref_policy,
+                                 server=ref_s3server),
+    "port": types.SimpleNamespace(name="port", f=PORT_FILER, auth=port_auth,
+                                  policy=port_policy, server=port_s3server),
+}
+
+#: XML elements whose text carries a clock or a random id
+MASKED = ("LastModified", "CreationDate", "UploadId", "VersionId", "DeleteMarkerVersionId",
+          "NextVersionIdMarker", "VersionIdMarker")
+_MASK_RE = re.compile(r"<(%s)>[^<]*</\1>" % "|".join(MASKED))
+#: reply headers the comparison reads (the rest are the HTTP server's own)
+KEPT_HEADERS = ("etag", "content-type", "content-length", "content-range", "location",
+                "x-amz-tagging-count", "x-amz-delete-marker", "x-amz-meta-k",
+                "x-amz-version-id", "last-modified")
+
+
+@contextlib.contextmanager
+def s3_stack(p, root):
+    """A master (cookies seeded), one volume server on the package's CPU
+    encoder, a filer on the log store under `root` (64 KiB chunks) and the
+    package's S3 gateway with one identity. Started again on the same
+    `root`, by either package, it serves what was written before."""
+    c = p.f.cluster
+    master = c.MasterServer(port=0, reap_interval=3600)
+    master._rng = random.Random(7)
+    master.start()
+    (root / "vol").mkdir(exist_ok=True)
+    vs = c.VolumeServer([str(root / "vol")], master.address, heartbeat_interval=0.3,
+                        max_volume_count=200, encoder=c.encoder())
+    vs.start()
+    fs = p.f.FilerServer(master.address, store=p.f.make_store("log", str(root / "store")),
+                         chunk_size=64 << 10)
+    fs.start()
+    s3 = p.server.S3ApiServer(fs.url, fs.grpc_address,
+                              iam=p.auth.Iam([p.auth.Identity("tester", AK, SK)]))
+    s3.start()
+    try:
+        yield s3, fs
+    finally:
+        stop_all([s3, fs, vs, master])
+
+
+def _caller(p, s3):
+    """call(method, path, body, headers, query, sign) -> (status, headers, body)
+    against `s3`, signed by the package's own signer."""
+
+    def call(method, path, body=b"", headers=None, query="", sign=True, secret=SK):
+        url = f"http://{s3.url}{path}" + (f"?{query}" if query else "")
+        h = dict(headers or {})
+        if sign:
+            h = p.auth.sign_request(AK, secret, method, url, body, extra_headers=h)
+        req = urllib.request.Request(url, data=body or None, method=method, headers=h)
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, r.headers, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers, e.read()
+
+    return call
+
+
+def _norm(s3, reply) -> tuple:
+    """A reply as the comparison sees it: the status, the KEPT_HEADERS (a
+    version id or Last-Modified masked), and the body with the gateway's
+    address and the MASKED elements replaced (a body over 4 KiB by its
+    sha256)."""
+    status, headers, body = reply
+    kept = {}
+    for k in KEPT_HEADERS:
+        v = headers.get(k)
+        if v is not None:
+            kept[k] = "*" if k in ("x-amz-version-id", "last-modified") else v
+    if len(body) > 4096:
+        body = hashlib.sha256(body).hexdigest().encode()
+    body = _MASK_RE.sub(lambda m: f"<{m.group(1)}>*</{m.group(1)}>",
+                        body.replace(s3.url.encode(), b"<s3>").decode("latin-1"))
+    return status, kept, body
+
+
+def _xml_text(body: bytes, tag: str) -> str:
+    return re.search(rb"<%s>([^<]*)</%s>" % (tag.encode(), tag.encode()), body).group(1).decode()
+
+
+def _request_script(p, s3) -> list:
+    """Buckets, objects, ranges, listings, copies, tags, ACLs, multipart,
+    versioning, bulk delete, policies and the refusals, in one fixed order."""
+    call = _caller(p, s3)
+    out = []
+
+    def r(*a, **k):
+        reply = call(*a, **k)
+        query = re.sub(r"(uploadId|versionId)=[^&]*", r"\1=*", k.get("query", ""))
+        out.append((a[0], a[1], query, _norm(s3, reply)))
+        return reply
+
+    rng = np.random.default_rng(41)
+    r("PUT", "/xb")
+    r("PUT", "/xb")
+    r("HEAD", "/xb")
+    r("GET", "/")
+    r("GET", "/xb", query="location")
+    sizes = [0, 1, 1000, 64 << 10, (64 << 10) + 1, 200_000]
+    for i, n in enumerate(sizes):
+        r("PUT", f"/xb/d{i % 2}/o{i}.bin", rng.bytes(n),
+          headers={"Content-Type": "application/x-test", "x-amz-meta-k": f"v{i}"})
+    r("PUT", "/xb/sp%20ace%2Bplus.txt", b"odd key")
+    for i in range(len(sizes)):
+        r("GET", f"/xb/d{i % 2}/o{i}.bin")
+        r("HEAD", f"/xb/d{i % 2}/o{i}.bin")
+    for rng_h in ("bytes=100-199", "bytes=-10", "bytes=70000-", "bytes=999999-"):
+        r("GET", "/xb/d1/o5.bin", headers={"Range": rng_h})
+    etag = call("HEAD", "/xb/d0/o2.bin")[1]["ETag"]
+    r("GET", "/xb/d0/o2.bin", headers={"If-None-Match": etag})
+    r("GET", "/xb/d0/o2.bin", headers={"If-Match": '"nope"'})
+    r("GET", "/xb/sp%20ace%2Bplus.txt")
+    r("GET", "/xb/missing")
+    r("GET", "/nob/x")
+    r("GET", "/xb", query="list-type=2")
+    r("GET", "/xb", query="list-type=2&delimiter=%2F")
+    r("GET", "/xb", query="list-type=2&prefix=d1%2F")
+    page = r("GET", "/xb", query="list-type=2&max-keys=2")
+    token = _xml_text(page[2], "NextContinuationToken")
+    r("GET", "/xb", query=f"list-type=2&max-keys=3&continuation-token={urllib.parse.quote(token)}")
+    r("GET", "/xb", query="marker=d0%2Fo2.bin&max-keys=2")
+    r("PUT", "/xb/copy.bin", headers={"x-amz-copy-source": "/xb/d0/o4.bin"})
+    r("GET", "/xb/copy.bin")
+    tags = (b"<Tagging><TagSet><Tag><Key>team</Key><Value>ec</Value></Tag>"
+            b"<Tag><Key>tier</Key><Value>warm</Value></Tag></TagSet></Tagging>")
+    r("PUT", "/xb/d0/o2.bin", tags, query="tagging")
+    r("GET", "/xb/d0/o2.bin", query="tagging")
+    r("HEAD", "/xb/d0/o2.bin")
+    r("PUT", "/xb/tagged.txt", b"t", headers={"x-amz-tagging": "a=1&b=2"})
+    r("GET", "/xb/tagged.txt", query="tagging")
+    r("DELETE", "/xb/d0/o2.bin", query="tagging")
+    r("GET", "/xb/d0/o2.bin", query="tagging")
+    r("GET", "/xb", query="acl")
+    r("GET", "/xb/d0/o2.bin", query="acl")
+    r("PUT", "/xb/d0/o2.bin", headers={"x-amz-acl": "private"}, query="acl")
+    # multipart: three parts, a refused and an accepted Complete, an abort
+    init = r("POST", "/xb/mp.bin", query="uploads")
+    upload = _xml_text(init[2], "UploadId")
+    parts = [rng.bytes(70_000), rng.bytes(64 << 10), rng.bytes(99)]
+    etags = [r("PUT", "/xb/mp.bin", part, query=f"partNumber={i}&uploadId={upload}")[1]["ETag"]
+             for i, part in enumerate(parts, start=1)]
+    r("GET", "/xb/mp.bin", query=f"uploadId={upload}")
+    bad = (b"<CompleteMultipartUpload><Part><PartNumber>1</PartNumber>"
+           b"<ETag>deadbeef</ETag></Part></CompleteMultipartUpload>")
+    r("POST", "/xb/mp.bin", bad, query=f"uploadId={upload}")
+    done = "".join(f"<Part><PartNumber>{i}</PartNumber><ETag>{t}</ETag></Part>"
+                   for i, t in enumerate(etags, start=1))
+    r("POST", "/xb/mp.bin", f"<CompleteMultipartUpload>{done}</CompleteMultipartUpload>".encode(),
+      query=f"uploadId={upload}")
+    r("GET", "/xb/mp.bin")
+    r("GET", "/xb/mp.bin", headers={"Range": "bytes=69990-70010"})
+    init = call("POST", "/xb/ab.bin", query="uploads")
+    upload = _xml_text(init[2], "UploadId")
+    r("PUT", "/xb/ab.bin", b"part", query=f"partNumber=1&uploadId={upload}")
+    r("DELETE", "/xb/ab.bin", query=f"uploadId={upload}")
+    r("PUT", "/xb/ab.bin", b"p2", query=f"partNumber=2&uploadId={upload}")
+    r("PUT", "/xb/cp.bin", query=f"partNumber=1&uploadId={upload}",
+      headers={"x-amz-copy-source": "/xb/d0/o4.bin"})
+    upload = _xml_text(r("POST", "/xb/upc.bin", query="uploads")[2], "UploadId")
+    copied = r("PUT", "/xb/upc.bin", query=f"partNumber=1&uploadId={upload}",
+               headers={"x-amz-copy-source": "/xb/d0/o4.bin",
+                        "x-amz-copy-source-range": "bytes=0-99999"})
+    second = r("PUT", "/xb/upc.bin", b"tail", query=f"partNumber=2&uploadId={upload}")
+    done = (f"<Part><PartNumber>1</PartNumber><ETag>{_xml_text(copied[2], 'ETag')}</ETag></Part>"
+            f"<Part><PartNumber>2</PartNumber><ETag>{second[1]['ETag']}</ETag></Part>")
+    r("POST", "/xb/upc.bin", f"<CompleteMultipartUpload>{done}</CompleteMultipartUpload>".encode(),
+      query=f"uploadId={upload}")
+    r("GET", "/xb/upc.bin")
+    # versioning: three versions, a delete marker, reads by version id
+    r("PUT", "/vb")
+    r("GET", "/vb", query="versioning")
+    r("PUT", "/vb", b"<VersioningConfiguration><Status>Enabled</Status>"
+                    b"</VersioningConfiguration>", query="versioning")
+    r("GET", "/vb", query="versioning")
+    vids = [r("PUT", "/vb/k", f"version {i}".encode())[1]["x-amz-version-id"] for i in range(3)]
+    r("GET", "/vb/k")
+    r("GET", "/vb", query="versions")
+    r("DELETE", "/vb/k")
+    r("GET", "/vb/k")
+    r("GET", "/vb/k", query=f"versionId={vids[0]}")
+    r("HEAD", "/vb/k", query=f"versionId={vids[1]}")
+    r("GET", "/vb", query="versions")
+    r("DELETE", "/vb/k", query=f"versionId={vids[2]}")
+    r("GET", "/vb", query="versions&max-keys=1")
+    r("GET", "/vb", query="list-type=2")
+    # bulk delete, with a missing key and a traversal
+    keys = ["d1/o1.bin", "d0/o0.bin", "never.bin", "../x"]
+    xml = "".join(f"<Object><Key>{k}</Key></Object>" for k in keys)
+    r("POST", "/xb", f"<Delete>{xml}</Delete>".encode(), query="delete")
+    r("GET", "/xb/d1/o1.bin")
+    # bucket policy
+    r("GET", "/xb", query="policy")
+    policy = json.dumps({"Version": "2012-10-17", "Statement": [
+        {"Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",
+         "Resource": "arn:aws:s3:::xb/d0/*"}]}).encode()
+    r("PUT", "/xb", policy, query="policy")
+    r("GET", "/xb", query="policy")
+    r("GET", "/xb/d0/o4.bin", sign=False)
+    r("GET", "/xb/d1/o3.bin", sign=False)
+    r("DELETE", "/xb", query="policy")
+    r("PUT", "/xb", b"{not json", query="policy")
+    # refusals
+    r("GET", "/", sign=False)
+    r("GET", "/xb/d0/o4.bin", secret="wrongSecret")
+    r("GET", "/xb/a/../d0/o4.bin")
+    r("PUT", "/.uploads")
+    r("PUT", "/xb/a//b", b"d")
+    r("DELETE", "/xb")
+    r("DELETE", "/nob")
+    r("PUT", "/xb/st.bin", b"x", headers={"x-amz-content-sha256": "STREAMING-AWS4-HMAC-SHA256-PAYLOAD"})
+    r("DELETE", "/xb/d0/o4.bin")
+    r("DELETE", "/xb/d0/o4.bin")
+    r("GET", "/")
+    return out
+
+
+def test_one_request_script_gives_the_same_replies(tmp_path):
+    """The same request script on a reference stack and a port stack: every
+    reply's status, error code, ETag and the other KEPT_HEADERS, and its XML
+    body, are equal (the MASKED elements and headers masked)."""
+    out = {}
+    for name, p in PKGS.items():
+        (tmp_path / name).mkdir()
+        with s3_stack(p, tmp_path / name) as (s3, _):
+            out[name] = _request_script(p, s3)
+    assert len(out["port"]) == len(out["ref"]) > 100
+    for ref, port in zip(out["ref"], out["port"]):
+        assert port == ref
+    codes = {re.search(r"<Code>([^<]*)</Code>", rep[3][2]).group(1)
+             for rep in out["port"] if "<Code>" in rep[3][2]}
+    assert {"BucketAlreadyExists", "NoSuchKey", "NoSuchBucket", "InvalidPart", "NoSuchUpload",
+            "SignatureDoesNotMatch", "InvalidArgument", "BucketNotEmpty"} <= codes, codes
+
+
+def _write_objects(p, s3) -> dict:
+    """Plain, multipart, versioned and tagged objects -> the reads that
+    must come back the same, by name."""
+    call = _caller(p, s3)
+    rng = np.random.default_rng(43)
+    assert call("PUT", "/kb")[0] == 200
+    for i in range(6):
+        assert call("PUT", f"/kb/p/o{i}.bin", rng.bytes(int(rng.integers(1, 300_000))),
+                    headers={"Content-Type": "image/x-test", "x-amz-meta-k": str(i)})[0] == 200
+    assert call("PUT", "/kb/t.txt", b"tagged", headers={"x-amz-tagging": "a=1&b=2"})[0] == 200
+    upload = _xml_text(call("POST", "/kb/mp.bin", query="uploads")[2], "UploadId")
+    done = ""
+    for i in range(1, 4):
+        etag = call("PUT", "/kb/mp.bin", rng.bytes(80_000 if i < 3 else 7),
+                    query=f"partNumber={i}&uploadId={upload}")[1]["ETag"]
+        done += f"<Part><PartNumber>{i}</PartNumber><ETag>{etag}</ETag></Part>"
+    assert call("POST", "/kb/mp.bin", f"<CompleteMultipartUpload>{done}"
+                f"</CompleteMultipartUpload>".encode(), query=f"uploadId={upload}")[0] == 200
+    assert call("PUT", "/vk", b"<VersioningConfiguration><Status>Enabled</Status>"
+                b"</VersioningConfiguration>", query="versioning")[0] == 404  # no bucket yet
+    assert call("PUT", "/vk")[0] == 200
+    call("PUT", "/vk", b"<VersioningConfiguration><Status>Enabled</Status>"
+         b"</VersioningConfiguration>", query="versioning")
+    vids = [call("PUT", "/vk/v.txt", f"v{i}".encode())[1]["x-amz-version-id"] for i in range(3)]
+    assert call("DELETE", "/vk/v.txt")[0] == 204
+    return {"vids": vids}
+
+
+def _read_objects(p, s3, vids) -> list:
+    call = _caller(p, s3)
+    reads = [("GET", f"/kb/p/o{i}.bin", "", {}) for i in range(6)]
+    reads += [("HEAD", "/kb/p/o3.bin", "", {}), ("GET", "/kb/t.txt", "tagging", {}),
+              ("HEAD", "/kb/t.txt", "", {}), ("GET", "/kb/mp.bin", "", {}),
+              ("GET", "/kb/mp.bin", "", {"Range": "bytes=79990-80010"}),
+              ("GET", "/kb", "list-type=2", {}), ("GET", "/", "", {}),
+              ("GET", "/vk", "versions", {}), ("GET", "/vk/v.txt", "", {}),
+              ("GET", "/vk", "versioning", {})]
+    reads += [("GET", "/vk/v.txt", f"versionId={v}", {}) for v in vids]
+    out = []
+    for method, path, query, headers in reads:
+        status, h, body = call(method, path, query=query, headers=headers)
+        out.append((method, path, query, status,
+                    {k: h.get(k) for k in KEPT_HEADERS if h.get(k) is not None},
+                    body.replace(s3.url.encode(), b"<s3>")))
+    return out
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_a_store_written_through_one_gateway_is_served_by_the_other(tmp_path, writer):
+    """Objects written through one package's gateway (plain, multipart,
+    versioned, tagged; the filer on the log store, the volume tier on disk)
+    are served by the other package's master, volume server, filer and
+    gateway started on the same directories: every read's status, headers
+    and body are equal byte for byte (nothing masked: the stamps and ids
+    are the stored ones), and the identities the writer's gateway seeded
+    into the filer KV load in the reader's package."""
+    w, rd = PKGS[writer], PKGS["port" if writer == "ref" else "ref"]
+    with s3_stack(w, tmp_path) as (s3, _):
+        vids = _write_objects(w, s3)["vids"]
+        before = _read_objects(w, s3, vids)
+    with s3_stack(rd, tmp_path) as (s3, fs):
+        deadline = time.monotonic() + 30
+        while _caller(rd, s3)("GET", "/kb/p/o0.bin")[0] != 200:  # the heartbeat
+            assert time.monotonic() < deadline, "the reader's volume tier never came up"
+            time.sleep(0.1)
+        after = _read_objects(rd, s3, vids)
+        with rd.f.FilerClient(fs.grpc_address) as fc:
+            stored = rd.auth.load_identities(fc)
+    assert after == before
+    statuses = [r[3] for r in after]
+    # the range is the one 206, the key behind its delete marker the one 404
+    assert statuses.count(206) == statuses.count(404) == 1
+    assert statuses.count(200) == len(after) - 2
+    assert [(i.name, i.access_key, i.secret_key, i.actions) for i in stored.identities] == \
+        [("tester", AK, SK, ["Admin"])]
+
+
+class _Kv:
+    def __init__(self):
+        self.d = {}
+
+    def kv_put(self, key, value):
+        self.d[key] = value
+
+    def kv_get(self, key):
+        return self.d.get(key)
+
+
+@pytest.mark.parametrize("saver", ["ref", "port"])
+def test_identities_saved_by_one_package_load_in_the_other(saver):
+    s, l = PKGS[saver], PKGS["port" if saver == "ref" else "ref"]
+    conf = {"identities": [
+        {"name": "admin", "credentials": [{"accessKey": "a1", "secretKey": "s1"}]},
+        {"name": "ro", "credentials": [{"accessKey": "r1", "secretKey": "s2"},
+                                        {"accessKey": "r2", "secretKey": "s3"}],
+         "actions": ["Read:warm", "List"]},
+        {"name": "nokey", "credentials": [], "actions": ["Write"]}]}
+    kv = _Kv()
+    s.auth.save_identities(kv, s.auth.Iam.from_config(conf))
+    loaded = l.auth.load_identities(kv)
+    want = [(i.name, i.access_key, i.secret_key, i.actions)
+            for i in s.auth.Iam.from_config(conf).identities]
+    assert [(i.name, i.access_key, i.secret_key, i.actions) for i in loaded.identities] == want
+    kv2 = _Kv()
+    l.auth.save_identities(kv2, loaded)
+    assert kv2.d == kv.d  # the same bytes back
+    kv.d["s3_identities"] = b"{broken"
+    assert l.auth.load_identities(kv) is None and s.auth.load_identities(kv) is None
+
+
+T_PIN = 1_760_000_000.0
+
+
+def _pin_auth_clock(monkeypatch, at: float) -> None:
+    """Both auth modules read `at` as now (time.time and gmtime())."""
+    shim = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time) if not k.startswith("_")})
+    shim.time = lambda: at
+    shim.gmtime = lambda t=None: time.gmtime(at if t is None else t)
+    for p in PKGS.values():
+        monkeypatch.setattr(p.auth, "time", shim)
+
+
+SIGNED_URLS = ["http://127.0.0.1:8333/", "http://127.0.0.1:8333/bkt",
+               "http://127.0.0.1:8333/bkt/sp%20ace%2Bplus.txt",
+               "http://127.0.0.1:8333/bkt/a/b/c.bin?tagging",
+               "http://127.0.0.1:8333/bkt?list-type=2&prefix=a%2F&delimiter=%2F",
+               "http://localhost:9/bkt/k?partNumber=2&uploadId=abc"]
+
+
+def test_signers_agree_at_a_pinned_time(monkeypatch):
+    """sign_request and presign_url give the same headers and URLs in both
+    packages at a pinned clock, and each package's verifier accepts the
+    other's signatures."""
+    _pin_auth_clock(monkeypatch, T_PIN)
+    for url in SIGNED_URLS:
+        for method, body in (("GET", b""), ("PUT", b"payload"), ("POST", b"<x/>")):
+            ref_h = ref_auth.sign_request(AK, SK, method, url, body,
+                                          extra_headers={"X-Amz-Meta-K": "v"})
+            port_h = port_auth.sign_request(AK, SK, method, url, body,
+                                            extra_headers={"X-Amz-Meta-K": "v"})
+            assert port_h == ref_h
+            u = urllib.parse.urlparse(url)
+            for verifier in (ref_auth, port_auth):
+                iam = verifier.Iam([verifier.Identity("t", AK, SK)])
+                ident, err = iam.authenticate(method, urllib.parse.unquote(u.path), u.query,
+                                              port_h, body, expect_service="s3",
+                                              expect_hosts={u.netloc})
+                assert (ident.name, err) == ("t", "")
+        for expires in (1, 3600, 7 * 24 * 3600):
+            assert port_auth.presign_url(AK, SK, "GET", url, expires=expires) == \
+                ref_auth.presign_url(AK, SK, "GET", url, expires=expires)
+
+
+def _resign(auth, headers, signed, method="GET", path="/bkt/k", query="", payload_hash=None,
+            secret=SK, service="s3"):
+    amz_date = headers["x-amz-date"]
+    sig = auth._signature(secret, method, path, query, headers, signed,
+                          payload_hash or headers.get("x-amz-content-sha256", ""), amz_date,
+                          "us-east-1", service)
+    scope = f"{amz_date[:8]}/us-east-1/{service}/aws4_request"
+    headers["authorization"] = (f"AWS4-HMAC-SHA256 Credential={AK}/{scope}, "
+                                f"SignedHeaders={';'.join(signed)}, Signature={sig}")
+    return headers
+
+
+def _verifier_case(case: str):
+    """(method, path, query, headers, payload, identities, expect_service,
+    now) for one verifier case, signed with the port's signer at T_PIN."""
+    a = port_auth
+    url = "http://127.0.0.1:8333/bkt/k"
+    h = a.sign_request(AK, SK, "GET", url)
+    req = ["GET", "/bkt/k", "", h, b"", [("t", AK, SK)], "s3", T_PIN]
+    if case == "good":
+        pass
+    elif case == "open":
+        req[5] = []
+    elif case == "bad_secret":
+        req[3] = a.sign_request(AK, "wrong", "GET", url)
+    elif case == "unknown_key":
+        req[3] = a.sign_request("nobody", SK, "GET", url)
+    elif case == "no_auth":
+        h.pop("authorization")
+    elif case == "malformed":
+        h["authorization"] = "AWS4-HMAC-SHA256 garbage"
+    elif case == "sha_missing":
+        h.pop("x-amz-content-sha256")
+        _resign(a, h, ["host", "x-amz-date"], payload_hash="UNSIGNED-PAYLOAD")
+    elif case == "sha_unsigned":
+        _resign(a, h, ["host", "x-amz-date"])
+    elif case == "sha_mismatch":
+        req[4] = b"another body"
+    elif case == "unsigned_payload":
+        h["x-amz-content-sha256"] = "UNSIGNED-PAYLOAD"
+        _resign(a, h, ["host", "x-amz-content-sha256", "x-amz-date"])
+        req[4] = b"any body"
+    elif case == "streaming":
+        h["x-amz-content-sha256"] = "STREAMING-AWS4-HMAC-SHA256-PAYLOAD"
+    elif case == "host_unsigned":
+        _resign(a, h, ["x-amz-content-sha256", "x-amz-date"])
+    elif case == "host_wrong":
+        req[3] = a.sign_request(AK, SK, "GET", "http://other.example:9999/bkt/k")
+    elif case == "skewed":
+        req[7] = T_PIN + 16 * 60
+    elif case == "service":
+        req[6] = "iam"
+    elif case == "percent_key":
+        req[1] = "/bkt/sp ace+plus.txt"
+        req[3] = a.sign_request(AK, SK, "GET", "http://127.0.0.1:8333/bkt/sp%20ace%2Bplus.txt")
+    elif case == "query":
+        req[2] = "uploadId=u1&partNumber=2"
+        req[3] = a.sign_request(AK, SK, "GET", url + "?uploadId=u1&partNumber=2")
+    elif case == "query_tampered":
+        req[2] = "uploadId=u1&partNumber=3"
+        req[3] = a.sign_request(AK, SK, "GET", url + "?uploadId=u1&partNumber=2")
+    elif case.startswith("presigned"):
+        expires = {"presigned_too_long": 8 * 24 * 3600}.get(case, 60)
+        signed = a.presign_url(AK, SK, "GET", url, expires=expires)
+        query = urllib.parse.urlparse(signed).query
+        if case == "presigned_bad_algo":
+            query = query.replace("AWS4-HMAC-SHA256", "AWS4-HMAC-SHA1")
+        req[2], req[3] = query, {"host": "127.0.0.1:8333"}
+        req[7] = {"presigned_expired": T_PIN + 61, "presigned_future": T_PIN - 16 * 60}.get(
+            case, T_PIN)
+    else:
+        raise AssertionError(case)
+    return req
+
+
+VERIFIER_CASES = ["good", "open", "bad_secret", "unknown_key", "no_auth", "malformed",
+                  "sha_missing", "sha_unsigned", "sha_mismatch", "unsigned_payload", "streaming",
+                  "host_unsigned", "host_wrong", "skewed", "service", "percent_key", "query",
+                  "query_tampered", "presigned", "presigned_expired", "presigned_future",
+                  "presigned_too_long", "presigned_bad_algo"]
+
+
+@pytest.mark.parametrize("case", VERIFIER_CASES)
+def test_verifier_accepts_and_refuses_as_the_reference(monkeypatch, case):
+    """Iam.authenticate in both packages on the same request at the same
+    clock: the same identity (or none) and the same S3 error code."""
+    _pin_auth_clock(monkeypatch, T_PIN)
+    method, path, query, headers, payload, ids, service, now = _verifier_case(case)
+    _pin_auth_clock(monkeypatch, now)
+    got = {}
+    for name, p in PKGS.items():
+        iam = p.auth.Iam([p.auth.Identity(*i) for i in ids])
+        ident, err = iam.authenticate(method, path, query, dict(headers), payload,
+                                      expect_service=service,
+                                      expect_hosts={"127.0.0.1:8333"})
+        got[name] = (ident.name if ident else None, err)
+    assert got["port"] == got["ref"]
+    if case in ("good", "percent_key", "query", "unsigned_payload", "presigned"):
+        assert got["port"] == ("t", "")
+
+
+POLICIES = {
+    "public_read": {"Version": "2012-10-17", "Statement": [
+        {"Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",
+         "Resource": "arn:aws:s3:::b/*"}]},
+    "deny_wins": {"Statement": [
+        {"Effect": "Allow", "Principal": {"AWS": "*"}, "Action": ["s3:*"],
+         "Resource": ["arn:aws:s3:::b", "arn:aws:s3:::b/*"]},
+        {"Effect": "Deny", "Principal": {"AWS": ["arn:aws:iam::1:user/eve"]},
+         "Action": "s3:Delete*", "Resource": "arn:aws:s3:::b/keep/*"}]},
+    "versions": {"Statement": [
+        {"Effect": "Deny", "Principal": "*", "Action": "s3:GetObjectVersion",
+         "Resource": "arn:aws:s3:::b/*"},
+        {"Effect": "Allow", "Principal": "bob", "Action": "S3:getobject",
+         "Resource": "arn:aws:s3:::b/?.txt"}]},
+}
+#: (action, resource, identity name or None for anonymous)
+POLICY_REQUESTS = [(a, r, who) for a in ("s3:GetObject", "s3:GetObjectVersion",
+                                         "s3:DeleteObject", "s3:ListBucket", "s3:PutObject")
+                   for r in ("arn:aws:s3:::b/x.txt", "arn:aws:s3:::b/keep/y",
+                             "arn:aws:s3:::b", "arn:aws:s3:::b/keep")
+                   for who in (None, "bob", "eve")]
+BAD_POLICIES = ["{not json", '{"Statement": []}', '{"Statement": [{"Effect": "Maybe"}]}',
+                '{"Statement": [{"Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",'
+                ' "Resource": "arn:aws:s3:::b/*", "Condition": {}}]}', '[]',
+                '{"Statement": [{"Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",'
+                ' "Resource": "arn:aws:s3:::other/*"}]}']
+
+
+@pytest.mark.parametrize("name", sorted(POLICIES))
+def test_policy_engine_decides_as_the_reference(name):
+    """parse_policy and evaluate in both packages: the same decision for
+    every (action, resource, principal) of POLICY_REQUESTS."""
+    got = {}
+    for pk, p in PKGS.items():
+        doc = p.policy.parse_policy(json.dumps(POLICIES[name]).encode(), "b")
+        got[pk] = [p.policy.evaluate(doc, identity_name=who or "", access_key="",
+                                     anonymous=who is None, action=a, resource=r)
+                   for a, r, who in POLICY_REQUESTS]
+    assert got["port"] == got["ref"]
+    assert len(set(got["port"])) > 1
+
+
+def test_policy_parser_refuses_as_the_reference():
+    for raw in BAD_POLICIES:
+        errs = {}
+        for pk, p in PKGS.items():
+            try:
+                errs[pk] = ("ok", p.policy.parse_policy(raw.encode(), "b"))
+            except Exception as e:  # noqa: BLE001 — the refusal is compared
+                errs[pk] = (type(e).__name__, str(e))
+        assert errs["port"] == errs["ref"], raw
+
+
+def test_the_gateway_sets_tcp_nodelay_on_accepted_sockets(stack, monkeypatch):
+    """The port's S3 front turns Nagle off on every accepted socket (a
+    reply's headers and body leave in two writes; with Nagle on, the body
+    waits for the client's delayed ACK: a 4 KiB GET over one keep-alive
+    connection to the reference's stack measured 48.0 ms p50 on a CPU
+    host, 3.1 ms with TCP_NODELAY). The reference's front keeps Nagle on."""
+    import socket
+
+    seen = []
+    setup = port_s3server._Handler.setup
+
+    def recording_setup(self):
+        setup(self)
+        seen.append(self.connection.getsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY))
+
+    monkeypatch.setattr(port_s3server._Handler, "setup", recording_setup)
+    assert _req(stack, "GET", "/")[0] == 200
+    assert seen and all(seen)
+    assert not ref_s3server._Handler.disable_nagle_algorithm

@@ -196,7 +196,7 @@ def _help_and_volume_list(pkg, root):
         checked = run(pkg, env, "cluster.check")
         assert "4 nodes" in checked and "unreachable" not in checked.replace("0 unreachable", "")
         one = run(pkg, env, "help ec.encode")
-        # the port leaves out the S3 and MQ families
+        # the port leaves out the MQ family
         names = [ln.split()[0] for ln in helped.splitlines()]
         return {"names": names, "help_ec_encode": one, "collections": colls,
                 "check": mask(checked, servers)}
@@ -211,7 +211,7 @@ def test_help_and_volume_list(tmp_path, monkeypatch):
     ref_names = out["ref"].pop("names")
     port_names = out["port"].pop("names")
     assert out["port"] == out["ref"]
-    left_out = ("s3.", "mq.")
+    left_out = ("mq.",)
     assert port_names == [n for n in ref_names if not n.startswith(left_out)]
 
 
@@ -613,8 +613,8 @@ def test_ec_backend_without_a_card_raises():
 def test_filer_client_and_fsck_walk_raise(tmp_path):
     """With no filer announced to the master, the env's filer client raises
     the reference's ShellError, and so does volume.fsck once its volume
-    scan reaches the filer walk; the fs.* family is registered (s3.* and
-    mq.* are not ported yet)."""
+    scan reaches the filer walk; the fs.* and s3.* families are registered
+    (mq.* is not ported yet)."""
     with shell_cluster(PORT, tmp_path, n=1) as (master, servers, client, env):
         upload_some(PORT, client, n=2, seed=9)
         with pytest.raises(port_shell.ShellError, match="no filer registered"):
@@ -624,7 +624,8 @@ def test_filer_client_and_fsck_walk_raise(tmp_path):
             run(PORT, env, "volume.fsck")
         names = port_shell.commands()
         assert sum(c.startswith("fs.") for c in names) == 13
-        assert not any(c.startswith(("s3.", "mq.")) for c in names)
+        assert sum(c.startswith("s3.") for c in names) == 4
+        assert not any(c.startswith("mq.") for c in names)
 
 
 def test_shell_command_runs_a_script(tmp_path):

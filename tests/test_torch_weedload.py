@@ -4,8 +4,9 @@ classification on one EC base, the zipf key sequence from one seed, the
 /metrics and /debug/traces scrapers on one served payload, a generator
 worker's output, and the flags (all equal, tolerance 0); the smoke on
 in-process CPU servers with every content assertion of the reference's
-smoke case; `--front s3` and a missing card refused before any server
-starts; and twins of the reference's three server cases that the harness
+smoke case, and the `--front s3` smoke with the reference S3-front smoke
+case's; the flags the S3 front refuses and a missing card, refused before
+any server starts; and twins of the reference's three server cases that the harness
 stands on (`tests/test_slo_harness.py`: the rebuild admission gate, the
 503 of an unservable degraded read, the lookup leader's retries), each run
 on a cluster of each package with the reference case's own assertions and
@@ -32,7 +33,7 @@ from seaweedfs_tpu_torch.scripts import weedload as port_load
 from seaweedfs_tpu_torch.storage import idx, types
 
 from test_torch_cluster import blob, stop_all, twin
-from test_torch_cuda import hold_smoke_report, run_smoke
+from test_torch_cuda import hold_s3_smoke_report, hold_smoke_report, run_smoke
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -234,14 +235,28 @@ def no_server(monkeypatch):
     monkeypatch.setattr(volume_server.VolumeServer, "__init__", refuse)
 
 
-@pytest.mark.parametrize("extra", [["--device", "cpu"], [], ["--smoke", "--device", "cpu"]])
-def test_front_s3_raises_before_any_server(no_server, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3.d."):
-        port_load.main(["--front", "s3", *extra])
+def test_s3_front_smoke_holds_the_reference_s3_smoke_assertions(tmp_path):
+    """`--smoke --front s3 --device cpu`: signed V4 requests through the
+    port's filer and S3 gateway into bucket `load`, whose EC'd volume lies
+    in the bucket's collection (`load_<vid>` on disk). Every assertion of
+    the reference's S3-front smoke case but its 40 s wall budget, which is
+    timing-bound under parallel test workers: the card test holds it."""
+    report, took = run_smoke(tmp_path, "cpu", front="s3")
+    hold_s3_smoke_report(report, took, timed=False)
+
+
+@pytest.mark.parametrize("argv", [["--front", "s3", "--procs", "2"],
+                                  ["--front", "s3", "--corrupt"],
+                                  ["--front", "s3", "--rebuild-storm"],
+                                  ["--front", "s3", "--put-fraction", "0.1"]])
+def test_s3_front_refuses_what_the_reference_refuses_before_any_server(no_server, argv):
+    with pytest.raises(AssertionError, match="requires"):
+        port_load.main([*argv, "--device", "cpu"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
-@pytest.mark.parametrize("argv", [[], ["--smoke"], ["--chaos", "--procs", "4"]])
+@pytest.mark.parametrize("argv", [[], ["--smoke"], ["--chaos", "--procs", "4"],
+                                  ["--smoke", "--front", "s3"]])
 def test_without_a_card_weedload_raises_before_any_server(no_server, argv):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_load.main(argv)
