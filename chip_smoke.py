@@ -134,7 +134,7 @@ Phases, one JSON line each:
            ok with no quarantine entry left in the cursor
   store    on an emptied scratch directory, upstream's `weed benchmark`
            volume (files of 1 KiB, collection benchmark, replication 000;
-           524 288 of its 1 048 576 for the script's time) through the
+           131 072 of its 1 048 576 for the script's time) through the
            port's `Store`: every needle written
            (needles/s), a seeded tenth deleted, a seeded sample of 4096 read
            with cookies (live ones equal their data, deleted ones not found);
@@ -216,7 +216,8 @@ Phases, one JSON line each:
   filer    (on an emptied scratch directory) the SeaweedFS wiki's "Filer
            Setup" over its "Erasure Coding for warm storage", in this
            process: a port master, three VolumeServers on the card (racks
-           rack0-rack2, six volumes of collection warm grown up front) and
+           rack0-rack2, 32 volume slots each as `weed volume -max 32`, six
+           volumes of collection warm grown up front) and
            a FilerServer on the log store (4 MiB chunks, its chunk cache
            off). (1) 1024 seeded files, sizes log-uniform from 4 KiB to 8 MiB,
            in 4 x 8 directories, each by HTTP PUT from 8 threads (each
@@ -274,6 +275,40 @@ Phases, one JSON line each:
            `s3.clean.uploads -timeAgoSeconds 0` (the abandoned upload's
            staged parts gone). Prints launches by shape and kernel ms x
            launches against the wall
+  sync     on the filer phase's cluster after the s3 phase (its own launch
+           count), the SeaweedFS wiki's "Filer Active Active cross cluster
+           continuous synchronization", "Async Backup", "FUSE Mount" and
+           "Path-Specific Configuration", and upstream's `weed mq.broker`,
+           the filer's chunk cache off, server caches cleared and off,
+           hedging off. (1) filer.sync: a second FilerServer on its own log
+           store, `fs.configure -locationPrefix /replica/ -collection
+           replica` on it, a Replicator with a FilerSink (the `filer.sync`
+           loop, `-targetPath /replica`) over /warm/t1 until it has applied
+           every event there: each replicated file's sha256 the source's,
+           (1, 10) launches the .ecx prediction for one read of every file;
+           then 12 overwrites, 10 renames and 10 deletes on the source, the
+           sync started again from its checkpoint (the source filer's KV):
+           exactly those events apply, the replica equals the source
+           subtree; (2) `filer.backup` (the command's entry point) of
+           /warm/t2 into a local directory, byte-equal; an S3Sink of
+           /warm/t3 into a bucket of a port S3ApiServer, each object's ETag
+           its md5 and its sha256 the file's; (3) `filer.copy` of 64 seeded
+           local files, read back byte-equal; `filer.meta.tail` from the
+           phase's start: one JSON line per event; (4) a WFS mount (chunk
+           cache off): 64 degraded files read whole and 256 seeded 64 KiB
+           ranges, byte-equal, launches predicted; a 64 MiB file by seeded
+           random writes with auto-flush, truncated, renamed, read back; (5)
+           `fs.configure -locationPrefix /topics/ -collection mqwarm`, the
+           `mq.broker` command's Broker, `mq.topic.configure -partitions 4`
+           through the shell, 8192 seeded 1 KiB records from 4 publishers,
+           the broker stopped (its segments flush), `ec.encode -collection
+           mqwarm` with shards 0 and 5 lost, a broker started again and a
+           consumer group of two reading every record from the start:
+           each once, in ts_ns order per partition, committed offsets each
+           partition's last ts_ns, (1, 10) launches the .ecx prediction for
+           the segments' needles. Prints replicate files/s and MB/s, read
+           p50/p99 by class per step, publish and consume records/s, and
+           kernel ms x launches against the wall
   shell    (on an emptied scratch directory) the SeaweedFS wiki's EC
            deployment: a port master with WEEDTPU_REPAIR=on and a 256 MiB
            volume size limit, five volume servers in racks r0-r4 (each on
@@ -396,10 +431,10 @@ C12_LOST = (0, 5, 13)
 SCRUB_DAMAGE = {5: "corrupt", 9: "truncated", 21: "missing"}
 #: needles sampled for the convert and scrub phases' reads
 NEEDLES = 64
-#: the store phase: upstream's `weed benchmark` volume (-size 1024; half its
+#: the store phase: upstream's `weed benchmark` volume (-size 1024; an eighth of its
 #: -n 1048576, for the script's time), a seeded tenth deleted, a seeded
 #: sample of reads, and its volume id
-STORE_FILES = 1 << 19
+STORE_FILES = 1 << 17
 STORE_SIZE = 1024
 STORE_DELETE = 0.10
 STORE_SAMPLE = 4096
@@ -2856,6 +2891,7 @@ FILER_TREE = (4, 8)
 FILER_WRITERS = 8
 FILER_VOLUMES = 6  # grown up front, two per server (upstream grows 7 at a time for 000)
 FILER_COLLECTION = "warm"
+FILER_SLOTS = 32  # volume slots per server
 FILER_LOST = (0, 5)
 FILER_RANGES = 256
 FILER_RANGE = 64 << 10
@@ -2928,9 +2964,11 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
               files: int = FILER_FILES, max_bytes: int = FILER_MAX, then=None) -> dict:
     """The filer phase (see the module doc): files through the port's filer
     onto card volume servers, EC-encoded, read back degraded. `then(master,
-    servers, filer)`, when given, runs on the same cluster after the
-    phase's own line is complete and before it stops; what it returns is
-    the line's `_then`."""
+    servers, filer, tree)`, when given, runs on the same cluster after the
+    phase's own line is complete and before it stops (`tree`: the
+    collection, and each live file's sha256, size, data seed and chunk fids,
+    and the shards each EC chunk's needle lies on); what it returns is the
+    line's `_then`."""
     import http.client
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3002,7 +3040,11 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
         for i in range(3):
             d = os.path.join(root, f"srv{i}")
             os.makedirs(d)
+            # upstream's `weed volume -max 32`: the s3 and sync phases grow
+            # their collections on these servers after the filer's six volumes
+            # (an EC volume's shards take a slot on each holder)
             vs = VolumeServer([d], master.address, heartbeat_interval=0.4, rack=f"rack{i}",
+                              max_volume_count=FILER_SLOTS,
                               encoder=rs_codec.new_encoder(device=device))
             vs.start()
             servers.append(vs)
@@ -3033,6 +3075,7 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
         total = sum(size for _, size, _ in plan)
         digest = {path: h for (path, _, _), (h, _) in zip(plan, puts)}
         sizes = {path: size for path, size, _ in plan}
+        seed_of = {path: ds for path, _, ds in plan}
         chunks_of = {path: [c.fid for c in fs.filer.find_entry(path).chunks] for path in sizes}
         check(all(len(c) == -(-sizes[p] // (4 << 20)) for p, c in chunks_of.items()),
               "a file's chunk count is not ceil(size / 4 MiB)")
@@ -3214,6 +3257,7 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
             data = _filer_data(ds, size)
             _filer_put(local, fs.url, path, data)
             digest[path], sizes[path] = hashlib.sha256(data).hexdigest(), size
+            seed_of[path] = ds
             chunks_of[path] = [c.fid for c in fs.filer.find_entry(path).chunks]
         all_bytes = sum(sizes.values())
         n_dirs = FILER_TREE[0] + FILER_TREE[0] * FILER_TREE[1]
@@ -3228,6 +3272,7 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
         for p in moved:
             q = dst + p[len(src):]
             digest[q], sizes[q], chunks_of[q] = digest.pop(p), sizes.pop(p), chunks_of.pop(p)
+            seed_of[q] = seed_of.pop(p)
             status, body = _filer_get(conn, q)
             check(status == 200 and hashlib.sha256(body).hexdigest() == digest[q],
                   f"{q} after fs.mv")
@@ -3244,7 +3289,7 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
         gone_fids = [f for p in gone for f in chunks_of[p]]
         for p in gone:
             check(_filer_get(conn, p)[0] == 404, f"{p} still there after fs.rm -r")
-            digest.pop(p), sizes.pop(p), chunks_of.pop(p)
+            digest.pop(p), sizes.pop(p), chunks_of.pop(p), seed_of.pop(p)
         reader = MasterClient(master.address)
         try:
             for fid in gone_fids[:: max(1, len(gone_fids) // 32)]:
@@ -3295,7 +3340,9 @@ def run_filer(scratch: str, seed: int, card: str, kernel_ms: dict, device: str =
                                                       else not by_shape),
               f"the filer path launched {by_shape}")
         if then is not None:
-            out["_then"] = then(master, servers, fs)
+            out["_then"] = then(master, servers, fs, {
+                "coll": coll, "digest": digest, "sizes": sizes, "seed_of": seed_of,
+                "chunks_of": chunks_of, "shards": shards})
     finally:
         _put_env({"WEEDTPU_HEDGE_READS": saved_hedge, "WEEDTPU_READ_CACHE_MB": saved_cache})
         for c in conns:
@@ -3758,6 +3805,603 @@ def run_s3(root: str, master, servers: list, fs, seed: int, card: str, kernel_ms
     check(all(c == 10 for _, c in by_shape) and (by_shape.get((1, 10), 0) > 0 if on_card
                                                   else not by_shape),
           f"the s3 path launched {by_shape}")
+    return out
+
+
+#: the sync phase's deployment (the SeaweedFS wiki's "Filer Active Active
+#: cross cluster continuous synchronization", "Async Backup", "FUSE Mount",
+#: "Path-Specific Configuration" and upstream's `weed mq.broker`), on the
+#: filer phase's cluster after the s3 phase
+SYNC_DIRS = ("t1", "t2", "t3")  # filer.sync, filer.backup, the S3 sink
+SYNC_MUTATIONS = (12, 10, 10)  # overwrites, renames, deletes on the synced directory
+SYNC_REPLICA = "replica"  # the second filer's /replica/ collection
+SYNC_BUCKET = "syncbkt"
+SYNC_VOLUMES = 3  # grown up front for the replica and the bucket
+SYNC_COPY_FILES = 64
+SYNC_MOUNT_FILES = 64
+SYNC_MOUNT_RANGES = 256
+SYNC_MOUNT_RANGE = 64 << 10
+SYNC_MOUNT_WRITE = 64 << 20
+SYNC_MQ_COLLECTION = "mqwarm"
+SYNC_MQ_TOPIC = "events"
+SYNC_MQ_PARTITIONS = 4
+SYNC_MQ_RECORDS = 8192
+SYNC_MQ_RECORD = 1 << 10
+SYNC_MQ_PUBLISHERS = 4
+SYNC_MQ_COMMIT_EVERY = 64
+
+
+@contextlib.contextmanager
+def _timed_file_reads(cls):
+    """Every `cls.read_file(path)` in the block appends (path, ms) to the
+    list it yields."""
+    log: list = []
+    orig = cls.read_file
+
+    def read_file(self, path):
+        t = time.perf_counter()
+        data = orig(self, path)
+        log.append((path, (time.perf_counter() - t) * 1e3))
+        return data
+
+    cls.read_file = read_file
+    try:
+        yield log
+    finally:
+        cls.read_file = orig
+
+
+def _read_classes(ms_of: list, degraded) -> dict:
+    """p50/p99 of (path, ms) reads by class (degraded: `degraded(path)`)."""
+    out = {}
+    for klass in ("degraded", "healthy"):
+        ms = [m for p, m in ms_of if bool(degraded(p)) == (klass == "degraded")]
+        out[klass] = {"reads": len(ms), "p50_ms": _pct(ms, 0.5), "p99_ms": _pct(ms, 0.99)}
+    return out
+
+
+def run_sync(root: str, master, servers: list, fs, tree: dict, seed: int, card: str,
+             kernel_ms: dict, device: str = "cuda", mount_files: int = SYNC_MOUNT_FILES,
+             mount_ranges: int = SYNC_MOUNT_RANGES, mount_bytes: int = SYNC_MOUNT_WRITE,
+             mq_records: int = SYNC_MQ_RECORDS) -> dict:
+    """The sync phase (see the module doc), on the filer phase's running
+    master, volume servers and filer: filer.sync into a second filer,
+    filer.backup, an S3 sink, filer.copy, filer.meta.tail, a mount and a
+    consumer group, each reading the warm collection's EC-degraded files."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.__main__ import main as cli
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.filer import FilerServer, make_store
+    from seaweedfs_tpu_torch.filer.client import FilerClient
+    from seaweedfs_tpu_torch.mount import WFS
+    from seaweedfs_tpu_torch.mq import Broker, BrokerClient
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.replication import FilerSink, Replicator, S3Sink
+    from seaweedfs_tpu_torch.s3api import Iam, Identity, S3ApiServer
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    phase_ns = time.time_ns()
+    rs_cuda.reset_launches()  # the sync path's run starts here
+    coll, lost = tree["coll"], set(FILER_LOST)
+    digest, sizes, seed_of = dict(tree["digest"]), dict(tree["sizes"]), dict(tree["seed_of"])
+    chunks_of, shards = dict(tree["chunks_of"]), dict(tree["shards"])
+    rng = np.random.default_rng(seed + 2000)
+    saved = {k: os.environ.get(k) for k in ("WEEDTPU_HEDGE_READS", "WEEDTPU_READ_CACHE_MB")}
+    chunk_cache = fs.chunk_io.cache
+    fs.chunk_io.cache = None  # the filer's chunk cache off for the whole phase
+    started, envs, conns, mounts = [], [], [], []
+    local = threading.local()
+    out = {"card": card,
+           "source": "SeaweedFS wiki: Filer Active Active cross cluster continuous "
+                     "synchronization, Async Backup, FUSE Mount, Path-Specific Configuration; "
+                     "upstream weed mq.broker; over Erasure Coding for warm storage",
+           "reduced": [f"the filer phase's ~{len(sizes)} files, not millions; one top-level "
+                       "directory each for filer.sync, filer.backup and the S3 sink",
+                       f"{mq_records} records of {SYNC_MQ_RECORD} bytes on one topic of "
+                       f"{SYNC_MQ_PARTITIONS} partitions", "one process: the filer phase's "
+                       "master, 3 volume servers and filer, a second filer, the S3 gateway, "
+                       "the broker and the mount over loopback"],
+           "lost": sorted(lost)}
+
+    def predict(fids) -> int:  # one (1, 10) launch per lost shard a needle touches
+        return sum(len(shards.get(f, set()) & lost) for f in fids)
+
+    def under(d: str) -> list:
+        return sorted(p for p in sizes if p.startswith(f"/{coll}/{d}/"))
+
+    def is_degraded(path: str) -> bool:
+        return path in chunks_of and predict(chunks_of[path]) > 0
+
+    def counted(what: str, fids, fn):
+        """fn() with the decoded-interval cache cleared -> (its value, seconds,
+        the launches by shape and the .ecx prediction, which they must equal)."""
+        read_planner.CACHE.clear()
+        shape0 = dict(rs_cuda.launches_by_shape)
+        t = time.perf_counter()
+        value = fn()
+        seconds = time.perf_counter() - t
+        launched = _shape_launches(shape0)
+        pred = predict(fids)
+        check(launched == ({(1, 10): pred} if on_card and pred else {}),
+              f"{what} launched {launched}, predicted (1, 10) x {pred}")
+        return value, seconds, {"launches_by_shape": _shape_keys(launched),
+                                "predicted_1x10": pred}
+
+    def shell(script: str, filer=None) -> str:
+        env = CommandEnv(master.address, device=device)
+        envs.append(env)
+        if filer is not None:  # the fs.* commands on this filer, not the first one listed
+            env._filer_client, env._filer_http = FilerClient(filer.grpc_address), filer.url
+        buf = io.StringIO()
+        for cmd in script.split(";"):
+            run_command(env, cmd.strip(), buf)
+        return buf.getvalue()
+
+    def connection(port: int):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conns.append(c)
+        return c
+
+    def cli_out(argv: list) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        check(rc == 0, f"{argv[0]} exited {rc}: {buf.getvalue()[-300:]}")
+        return buf.getvalue()
+
+    def sha_of(conn, path: str) -> str:
+        status, body = _filer_get(conn, path)
+        check(status == 200, f"GET {path}: {status}")
+        return hashlib.sha256(body).hexdigest()
+
+    try:
+        os.makedirs(root)
+        _put_env({"WEEDTPU_HEDGE_READS": "off", "WEEDTPU_READ_CACHE_MB": "0"})
+        for c in (SYNC_REPLICA, SYNC_BUCKET):
+            grown = master._rpc_volume_grow({"collection": c, "count": SYNC_VOLUMES}, None)
+            check(grown["grown"] == SYNC_VOLUMES, f"volume grow {c}: {grown}")
+
+        # 1: filer.sync: a second filer on the same master (its own log
+        # store, /replica/ routed to a plain collection by fs.configure); a
+        # Replicator with a FilerSink (-targetPath /replica) over one
+        # top-level directory until it has applied every event there
+        meta2 = os.path.join(root, "replica_meta")
+        os.makedirs(meta2)
+        fs2 = FilerServer(master.address, store=make_store("log", meta2), log_dir=meta2)
+        fs2.start()
+        started.append(fs2)
+        rule = shell(f"fs.configure -locationPrefix /{SYNC_REPLICA}/ -collection {SYNC_REPLICA} "
+                     "-apply", filer=fs2)
+        src = f"/{coll}/{SYNC_DIRS[0]}"
+        with FilerClient(fs.grpc_address) as fc:
+            history = list(fc.subscribe(since_ns=0, path_prefix=src, max_idle_s=0.5))
+        synced = under(SYNC_DIRS[0])
+        sink_id = f"filer.{fs2.url}"
+        applied, failed = [], []
+
+        def sync_until(n_events: int, what: str) -> float:
+            """A Replicator.run (the filer.sync loop) from the checkpoint until
+            `applied` holds n_events, then stopped -> its wall seconds."""
+            rep = Replicator(fs.grpc_address, FilerSink(fs2.url, target_root=f"/{SYNC_REPLICA}"),
+                             prefix=src, sink_id=sink_id)
+            apply = rep.apply
+
+            def counting(ev):
+                try:
+                    apply(ev)
+                except Exception as e:  # noqa: BLE001 — the run loop would retry it
+                    failed.append(repr(e))
+                    raise
+                applied.append(ev)
+
+            rep.apply = counting
+            stop = threading.Event()
+            t = threading.Thread(target=rep.run, args=(stop,), kwargs={"max_idle_s": 0.5})
+            t0 = time.perf_counter()
+            t.start()
+            try:
+                _cluster_wait(lambda: len(applied) >= n_events or failed, what, timeout=900)
+                took = time.perf_counter() - t0
+            finally:
+                stop.set()
+                t.join()
+                rep.close()
+            check(not failed and len(applied) == n_events,
+                  f"{what}: {len(applied)} of {n_events} applied, {failed[:3]}")
+            return took
+
+        with _timed_file_reads(FilerClient) as reads:
+            took, _, launched = counted("filer.sync", [f for p in synced for f in chunks_of[p]],
+                                        lambda: sync_until(len(history), "filer.sync"))
+        c2 = connection(fs2.port)
+        target = {e.path[len(SYNC_REPLICA) + 2:]: e.size for e in fs2.filer.walk(f"/{SYNC_REPLICA}")
+                  if not e.is_directory}
+        check(target == {p[len(src) + 1:]: sizes[p] for p in synced},
+              f"the replica holds {len(target)} files, the source {len(synced)}")
+        for p in synced:
+            check(sha_of(c2, f"/{SYNC_REPLICA}/{p[len(src) + 1:]}") == digest[p],
+                  f"{p} differs in the replica")
+        n_bytes = sum(sizes[p] for p in synced)
+        with FilerClient(fs.grpc_address) as fc:
+            checkpoint = int(fc.kv_get(f"replication.offset.{sink_id}").decode())
+        check(checkpoint == history[-1].ts_ns, "the checkpoint is not the last event")
+        out["sync"] = {"prefix": src, "target": f"/{SYNC_REPLICA}", "rule": rule.strip(),
+                       "events": len(history), "files": len(synced), "bytes": n_bytes,
+                       "seconds": took, "files_per_s": len(synced) / took,
+                       "mb_per_s": n_bytes / took / 1e6,
+                       "reads": _read_classes(reads, is_degraded), **launched}
+
+        # then seeded overwrites, renames and deletes on the source, and the
+        # sync started again from its checkpoint: exactly those events apply
+        picks = [synced[int(i)] for i in rng.permutation(len(synced))[:sum(SYNC_MUTATIONS)]]
+        n_over, n_ren = min(SYNC_MUTATIONS[0], len(picks)), SYNC_MUTATIONS[1]
+        expect = []
+        for i, p in enumerate(picks[:n_over]):
+            ds = seed * 100_000 + 60_000 + i
+            data = _filer_data(ds, int(rng.integers(4 << 10, 1 << 20)))
+            _filer_put(local, fs.url, p, data)
+            digest[p], sizes[p], seed_of[p] = hashlib.sha256(data).hexdigest(), len(data), ds
+            chunks_of[p] = [c.fid for c in fs.filer.find_entry(p).chunks]
+            expect.append((p, p))
+        renamed = []
+        for p in picks[n_over:n_over + n_ren]:
+            q = p.rsplit("/", 1)[0] + "/renamed-" + p.rsplit("/", 1)[1]
+            fs.filer.rename(p, q)
+            for d in (digest, sizes, seed_of, chunks_of):
+                d[q] = d.pop(p)
+            renamed.append(q)
+            expect.append((p, q))
+        for p in picks[n_over + n_ren:]:
+            fs.filer.delete_entry(p)
+            for d in (digest, sizes, seed_of, chunks_of):
+                d.pop(p)
+            expect.append((p, None))
+        before = len(applied)
+        with _timed_file_reads(FilerClient) as reads:
+            took, _, launched = counted(
+                "the resumed filer.sync", [f for p in renamed for f in chunks_of[p]],
+                lambda: sync_until(before + len(expect), "the resumed filer.sync"))
+        resumed = applied[before:]
+        def in_order(pairs) -> list:
+            return sorted(pairs, key=lambda e: (e[0] or "", e[1] or ""))
+
+        got = in_order(((ev.old_entry or {}).get("path"), (ev.new_entry or {}).get("path"))
+                       for ev in resumed)
+        check(got == in_order(expect) and all(
+            ev.ts_ns > checkpoint for ev in resumed), f"the resumed sync applied {got[:4]} ...")
+        synced = under(SYNC_DIRS[0])
+        target = {e.path[len(SYNC_REPLICA) + 2:]: e.size for e in fs2.filer.walk(f"/{SYNC_REPLICA}")
+                  if not e.is_directory}
+        check(target == {p[len(src) + 1:]: sizes[p] for p in synced},
+              "the replica differs from the source after the resumed sync")
+        for p in picks[:n_over] + renamed:
+            check(sha_of(c2, f"/{SYNC_REPLICA}/{p[len(src) + 1:]}") == digest[p],
+                  f"{p} differs in the replica after the resumed sync")
+        out["sync"]["resumed"] = {"mutations": {"overwrites": n_over, "renames": len(renamed),
+                                                "deletes": len(expect) - n_over - len(renamed)},
+                                  "events": len(resumed), "seconds": took,
+                                  "reads": _read_classes(reads, is_degraded), **launched}
+
+        # 2: filer.backup of a second directory into a local one (the
+        # command's own entry point), byte-equal; then an S3Sink of a third
+        # directory into a bucket of the port's S3 gateway, each object's
+        # md5 its file's
+        bdir, src = os.path.join(root, "backup"), f"/{coll}/{SYNC_DIRS[1]}"
+        backed = under(SYNC_DIRS[1])
+        with _timed_file_reads(FilerClient) as reads:
+            said, took, launched = counted(
+                "filer.backup", [f for p in backed for f in chunks_of[p]],
+                lambda: cli_out(["filer.backup", "-filerGrpc", fs.grpc_address, "-dir", bdir,
+                                 "-prefix", src]))
+        local_tree = {}
+        for d, _, names in os.walk(bdir):
+            for name in names:
+                local_tree[os.path.relpath(os.path.join(d, name), bdir)] = sha256_file(
+                    os.path.join(d, name))
+        check(local_tree == {p[len(src) + 1:]: digest[p] for p in backed},
+              f"the backup holds {len(local_tree)} files, the source {len(backed)}")
+        n_bytes = sum(sizes[p] for p in backed)
+        out["backup"] = {"prefix": src, "said": said.strip(), "files": len(backed),
+                         "bytes": n_bytes, "seconds": took, "files_per_s": len(backed) / took,
+                         "mb_per_s": n_bytes / took / 1e6,
+                         "reads": _read_classes(reads, is_degraded), **launched}
+
+        creds = ("syncer", rng.bytes(15).hex())
+        s3 = S3ApiServer(fs.url, fs.grpc_address, iam=Iam([Identity("syncer", *creds)]))
+        s3.start()
+        started.append(s3)
+        sconn = connection(s3.port)
+        status, _, body = _s3_request(sconn, s3.url, creds, "PUT", f"/{SYNC_BUCKET}")
+        check(status == 200, f"CreateBucket {SYNC_BUCKET}: {status} {body[:200]!r}")
+        src = f"/{coll}/{SYNC_DIRS[2]}"
+        objects = under(SYNC_DIRS[2])
+        rep = Replicator(fs.grpc_address, S3Sink(s3.url, SYNC_BUCKET, *creds), prefix=src,
+                         sink_id=f"s3.{SYNC_BUCKET}")
+        try:
+            with _timed_file_reads(FilerClient) as reads:
+                n_events, took, launched = counted(
+                    "the S3 sink", [f for p in objects for f in chunks_of[p]],
+                    lambda: rep.run_once(max_idle_s=0.5))
+        finally:
+            rep.close()
+        for p in objects:
+            status, h, body = _s3_request(sconn, s3.url, creds, "GET",
+                                          f"/{SYNC_BUCKET}/{p[len(src) + 1:]}")
+            check(status == 200 and h.get("etag") == f'"{hashlib.md5(body).hexdigest()}"'
+                  and hashlib.sha256(body).hexdigest() == digest[p], f"object of {p}")
+        in_bucket = [e for e in fs.filer.walk(f"/buckets/{SYNC_BUCKET}") if not e.is_directory]
+        check(len(in_bucket) == len(objects), f"{len(in_bucket)} objects for {len(objects)} files")
+        n_bytes = sum(sizes[p] for p in objects)
+        out["s3_sink"] = {"prefix": src, "bucket": SYNC_BUCKET, "events": n_events,
+                          "objects": len(objects), "bytes": n_bytes, "seconds": took,
+                          "files_per_s": len(objects) / took, "mb_per_s": n_bytes / took / 1e6,
+                          "reads": _read_classes(reads, is_degraded), **launched}
+
+        # 3: filer.copy of a seeded local tree, read back byte-equal; then
+        # filer.meta.tail over the phase's events: one JSON line per event
+        csrc = os.path.join(root, "copysrc")
+        copied = {}
+        for i in range(SYNC_COPY_FILES):
+            rel = f"c{i % 4}/f{i:02d}.bin"
+            os.makedirs(os.path.join(csrc, f"c{i % 4}"), exist_ok=True)
+            data = _filer_data(seed * 100_000 + 65_000 + i, int(rng.integers(1 << 10, 256 << 10)))
+            with open(os.path.join(csrc, rel), "wb") as f:
+                f.write(data)
+            copied[rel] = data
+        said, took, launched = counted("filer.copy", [], lambda: cli_out(
+            ["filer.copy", "-filer", fs.url, csrc, "/copied/"]))
+        check(f"{SYNC_COPY_FILES} copied, 0 failed" in said, f"filer.copy: {said[-300:]}")
+        conn = connection(fs.port)
+        for rel, data in copied.items():
+            check(_filer_get(conn, f"/copied/copysrc/{rel}") == (200, data), f"copied {rel}")
+        out["copy"] = {"files": SYNC_COPY_FILES, "bytes": sum(map(len, copied.values())),
+                       "seconds": took, "said": said.strip().splitlines()[-1], **launched}
+        tail = cli_out(["filer.meta.tail", "-filerGrpc", fs.grpc_address, "-sinceNs",
+                        str(phase_ns), "-maxIdleSeconds", "0.5"]).splitlines()
+        with FilerClient(fs.grpc_address) as fc:
+            events = list(fc.subscribe(since_ns=phase_ns, path_prefix="/", max_idle_s=0.5))
+        check(len(tail) == len(events) and [json.loads(line)["ts_ns"] for line in tail]
+              == [ev.ts_ns for ev in events], f"filer.meta.tail printed {len(tail)} lines "
+              f"for {len(events)} events")
+        out["meta_tail"] = {"lines": len(tail), "events": len(events)}
+
+        # 4: a mount (WFS, its chunk cache off): degraded files read whole
+        # and seeded 64 KiB ranges, byte-equal; then a file written by
+        # seeded random writes with auto-flush, truncated, renamed, read back
+        w = WFS(fs.grpc_address, chunk_cache_bytes=0)
+        mounts.append(w)
+        order = sorted(sizes)
+        order = [order[int(i)] for i in rng.permutation(len(order))]
+        whole = [p for p in order if is_degraded(p)][:mount_files]
+        check(len(whole) == mount_files, f"only {len(whole)} degraded files")
+        ms_whole = []
+
+        def read_whole():
+            for p in whole:
+                t1 = time.perf_counter()
+                fh = w.open(p)
+                data = fh.read(0, fh.size)
+                fh.release()
+                ms_whole.append((p, (time.perf_counter() - t1) * 1e3))
+                check(len(data) == sizes[p] and hashlib.sha256(data).hexdigest() == digest[p],
+                      f"the mount's read of {p}")
+
+        _, took_whole, launched_whole = counted(
+            "the mount's whole reads", [f for p in whole for f in chunks_of[p]], read_whole)
+        big = [p for p in order if sizes[p] > SYNC_MOUNT_RANGE]
+        picks = [(big[int(i)], 0) for i in rng.integers(0, len(big), mount_ranges)]
+        picks = [(p, int(rng.integers(0, sizes[p] - SYNC_MOUNT_RANGE + 1))) for p, _ in picks]
+        range_fids, ms_ranges = [], []
+        for p, lo in picks:
+            c0, c1 = lo // (4 << 20), (lo + SYNC_MOUNT_RANGE - 1) // (4 << 20)
+            range_fids += chunks_of[p][c0: c1 + 1]
+
+        def read_ranges():
+            for p, lo in picks:
+                t1 = time.perf_counter()
+                fh = w.open(p)
+                data = fh.read(lo, SYNC_MOUNT_RANGE)
+                fh.release()
+                ms_ranges.append((p, (time.perf_counter() - t1) * 1e3))
+                want = _filer_data(seed_of[p], sizes[p])[lo: lo + SYNC_MOUNT_RANGE]
+                check(data == want, f"the mount's range {lo} of {p}")
+
+        _, took_ranges, launched_ranges = counted("the mount's ranges", range_fids, read_ranges)
+
+        def write_back() -> dict:
+            model = bytearray(mount_bytes)
+            piece = 1 << 20
+            fh = w.create("/mnt/big.bin")
+            for i in rng.permutation(mount_bytes // piece):
+                data = rng.bytes(piece)
+                fh.write(int(i) * piece, data)
+                model[int(i) * piece: (int(i) + 1) * piece] = data
+            for _ in range(64):
+                off = int(rng.integers(0, mount_bytes - 1))
+                data = rng.bytes(min(int(rng.integers(1, 256 << 10)), mount_bytes - off))
+                fh.write(off, data)
+                model[off: off + len(data)] = data
+            fh.flush()
+            cut = int(rng.integers(mount_bytes // 2, mount_bytes))
+            fh.truncate(cut)
+            fh.flush()
+            fh.release()
+            w.rename("/mnt/big.bin", "/mnt/big-renamed.bin")
+            check(w.getattr("/mnt/big.bin") is None, "the renamed file is still there")
+            check(w.getattr("/mnt/big-renamed.bin").size == cut, "the truncated size")
+            fh = w.open("/mnt/big-renamed.bin")
+            data = fh.read(0, fh.size)
+            fh.release()
+            check(data == bytes(model[:cut]), "the mount's written file reads back differently")
+            chunks = len(fs.filer.find_entry("/mnt/big-renamed.bin").chunks)
+            return {"bytes": mount_bytes, "truncated_to": cut, "chunks": chunks}
+
+        written, took_write, launched_write = counted("the mount's write", [], write_back)
+        out["mount"] = {
+            "whole": {"files": len(whole), "seconds": took_whole, **_read_classes(
+                ms_whole, is_degraded)["degraded"], **launched_whole},
+            "ranges": {"reads": len(picks), "bytes": SYNC_MOUNT_RANGE, "seconds": took_ranges,
+                       "by_class": _read_classes(ms_ranges, is_degraded), **launched_ranges},
+            "write": {**written, "seconds": took_write, "auto_flush_bytes": w.auto_flush_bytes,
+                      **launched_write}}
+
+        # 5: mq: /topics/ routed to a collection of its own, the mq.broker
+        # command's Broker, a topic of 4 partitions; seeded 1 KiB records
+        # from 4 publishers, flushed; the collection EC-encoded with shards 0
+        # and 5 lost; the broker restarted; a consumer group of two reads
+        # every record from the start and commits
+        rule = shell(f"fs.configure -locationPrefix /topics/ -collection {SYNC_MQ_COLLECTION} "
+                     "-apply", filer=fs)
+        grown = master._rpc_volume_grow({"collection": SYNC_MQ_COLLECTION, "count": 1}, None)
+        check(grown["grown"] == 1, f"volume grow {SYNC_MQ_COLLECTION}: {grown}")
+        broker = Broker(fs.url, fs.grpc_address)
+        broker.start()
+        started.append(broker)
+        _cluster_wait(lambda: any(b["grpc_address"] == broker.address for b in
+                                  master._rpc_list_cluster_nodes({}, None)["brokers"]),
+                      "the broker to announce itself")
+        brokers = shell("mq.broker.list")
+        made = shell(f"mq.topic.configure -topic {SYNC_MQ_TOPIC} -partitions {SYNC_MQ_PARTITIONS}")
+        check(f"default/{SYNC_MQ_TOPIC} -> {SYNC_MQ_PARTITIONS} partitions" in made,
+              f"mq.topic.configure: {made}")
+        keys = [rng.bytes(16) for _ in range(mq_records)]
+        values = [rng.bytes(SYNC_MQ_RECORD) for _ in range(mq_records)]
+
+        def publish(t: int) -> list:
+            with BrokerClient(broker.address) as c:
+                return [(i, c.publish(SYNC_MQ_TOPIC, keys[i], values[i]))
+                        for i in range(t, mq_records, SYNC_MQ_PUBLISHERS)]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SYNC_MQ_PUBLISHERS) as pool:
+            placed = {i: (r["partition"], r["ts_ns"]) for part in pool.map(
+                publish, range(SYNC_MQ_PUBLISHERS)) for i, r in part}
+        publish_s = time.perf_counter() - t0
+        check(all(placed[i][0] == int.from_bytes(hashlib.md5(keys[i]).digest()[:4], "big")
+                  % SYNC_MQ_PARTITIONS for i in placed), "a record off its key's partition")
+        t0 = time.perf_counter()
+        broker.stop()  # the live tails flush to segments on the filer
+        started.remove(broker)
+        flush_s = time.perf_counter() - t0
+        segments = {}
+        for part in range(SYNC_MQ_PARTITIONS):
+            for e in fs.filer.list_entries(f"/topics/default/{SYNC_MQ_TOPIC}/{part:04d}"):
+                check(e.name.endswith(".seg") and e.attributes.collection == SYNC_MQ_COLLECTION,
+                      f"segment {e.path} in collection {e.attributes.collection!r}")
+                segments[e.path] = [c.fid for c in e.chunks]
+        vids = {v for n in master.topology.nodes.values()
+                for v, vi in n.volumes.items() if vi.collection == SYNC_MQ_COLLECTION}
+        check({int(f.split(",")[0]) for cs in segments.values() for f in cs} == vids,
+              f"the segments lie outside the collection's volumes {sorted(vids)}")
+        t0 = time.perf_counter()
+        text = shell(f"lock; ec.encode -collection {SYNC_MQ_COLLECTION} -force; unlock")
+        enc_s = time.perf_counter() - t0
+        check(all(f"ec.encode volume {v}" in text for v in vids), f"ec.encode: {text}")
+        _cluster_wait(lambda: all(len(master.topology.lookup_ec_shards(v)) == 14 for v in vids)
+                      and not any(master.topology.lookup(v, SYNC_MQ_COLLECTION) for v in vids),
+                      "every volume of the topics' collection EC-encoded")
+        for vid in vids:
+            for vs in servers:
+                ev = vs.store.get_ec_volume(vid)
+                mine = [sh for sh in sorted(lost) if ev is not None and sh in ev.shard_ids]
+                if mine:
+                    with rpc.RpcClient(vs.grpc_address) as c:
+                        c.call(VOLUME_SERVICE, "VolumeEcShardsDelete",
+                               {"volume_id": vid, "collection": SYNC_MQ_COLLECTION,
+                                "shard_ids": mine}, timeout=600)
+        _cluster_wait(lambda: all(len([sh for sh, ns in master.topology.lookup_ec_shards(v).items()
+                                       if ns]) == 12 for v in vids),
+                      "the master to list 12 shards of every topics volume")
+        for vs in servers:  # the mounts' warm-up launches, before the reads count theirs
+            for vid in vids:
+                ev = vs.store.get_ec_volume(vid)
+                if ev is not None and ev.warm_thread is not None:
+                    ev.warm_thread.join()
+        shards.update(_filer_chunk_shards(servers, vids, segments, SYNC_MQ_COLLECTION))
+        broker = Broker(fs.url, fs.grpc_address)
+        broker.start()
+        started.append(broker)
+        group = "readers"
+        with BrokerClient(broker.address) as c:
+            for cid in ("c0", "c1"):  # both members before either reads: one split
+                joined = c.join_group(SYNC_MQ_TOPIC, group, cid)
+        check(len(joined["partitions"]) == SYNC_MQ_PARTITIONS // 2, f"the split: {joined}")
+
+        def consume(cid: str) -> list:
+            got = []
+            with BrokerClient(broker.address) as c:
+                for part, rec in c.consume(SYNC_MQ_TOPIC, group, cid, max_rounds=1,
+                                           commit_every=SYNC_MQ_COMMIT_EVERY):
+                    got.append((part, rec.ts_ns, rec.key, rec.value))
+            return got
+
+        def consume_all() -> list:
+            with ThreadPoolExecutor(2) as pool:
+                return list(pool.map(consume, ("c0", "c1")))
+
+        with _timed_file_reads(FilerClient) as reads:
+            got, consume_s, launched = counted(
+                "the consumer group", [f for cs in segments.values() for f in cs], consume_all)
+        received = [r for part in got for r in part]
+        check(sorted((k, v) for _, _, k, v in received) == sorted(zip(keys, values)),
+              f"{len(received)} records received for {mq_records} published")
+        last = {}
+        for part, ts, _, _ in received:
+            check(ts > last.get(part, 0), f"partition {part} out of ts_ns order")
+            last[part] = ts
+        by_part = {}
+        for part, ts in placed.values():
+            by_part[part] = max(by_part.get(part, 0), ts)
+        index = {k: i for i, k in enumerate(keys)}
+        check(len(index) == mq_records and all(
+            placed[index[k]] == (part, ts) for part, ts, k, _ in received),
+            "a record came back off the partition or stamp it was published with")
+        with BrokerClient(broker.address) as c:
+            committed = {p: c.fetch_offset(SYNC_MQ_TOPIC, group, p)
+                         for p in range(SYNC_MQ_PARTITIONS)}
+        check(committed == by_part, f"committed {committed}, last {by_part}")
+        check(not on_card or launched["predicted_1x10"] > 0, "no segment read was degraded")
+        out["mq"] = {"rule": rule.strip(), "brokers": brokers.strip().splitlines()[-1],
+                     "records": mq_records, "record_bytes": SYNC_MQ_RECORD,
+                     "partitions": SYNC_MQ_PARTITIONS, "publishers": SYNC_MQ_PUBLISHERS,
+                     "publish_s": publish_s, "publish_per_s": mq_records / publish_s,
+                     "flush_s": flush_s, "segments": len(segments),
+                     "segment_bytes": sum(fs.filer.find_entry(p).size for p in segments),
+                     "encode_s": enc_s, "volumes": len(vids), "consumers": 2,
+                     "consume_s": consume_s, "consume_per_s": mq_records / consume_s,
+                     "per_partition": {str(p): sum(1 for q, *_ in received if q == p)
+                                       for p in range(SYNC_MQ_PARTITIONS)},
+                     "segment_reads": _read_classes(reads, lambda p: any(
+                         shards.get(f, set()) & lost for f in segments.get(p, ()))),
+                     **launched}
+    finally:
+        _put_env(saved)
+        fs.chunk_io.cache = chunk_cache
+        c = getattr(local, "c", None)
+        if c is not None:
+            c.close()
+        for c in conns:
+            c.close()
+        for w in mounts:
+            w.close()
+        for env in envs:
+            env.close()
+        for srv in reversed(started):
+            srv.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    by_shape = dict(rs_cuda.launches_by_shape)
+    out["launches_by_shape"] = _shape_keys(by_shape)
+    out["launches"] = dict(rs_cuda.launches_by_variant)
+    out["busy"] = _busy(by_shape, kernel_ms, out["seconds"])
+    check(all(c == 10 for _, c in by_shape) and (by_shape.get((1, 10), 0) > 0 if on_card
+                                                  else not by_shape),
+          f"the sync path launched {by_shape}")
     return out
 
 
@@ -4470,15 +5114,20 @@ def main(argv=None) -> int:
                      (2, 10): int8["fleet_rebuild2"], (1, 10): int8["degraded1m"]}
         shutil.rmtree(SCRATCH)  # the filer phase starts on an empty directory
         os.makedirs(SCRATCH)
-        # the s3 phase runs on the filer phase's cluster before it stops, and
-        # counts its own launches (reset inside, read after)
+        # the s3 and sync phases run on the filer phase's cluster before it
+        # stops, in turn, and each counts its own launches (reset inside,
+        # read after)
         slice_lines["filer"] = run_filer(
             SCRATCH, args.seed, card, kernel_ms,
-            then=lambda master, servers, fs: run_s3(os.path.join(SCRATCH, "s3"), master, servers,
-                                                    fs, args.seed, card, kernel_ms))
-        slice_lines["s3"] = slice_lines["filer"].pop("_then")
+            then=lambda master, servers, fs, tree: (
+                run_s3(os.path.join(SCRATCH, "s3"), master, servers, fs, args.seed, card,
+                       kernel_ms),
+                run_sync(os.path.join(SCRATCH, "sync"), master, servers, fs, tree, args.seed,
+                         card, kernel_ms)))
+        slice_lines["s3"], slice_lines["sync"] = slice_lines["filer"].pop("_then")
         emit({"phase": "filer", **slice_lines["filer"]})
         emit({"phase": "s3", **slice_lines["s3"]})
+        emit({"phase": "sync", **slice_lines["sync"]})
         shutil.rmtree(SCRATCH)  # the storm starts on an empty directory
         os.makedirs(SCRATCH)
         slice_lines["shell"], slice_lines["fleet"] = run_storm(SCRATCH, args.seed, card,

@@ -1,6 +1,8 @@
 """`python -m seaweedfs_tpu_torch <command>`: the local volume commands, the
-servers (`version`, `master`, `volume`, `server`, `filer`), the operator
-`shell`, and the cluster clients `benchmark`, `upload` and `download`."""
+servers (`version`, `master`, `volume`, `server`, `filer`, `s3`, `webdav`,
+`iam`, `mq.broker`), `mount`, the operator `shell`, the filer clients
+(`filer.sync`, `filer.backup`, `filer.meta.tail`, `filer.copy`) and the
+cluster clients `benchmark`, `upload` and `download`."""
 
 from __future__ import annotations
 

@@ -132,6 +132,11 @@ class VolumeServer:
         self.max_volume_count = max_volume_count
         self._hb_interval = heartbeat_interval
         self._stop = threading.Event()
+        # heartbeats in flight, by sequence number: VolumeCreate answers only
+        # once those that began before it have reached the masters
+        self._hb_cv = threading.Condition()
+        self._hb_seq = 0
+        self._hb_in_flight: set[int] = set()
 
         self._grpc = rpc.RpcServer(port=grpc_port, host=host)
         self._grpc.add_service(self._build_service())
@@ -368,7 +373,28 @@ class VolumeServer:
     def heartbeat_once(self) -> None:
         if self._stop.is_set():  # left the cluster: never re-register
             return
-        self._masters_fanout("Heartbeat", self._make_heartbeat().to_dict(), timeout=10)
+        with self._hb_cv:  # numbered before its snapshot is taken
+            self._hb_seq += 1
+            seq = self._hb_seq
+            self._hb_in_flight.add(seq)
+        try:
+            self._masters_fanout("Heartbeat", self._make_heartbeat().to_dict(), timeout=10)
+        finally:
+            with self._hb_cv:
+                self._hb_in_flight.discard(seq)
+                self._hb_cv.notify_all()
+
+    def _await_earlier_heartbeats(self, timeout: float = 15.0) -> None:
+        """Return once every heartbeat that began before this call has
+        reached the masters (or `timeout` passed). A heartbeat is a full
+        snapshot of the volumes: one taken before a VolumeCreate and
+        ingested after the master registered the new volume would drop it
+        again, and the assign that grew it would hand out a volume with no
+        location (the reference's master then answers lookups empty)."""
+        with self._hb_cv:
+            mark = self._hb_seq
+            self._hb_cv.wait_for(lambda: not any(s <= mark for s in self._hb_in_flight),
+                                 timeout=timeout)
 
     def _master_query(self, method: str, req: dict, timeout: float = 5.0) -> dict:
         """Read query against any reachable master (soft state is on all)."""
@@ -1075,6 +1101,8 @@ class VolumeServer:
             replication=req.get("replication") or "000",
             ttl=req.get("ttl", ""),
         )
+        # the master registers the volume when this returns
+        self._await_earlier_heartbeats()
         return {}
 
     def _rpc_volume_delete(self, req: dict, ctx) -> dict:

@@ -1,18 +1,20 @@
 """Process-level commands — version, master, volume, server, filer, s3,
-webdav, iam and shell, mirroring weed/command/{master,volume,server,filer,
-s3,webdav,iam,shell}.go. `server` runs a master and a volume server in one
-process, as `weed server` does (`-filer` adds a filer, `-s3` and
-`-webdav` a filer and that gateway); `filer` runs the namespace server
-alone against a master; `s3`, `webdav` and `iam` run a gateway alone
-against a filer; `shell` is the operator shell (REPL, or `-c` for a
-`;`-separated script). The volume server's EC work, and what the shell
-builds locally, runs on the card (`--device`, default cuda); `--device
-cpu` gives the plain version. The filer and the gateways run no kernel,
-so their commands take no `--device` and never touch the card. `master
--peers a,b,c -raftDir D` joins a raft quorum; `scaffold` prints a
-commented TOML template. The transport (and so grpc) is imported only
-when a server or shell command runs, so the local commands that share the
-registry need none of it."""
+webdav, iam, mount, mq.broker and shell, mirroring weed/command/{master,
+volume,server,filer,s3,webdav,iam,mount,mq_broker,shell}.go. `server` runs
+a master and a volume server in one process, as `weed server` does
+(`-filer` adds a filer, `-s3` and `-webdav` a filer and that gateway);
+`filer` runs the namespace server alone against a master; `s3`, `webdav`
+and `iam` run a gateway alone against a filer; `mq.broker` runs a topic
+broker on a filer; `mount` serves a filer through kernel FUSE where a
+fusepy module is importable; `shell` is the operator shell (REPL, or `-c`
+for a `;`-separated script). The volume server's EC work, and what the
+shell builds locally, runs on the card (`--device`, default cuda);
+`--device cpu` gives the plain version. The filer, the gateways, the mount
+and the broker run no kernel, so their commands take no `--device` and
+never touch the card. `master -peers a,b,c -raftDir D` joins a raft
+quorum; `scaffold` prints a commented TOML template. The transport (and so
+grpc) is imported only when a server or shell command runs, so the local
+commands that share the registry need none of it."""
 
 from __future__ import annotations
 
@@ -444,6 +446,57 @@ def _iam_run(args: argparse.Namespace) -> int:
 
 
 register(Command("iam", "run an AWS-IAM-compatible identity API", _iam_conf, _iam_run))
+
+
+def _mount_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-filerGrpc", default="", help="filer grpc host:port")
+    p.add_argument("-dir", default="", help="mountpoint directory")
+
+
+def _mount_run(args: argparse.Namespace) -> int:
+    from seaweedfs_tpu_torch.mount.fuse_adapter import fuse_available, mount_and_serve
+
+    if not args.filerGrpc or not args.dir:
+        raise SystemExit("-filerGrpc and -dir are required")
+    if not fuse_available():
+        print(
+            "kernel FUSE unavailable (no fusepy//dev/fuse); use the WFS API "
+            "(seaweedfs_tpu_torch.mount.WFS) for in-process access",
+            file=sys.stderr,
+        )
+        return 2
+    _security()
+    mount_and_serve(args.filerGrpc, args.dir)
+    return 0
+
+
+register(Command("mount", "mount the filer as a FUSE filesystem", _mount_conf, _mount_run))
+
+
+def _mq_conf(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-port", type=int, default=17777)
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-filerGrpc", default="")
+
+
+def _mq_run(args: argparse.Namespace) -> int:
+    from seaweedfs_tpu_torch.mq import Broker
+
+    if not args.filerGrpc:
+        raise SystemExit("-filerGrpc is required")
+    _security()
+    b = Broker(args.filer, args.filerGrpc, port=args.port, host=args.ip)
+    b.start()
+    print(f"mq broker on {b.address} -> filer {args.filer}", flush=True)
+    try:
+        _wait_forever()
+    finally:
+        b.stop()
+    return 0
+
+
+register(Command("mq.broker", "run a message-queue broker on the filer", _mq_conf, _mq_run))
 
 
 def _shell_conf(p: argparse.ArgumentParser) -> None:

@@ -10,9 +10,7 @@ Each command is a `ShellCommand(name, help, do)` where
 
 The fs.* and s3.* commands reach the filer through
 `CommandEnv.filer_client()`, a FilerClient for the first filer the master
-lists. The mq.* commands stand on the message queue, which this package
-does not have yet (ROADMAP Queue 1 item 3(g)): `commands()` registers the
-cluster, ec.*, volume.*, fs.* and s3.* families.
+lists; the mq.* commands reach the first broker the master lists.
 """
 
 from __future__ import annotations
@@ -56,6 +54,7 @@ def commands() -> dict[str, ShellCommand]:
     from seaweedfs_tpu_torch.shell import command_cluster  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_ec  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_fs  # noqa: F401
+    from seaweedfs_tpu_torch.shell import command_mq  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_s3  # noqa: F401
     from seaweedfs_tpu_torch.shell import command_volume  # noqa: F401
 

@@ -1928,3 +1928,288 @@ def test_the_filer_command_opens_no_context_on_the_card(card, tmp_path):
         proc.stdout.close()
         vs.stop()
         master.stop()
+
+
+def _ec_encode_and_lose(master, vs, vids, collection: str = "") -> None:
+    """The port shell EC-encodes `vids` (64 KiB large and 16 KiB small
+    blocks, so every shard holds data), then data shards 0 and 5 are lost."""
+    import io
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import VOLUME_SERVICE
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_script
+
+    _wait(lambda: all(master.topology.lookup(v, collection) for v in vids))
+    with CommandEnv(master.address) as env:
+        out = io.StringIO()
+        run_script(env, "lock; " + "; ".join(
+            f"ec.encode -volumeId {v} -collection {collection} -force -largeBlockSize 65536 "
+            f"-smallBlockSize 16384" if collection else
+            f"ec.encode -volumeId {v} -force -largeBlockSize 65536 -smallBlockSize 16384"
+            for v in sorted(vids)) + "; unlock", out)
+    for v in vids:
+        assert vs.store.get_ec_volume(v) is not None, out.getvalue()
+        with rpc.RpcClient(vs.grpc_address) as c:
+            c.call(VOLUME_SERVICE, "VolumeEcShardsDelete",
+                   {"volume_id": v, "collection": collection, "shard_ids": [0, 5]})
+    _wait(lambda: all(len([s for s, ns in master.topology.lookup_ec_shards(v).items() if ns])
+                      == 12 for v in vids))
+    for v in vids:  # the mounts' warm-up launches, before a test counts its own
+        ev = vs.store.get_ec_volume(v)
+        if ev.warm_thread is not None:
+            ev.warm_thread.join()
+
+
+def _predicted_1x10(vs, fids, collection: str = "") -> int:
+    """One (1, 10) launch per lost shard (0, 5) a needle's intervals lie on,
+    for each read of `fids`, from the .ecx, the .eci and `ec.locate`."""
+    from seaweedfs_tpu_torch.ec import locate
+    from seaweedfs_tpu_torch.storage import idx, types
+
+    total = 0
+    for fid in fids:
+        vid, rest = fid.split(",")
+        nid = int(rest[:-8], 16)
+        base = vs._base_path_for(int(vid), collection)
+        info = stripe.read_ec_info(base)
+        with open(base + ".ecx", "rb") as f:
+            index = idx.index_entries_array(f.read())
+        pos = int(np.searchsorted(index["key"], np.uint64(nid)))
+        assert int(index["key"][pos]) == nid, fid
+        ivs = locate.locate_data(info["large_block_size"], info["small_block_size"],
+                                 info["dat_size"],
+                                 types.offset_to_actual(int(index["offset"][pos])),
+                                 types.actual_size(int(index["size"][pos])), 10)
+        total += len({iv.to_shard_id_and_offset(info["large_block_size"],
+                                                info["small_block_size"])[0]
+                      for iv in ivs} & {0, 5})
+    return total
+
+
+@pytest.fixture
+def degraded_filer(card, tmp_path, monkeypatch):
+    """A master, one card volume server and a filer (chunk cache off, 256
+    KiB chunks) holding 40 seeded files under /card, their volumes
+    EC-encoded with data shards 0 and 5 lost; server caches cleared and
+    off, hedging off. Yields (master, vs, fs, {path: bytes}, {path: fids})."""
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.filer import FilerServer
+
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], master.address, heartbeat_interval=0.3,
+                      max_volume_count=32, encoder=rs_codec.new_encoder())
+    vs.start()
+    fs = FilerServer(master.address, chunk_size=256 << 10, chunk_cache_bytes=0)
+    fs.start()
+    try:
+        rng = np.random.default_rng(41)
+        files = {f"/card/d{i % 4}/f{i:02d}.bin": rng.bytes(int(rng.integers(1000, 900_000)))
+                 for i in range(40)}
+        for path, data in files.items():
+            assert _filer_put_get(fs.url, path, data)[0] == 201
+        fids = {p: [c.fid for c in fs.filer.find_entry(p).chunks] for p in files}
+        _ec_encode_and_lose(master, vs, {int(f.split(",")[0]) for fs_ in fids.values()
+                                         for f in fs_})
+        monkeypatch.setenv("WEEDTPU_READ_CACHE_MB", "0")
+        monkeypatch.setenv("WEEDTPU_HEDGE_READS", "off")
+        read_planner.CACHE.clear()
+        yield master, vs, fs, files, fids
+    finally:
+        fs.stop()
+        vs.stop()
+        master.stop()
+
+
+def test_card_sync_backup_to_a_local_sink_is_byte_equal_with_predicted_launches(
+        degraded_filer, tmp_path):
+    """`filer.backup`'s path (a Replicator into a LocalSink) over the
+    degraded files: the sink tree is byte-equal, and the (1, 10) launches
+    equal the .ecx prediction for one read of every file."""
+    from seaweedfs_tpu_torch.replication import LocalSink, Replicator
+
+    master, vs, fs, files, fids = degraded_filer
+    rs_cuda.reset_launches()
+    rep = Replicator(fs.grpc_address, LocalSink(str(tmp_path / "backup")), prefix="/card")
+    try:
+        assert rep.run_once(max_idle_s=0.5) == len(files) + 4  # the files and 4 directories
+    finally:
+        rep.close()
+    for path, data in files.items():
+        assert (tmp_path / "backup" / path[len("/card/"):]).read_bytes() == data, path
+    pred = _predicted_1x10(vs, [f for fs_ in fids.values() for f in fs_])
+    assert pred > 0 and dict(rs_cuda.launches_by_shape) == {(1, 10): pred}
+
+
+def test_card_mount_reads_degraded_files_byte_equal(degraded_filer):
+    """A mount (WFS, its chunk cache off) over the degraded files: each
+    read whole and at a seeded range is byte-equal, the launches the .ecx
+    prediction's."""
+    from seaweedfs_tpu_torch.mount import WFS
+
+    master, vs, fs, files, fids = degraded_filer
+    rng = np.random.default_rng(43)
+    rs_cuda.reset_launches()
+    with WFS(fs.grpc_address, chunk_cache_bytes=0) as w:
+        for path, data in files.items():
+            fh = w.open(path)
+            assert fh.size == len(data) and fh.read(0, fh.size) == data, path
+            lo = int(rng.integers(0, len(data)))
+            assert fh.read(lo, 70_000) == data[lo: lo + 70_000], (path, lo)
+            fh.release()
+    chunk = 256 << 10
+    ranged = []
+    rng = np.random.default_rng(43)
+    for path, data in files.items():
+        lo = int(rng.integers(0, len(data)))
+        hi = min(lo + 70_000, len(data))
+        ranged += fids[path][lo // chunk: (hi - 1) // chunk + 1]
+    pred = _predicted_1x10(vs, [f for fs_ in fids.values() for f in fs_] + ranged)
+    assert pred > 0 and dict(rs_cuda.launches_by_shape) == {(1, 10): pred}
+
+
+def test_card_mq_consumer_reads_ec_encoded_segments(card, tmp_path, monkeypatch):
+    """A broker on a filer whose /topics/ collection lies on a card volume
+    server: seeded records published, the broker stopped (its segments
+    flushed), the collection EC-encoded with data shards 0 and 5 lost, a
+    broker started again; a consumer group reads every record back in
+    order from the degraded segments, with the .ecx's (1, 10) launches."""
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.ec import read_planner
+    from seaweedfs_tpu_torch.filer import FilerServer
+    from seaweedfs_tpu_torch.filer.client import FilerClient
+    from seaweedfs_tpu_torch.mq import Broker, BrokerClient
+
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], master.address, heartbeat_interval=0.3,
+                      max_volume_count=32, encoder=rs_codec.new_encoder())
+    vs.start()
+    fs = FilerServer(master.address, chunk_size=256 << 10, chunk_cache_bytes=0)
+    fs.start()
+    brokers = []
+    try:
+        with FilerClient(fs.grpc_address) as fc:
+            fc.set_filer_conf("/topics/", collection="cardmq")
+        b = Broker(fs.url, fs.grpc_address)
+        b.start()
+        brokers.append(b)
+        rng = np.random.default_rng(47)
+        records = [(rng.bytes(8), rng.bytes(int(rng.integers(100, 3000)))) for _ in range(400)]
+        placed = {}
+        with BrokerClient(b.address) as c:
+            c.configure_topic("cardtopic", partition_count=2)
+            for key, value in records:
+                placed.setdefault(c.publish("cardtopic", key, value)["partition"], []).append(
+                    (key, value))
+        b.stop()
+        brokers.remove(b)
+        segs = {e.path: [ch.fid for ch in e.chunks] for p in range(2)
+                for e in fs.filer.list_entries(f"/topics/default/cardtopic/{p:04d}")}
+        vids = {int(f.split(",")[0]) for fl in segs.values() for f in fl}
+        _ec_encode_and_lose(master, vs, vids, "cardmq")
+        monkeypatch.setenv("WEEDTPU_READ_CACHE_MB", "0")
+        monkeypatch.setenv("WEEDTPU_HEDGE_READS", "off")
+        read_planner.CACHE.clear()
+        b = Broker(fs.url, fs.grpc_address)
+        b.start()
+        brokers.append(b)
+        rs_cuda.reset_launches()
+        got = {}
+        with BrokerClient(b.address) as c:
+            for part, rec in c.consume("cardtopic", "g", "c0", max_rounds=1, commit_every=32):
+                got.setdefault(part, []).append((rec.key, rec.value))
+        assert got == placed
+        pred = _predicted_1x10(vs, [f for fl in segs.values() for f in fl], "cardmq")
+        assert pred > 0 and dict(rs_cuda.launches_by_shape) == {(1, 10): pred}
+    finally:
+        for b in brokers:
+            b.stop()
+        fs.stop()
+        vs.stop()
+        master.stop()
+
+
+@pytest.mark.parametrize("command", ["mq.broker", "filer.sync"])
+def test_the_mq_broker_and_filer_sync_commands_open_no_context_on_the_card(card, tmp_path,
+                                                                          command):
+    """`python -m seaweedfs_tpu_torch mq.broker` and `filer.sync` (neither
+    takes --device) as processes of their own beside a card volume server
+    and a filer: records published through the broker and read back, files
+    synced into a second filer; `nvidia-smi` lists no context for them
+    while they serve (contexts are counted)."""
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.filer import FilerServer
+    from seaweedfs_tpu_torch.mq import BrokerClient
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.zeros(1, device=card)  # this process's own context, listed before
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], master.address, heartbeat_interval=0.3,
+                      encoder=rs_codec.new_encoder())
+    vs.start()
+    fs = FilerServer(master.address, chunk_cache_bytes=0)
+    fs.start()
+    fs2 = FilerServer(master.address, chunk_cache_bytes=0)
+    fs2.start()
+    before = _contexts()
+    sk = socket.socket()
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+    sk.close()
+    argv = (["mq.broker", "-port", str(port), "-filer", fs.url, "-filerGrpc", fs.grpc_address]
+            if command == "mq.broker" else
+            ["filer.sync", "-from", fs.grpc_address, "-to", fs2.url, "-prefix", "/ctx",
+             "-targetPath", "/mirror"])
+    proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch", *argv],
+                            cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("mq broker on" if command == "mq.broker" else "filer.sync"), line
+        rng = np.random.default_rng(53)
+        if command == "mq.broker":
+            with BrokerClient(f"127.0.0.1:{port}") as c:
+                c.configure_topic("ctx", partition_count=1)
+                sent = [rng.bytes(512) for _ in range(32)]
+                for v in sent:
+                    c.publish("ctx", b"", v, partition=0)
+                assert [r.value for r in c.subscribe("ctx", max_idle_s=0.5)] == sent
+        else:
+            files = {f"/ctx/f{i}.bin": rng.bytes(int(rng.integers(1000, 300_000)))
+                     for i in range(8)}
+            for path, data in files.items():
+                assert _filer_put_get(fs.url, path, data)[0] == 201
+            deadline = time.monotonic() + 60
+            for path, data in files.items():
+                while not fs2.filer.exists("/mirror" + path[len("/ctx"):]):
+                    assert time.monotonic() < deadline, path
+                    time.sleep(0.1)
+                assert _filer_put_get(fs2.url, "/mirror" + path[len("/ctx"):]) == (200, data)
+        assert proc.poll() is None
+        assert _contexts() == before
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+        proc.stdout.close()
+        fs2.stop()
+        fs.stop()
+        vs.stop()
+        master.stop()

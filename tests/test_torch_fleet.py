@@ -364,6 +364,11 @@ def _scheduler_end_to_end(pkg, root, mp):
         victim.stop()  # LeaveCluster -> unregister -> on_ec_shrink kick
         wait_for(lambda: all(len(master.topology.lookup_ec_shards(v)) == 14 for v in layout),
                  timeout=60.0, msg="scheduler repaired both volumes")
+        # the registry can list a rebuilt shard (its holder's heartbeat)
+        # before the scheduler records the batch done: wait for both records
+        wait_for(lambda: {e["volume_id"] for e in master.repair.status()["events"]
+                          if e["state"] == "done"} >= set(layout),
+                 timeout=60.0, msg="scheduler recorded both repairs done")
         st = master.repair.status()
         events = sorted(st["events"], key=lambda e: e["seq"])
         dispatched = [(e["volume_id"], e["missing"]) for e in events

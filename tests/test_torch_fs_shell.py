@@ -2,14 +2,16 @@
 the master and its TTL enforcement against the reference's: a twin of each
 filer case of `tests/test_fs_shell.py` (`fs_commands_roundtrip`,
 `filer_ttl_expiry`, `fs_tree`, `fs_configure_rules`, `volume_fsck`, both
-`fs_configure_readonly_*`, `fs_cd_pwd_relative_paths`, `s3_bucket_commands`
-and `fs_meta_cat_and_s3_clean_uploads`), each running
+`fs_configure_readonly_*`, `fs_cd_pwd_relative_paths`, `s3_bucket_commands`,
+`fs_meta_cat_and_s3_clean_uploads`, `filer_meta_tail_cli` and
+`filer_copy_cli`), each running
 the reference case's steps and assertions on a stack of each package (a
 master, a volume server on the package's CPU encoder, a filer) and
 requiring the shell's output, the HTTP codes and the namespace to be equal
 (tolerance 0); and `fs.meta.save` across the packages: the dump of the
 same namespace is byte-equal, and a dump saved by either package loads
-into the other's filer and saves back to the same bytes.
+into the other's filer and saves back to the same bytes; and both
+packages' `filer.meta.tail` on one filer print identical lines.
 
 Stamps: the cluster twins compare the namespace with stamps and fids
 masked (`test_torch_filer.mask`; `fs.ls -l` prints a local time, masked
@@ -31,14 +33,18 @@ import pytest
 
 import seaweedfs_tpu.shell as ref_shell
 import seaweedfs_tpu_torch.shell as port_shell
+from seaweedfs_tpu.__main__ import main as ref_main
+from seaweedfs_tpu_torch.__main__ import main as port_main
 
 from test_torch_cluster import stop_all
 from test_torch_filer import PORT as PORT_FILER
 from test_torch_filer import REF as REF_FILER
 from test_torch_filer import mask, pin_clock
 
-REF = types.SimpleNamespace(name="ref", shell=ref_shell, f=REF_FILER, c=REF_FILER.cluster)
-PORT = types.SimpleNamespace(name="port", shell=port_shell, f=PORT_FILER, c=PORT_FILER.cluster)
+REF = types.SimpleNamespace(name="ref", shell=ref_shell, f=REF_FILER, c=REF_FILER.cluster,
+                            main=ref_main)
+PORT = types.SimpleNamespace(name="port", shell=port_shell, f=PORT_FILER, c=PORT_FILER.cluster,
+                             main=port_main)
 
 
 def _listed_filers(p, master) -> list:
@@ -397,6 +403,61 @@ def _fs_meta_cat_and_s3_clean_uploads(p, root, master, vs, fs):
 
 def test_fs_meta_cat_and_s3_clean_uploads(tmp_path):
     twin(_fs_meta_cat_and_s3_clean_uploads, tmp_path)
+
+
+def _filer_meta_tail_cli(p, root, master, vs, fs, capsys):
+    fs.write_file("/taildemo/a.txt", io.BytesIO(b"event me"))
+    capsys.readouterr()
+    rc = p.main(["filer.meta.tail", "-filerGrpc", fs.grpc_address, "-prefix", "/taildemo",
+                 "-maxIdleSeconds", "0.5"])
+    assert rc == 0
+    lines = [l for l in capsys.readouterr().out.splitlines() if l.startswith("{")]
+    assert any("/taildemo" == json.loads(l)["directory"] for l in lines), lines
+    return mask([json.loads(l) for l in lines])
+
+
+def test_filer_meta_tail_cli(tmp_path, capsys):
+    twin(_filer_meta_tail_cli, tmp_path, capsys=capsys)
+
+
+def _filer_copy_cli(p, root, master, vs, fs, capsys):
+    src = root / "copytree"
+    (src / "sub").mkdir(parents=True)
+    (src / "top.txt").write_bytes(b"root file")
+    (src / "sub" / "leaf.bin").write_bytes(b"x" * 2048)
+    capsys.readouterr()
+    rc = p.main(["filer.copy", "-filer", fs.url, str(src), "/copied/"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "2 copied, 0 failed" in out
+    assert fs.read_file(fs.filer.find_entry("/copied/copytree/top.txt")) == b"root file"
+    assert fs.read_file(fs.filer.find_entry("/copied/copytree/sub/leaf.bin")) == b"x" * 2048
+    return out.replace(str(root), "<root>"), _tree(fs)
+
+
+def test_filer_copy_cli(tmp_path, capsys):
+    twin(_filer_copy_cli, tmp_path, capsys=capsys)
+
+
+def test_both_packages_meta_tail_print_identical_lines(tmp_path, capsys):
+    """The reference's and the port's `filer.meta.tail` over one filer's
+    history (creates, an overwrite, a rename, a delete) print the same
+    lines, stamps included."""
+    with stack(PORT, tmp_path) as (master, vs, fs):
+        rng = random.Random(3)
+        for i in range(6):
+            fs.write_file(f"/tail/d{i % 2}/f{i}.bin", io.BytesIO(rng.randbytes(rng.randrange(1, 9000))))
+        fs.write_file("/tail/d0/f0.bin", io.BytesIO(b"again"))
+        fs.filer.rename("/tail/d1/f1.bin", "/tail/moved.bin")
+        fs.filer.delete_entry("/tail/d0/f2.bin")
+        out = {}
+        for p in (REF, PORT):
+            capsys.readouterr()
+            assert p.main(["filer.meta.tail", "-filerGrpc", fs.grpc_address, "-prefix", "/tail",
+                           "-maxIdleSeconds", "0.5"]) == 0
+            out[p.name] = capsys.readouterr().out.splitlines()
+    assert out["port"] == out["ref"]
+    assert len(out["port"]) == 11 and all(l.startswith("{") for l in out["port"])
 
 
 # -- fs.meta.save across the packages -------------------------------------------------------

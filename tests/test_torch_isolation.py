@@ -10,7 +10,11 @@ the tiering path (the remote vendors, the tier moves, the remote backend,
 the SigV4 signer) imports without them, and the master reaches raft only
 when it is given peers. The filer stands on the transport too (its
 package imports its server); its entries, rules and stores import no wire
-module themselves, and a filer server opens no CUDA context."""
+module themselves, and a filer server opens no CUDA context. So do the
+filer's clients (replication, the sync commands, the message-queue broker
+and the mount): they stand on the transport, their pure parts (the log
+buffer, the notification queues, the mount's dirty pages) import no wire
+module, and none of them opens a CUDA context."""
 
 import ast
 import json
@@ -74,7 +78,12 @@ def test_port_has_modules_for_every_layer():
                  "filer/filer.py", "filer/server.py", "filer/client.py",
                  "utils/chunk_cache.py", "shell/command_fs.py", "s3api/policy.py",
                  "s3api/server.py", "iamapi/__init__.py", "iamapi/server.py",
-                 "webdav/__init__.py", "webdav/server.py", "shell/command_s3.py"):
+                 "webdav/__init__.py", "webdav/server.py", "shell/command_s3.py",
+                 "utils/log_buffer.py", "notification/__init__.py",
+                 "replication/__init__.py", "replication/replicator.py",
+                 "replication/sinks.py", "command/sync.py", "mq/__init__.py",
+                 "mq/broker.py", "shell/command_mq.py", "mount/__init__.py",
+                 "mount/page_writer.py", "mount/wfs.py", "mount/fuse_adapter.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
@@ -126,19 +135,30 @@ SERVER_MODULES = ("seaweedfs_tpu_torch.cluster.client", "seaweedfs_tpu_torch.clu
                   "seaweedfs_tpu_torch.filer.server", "seaweedfs_tpu_torch.filer.client",
                   "seaweedfs_tpu_torch.s3api.server", "seaweedfs_tpu_torch.iamapi",
                   "seaweedfs_tpu_torch.iamapi.server", "seaweedfs_tpu_torch.webdav",
-                  "seaweedfs_tpu_torch.webdav.server", "seaweedfs_tpu_torch.shell.command_s3")
+                  "seaweedfs_tpu_torch.webdav.server", "seaweedfs_tpu_torch.shell.command_s3",
+                  "seaweedfs_tpu_torch.replication", "seaweedfs_tpu_torch.replication.replicator",
+                  "seaweedfs_tpu_torch.replication.sinks", "seaweedfs_tpu_torch.mq",
+                  "seaweedfs_tpu_torch.mq.broker", "seaweedfs_tpu_torch.shell.command_mq",
+                  "seaweedfs_tpu_torch.mount", "seaweedfs_tpu_torch.mount.wfs",
+                  "seaweedfs_tpu_torch.mount.fuse_adapter")
 #: the filer's entries, rules and stores: no wire module of their own (their
 #: package's `__init__` imports the server, so they import only with grpc)
 FILER_PLAIN_MODULES = ("seaweedfs_tpu_torch.filer.entry", "seaweedfs_tpu_torch.filer.filer_conf",
                        "seaweedfs_tpu_torch.filer.store", "seaweedfs_tpu_torch.filer.logstore",
                        "seaweedfs_tpu_torch.filer.bucketstore")
+#: the mount's dirty pages: no wire module of its own (its package's
+#: `__init__` imports the WFS, so it imports only with grpc)
+MOUNT_PLAIN_MODULES = ("seaweedfs_tpu_torch.mount.page_writer",)
 #: the server commands: they share the CLI registry with the local
 #: commands, so they reach the transport only when one of them runs
 SERVER_COMMANDS = "seaweedfs_tpu_torch.command.servers"
-#: chip_smoke.py's cluster, ha, filer, s3, shell, fleet, load and rack phases:
+#: the filer clients' commands (filer.sync, filer.backup, filer.meta.tail,
+#: filer.copy): the same, as the server commands
+SYNC_COMMANDS = "seaweedfs_tpu_torch.command.sync"
+#: chip_smoke.py's cluster, ha, filer, s3, sync, shell, fleet, load and rack phases:
 #: the only functions there that reach them
 CLUSTER_PHASE = ("run_cluster", "_cluster", "run_storm", "_storm", "run_load", "run_rack",
-                 "run_ha", "_ha", "run_filer", "_filer", "run_s3")
+                 "run_ha", "_ha", "run_filer", "_filer", "run_s3", "run_sync")
 #: the load harnesses: they reach the transport only inside their functions
 HARNESSES = ("seaweedfs_tpu_torch.scripts.weedload", "seaweedfs_tpu_torch.scripts.chaos_soak")
 #: the servers' pure planners and data structures, and the tiering path
@@ -152,7 +172,9 @@ PLAIN_SERVER_MODULES = ("seaweedfs_tpu_torch.ec.spread", "seaweedfs_tpu_torch.ec
                         "seaweedfs_tpu_torch.remote_storage.tier",
                         "seaweedfs_tpu_torch.storage.backend",
                         "seaweedfs_tpu_torch.s3api.auth", "seaweedfs_tpu_torch.s3api.policy",
-                        "seaweedfs_tpu_torch.utils.chunk_cache")
+                        "seaweedfs_tpu_torch.utils.chunk_cache",
+                        "seaweedfs_tpu_torch.utils.log_buffer",
+                        "seaweedfs_tpu_torch.notification")
 
 
 def _port_imports(path: str, top_level: bool = False, skip: tuple = ()) -> set[str]:
@@ -209,7 +231,7 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "seaweedfs_tpu_torch.security.jwt", "seaweedfs_tpu_torch.security.guard",
         "seaweedfs_tpu_torch.pb", "seaweedfs_tpu_torch.command",
         "seaweedfs_tpu_torch.command.local", "seaweedfs_tpu_torch.__main__",
-        SERVER_COMMANDS, *PLAIN_SERVER_MODULES, *HARNESSES})
+        SERVER_COMMANDS, SYNC_COMMANDS, *PLAIN_SERVER_MODULES, *HARNESSES})
     failing = [WIRE_MODULES[0], WIRE_MODULES[2], *SERVER_MODULES]
     code = (
         "import importlib, sys\n"
@@ -232,8 +254,10 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "        pass\n"
         "from seaweedfs_tpu_torch.__main__ import main\n"
         "from seaweedfs_tpu_torch.command import commands\n"
-        "assert {'export', 'encode', 'rebuild', 'master', 'server', 'shell', 'benchmark',\n"
-        "        'upload', 'download', 'filer', 's3', 'webdav', 'iam'} <= set(commands())\n"
+        "assert set(commands()) >= {'export', 'encode', 'rebuild', 'master', 'server',\n"
+        "    'shell', 'benchmark', 'upload', 'download', 'filer', 's3', 'webdav', 'iam',\n"
+        "    'filer.sync', 'filer.backup', 'filer.meta.tail', 'filer.copy', 'mount',\n"
+        "    'mq.broker'}\n"
         "try:\n"
         "    main(['export', '--help'])\n"
         "except SystemExit as e:\n"
@@ -245,6 +269,11 @@ def test_card_path_imports_without_grpc_or_protobuf():
         "             ['s3', '-port', '0', '-filerGrpc', '127.0.0.1:1'],\n"
         "             ['webdav', '-port', '0', '-filerGrpc', '127.0.0.1:1'],\n"
         "             ['iam', '-port', '0', '-filerGrpc', '127.0.0.1:1'],\n"
+        "             ['mq.broker', '-port', '0', '-filerGrpc', '127.0.0.1:1'],\n"
+        "             ['filer.sync', '-from', '127.0.0.1:1', '-to', '127.0.0.1:1'],\n"
+        "             ['filer.backup', '-filerGrpc', '127.0.0.1:1', '-dir', '.'],\n"
+        "             ['filer.meta.tail', '-filerGrpc', '127.0.0.1:1'],\n"
+        "             ['mount', '-filerGrpc', '127.0.0.1:1', '-dir', '.'],\n"
         "             ['benchmark', '-master', '127.0.0.1:1', '-n', '1'],\n"
         "             ['download', '-master', '127.0.0.1:1', '1,1']):\n"
         "    try:\n"
@@ -280,10 +309,11 @@ def test_the_servers_import_grpc_and_the_planners_do_not():
         through = _port_imports(path(mod), top_level=True) & set(WIRE_MODULES + SERVER_MODULES)
         assert direct or through - {mod}, mod
     wire = set(WIRE_MODULES + SERVER_MODULES)
-    assert not _imported_roots(path(SERVER_COMMANDS)) & {"grpc", "google"}
-    assert not _port_imports(path(SERVER_COMMANDS), top_level=True) & wire
-    assert _port_imports(path(SERVER_COMMANDS)) & wire
-    for mod in PLAIN_SERVER_MODULES + FILER_PLAIN_MODULES:
+    for commands in (SERVER_COMMANDS, SYNC_COMMANDS):
+        assert not _imported_roots(path(commands)) & {"grpc", "google"}, commands
+        assert not _port_imports(path(commands), top_level=True) & wire, commands
+        assert _port_imports(path(commands)) & wire, commands
+    for mod in PLAIN_SERVER_MODULES + FILER_PLAIN_MODULES + MOUNT_PLAIN_MODULES:
         assert not _imported_roots(path(mod)) & {"grpc", "google"}, mod
         assert not _port_imports(path(mod)) & set(WIRE_MODULES + SERVER_MODULES), mod
     # the master reaches raft only when it is given peers (inside __init__)
@@ -384,6 +414,44 @@ def test_the_gateways_open_no_cuda_context(tmp_path):
         "assert call(f'http://{iam.url}/', 'POST', data=b'Action=ListUsers') == 403\n"
         "for srv in (iam, dav, s3, fs):\n"
         "    srv.stop()\n"
+        "print('torch' in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["False"]
+
+
+def test_the_broker_the_sync_and_the_mount_open_no_cuda_context(tmp_path):
+    """The filer's clients run no kernel: a process that starts a
+    `FilerServer` on the log store (no master answers), a `Broker` on it
+    (a topic configured, a record published and read back), a `Replicator`
+    pass into a `LocalSink` and a `WFS` that makes and lists a directory,
+    and stops them, never imports torch."""
+    code = (
+        "import sys\n"
+        "from seaweedfs_tpu_torch.filer import FilerServer, make_store\n"
+        "from seaweedfs_tpu_torch.mount import WFS\n"
+        "from seaweedfs_tpu_torch.mq import Broker, BrokerClient\n"
+        "from seaweedfs_tpu_torch.replication import LocalSink, Replicator\n"
+        f"fs = FilerServer('127.0.0.1:1', store=make_store('log', {str(tmp_path / 'store')!r}))\n"
+        "fs.start()\n"
+        "b = Broker(fs.url, fs.grpc_address)\n"
+        "b.start()\n"
+        "with BrokerClient(b.address) as c:\n"
+        "    c.configure_topic('t', partition_count=1)\n"
+        "    c.publish('t', b'k', b'v')\n"
+        "    assert [r.value for r in c.subscribe('t', max_idle_s=0.3)] == [b'v']\n"
+        "b.stop()\n"
+        f"rep = Replicator(fs.grpc_address, LocalSink({str(tmp_path / 'sink')!r}))\n"
+        "assert rep.run_once(max_idle_s=0.3) >= 1\n"
+        "rep.close()\n"
+        "with WFS(fs.grpc_address) as w:\n"
+        "    w.mkdir('/m')\n"
+        "    assert '/m' in [a.path for a in w.readdir('/')]\n"
+        "fs.stop()\n"
         "print('torch' in sys.modules)\n"
     )
     proc = subprocess.run(

@@ -584,3 +584,52 @@ def test_server_command_writes_reads_and_stops(tmp_path):
             proc.wait(timeout=30)
         proc.stdout.close()
         proc.stderr.close()
+
+
+def test_a_heartbeat_in_flight_during_a_growth_keeps_the_grown_volume(tmp_path):
+    """An assign that grows a volume registers it on the master when the
+    volume server's VolumeCreate answers. A full heartbeat the server built
+    before the create and the master ingests after that registration would
+    drop it again (the reference's volume server answers at once, and the
+    upload that follows finds no location: a 500 through the filer and the
+    S3 gateway under load). The port's VolumeCreate answers only once the
+    heartbeats begun before it have reached the master: here one is held
+    at the master for 0.5 s, and the grown volume stays listed and takes
+    the upload."""
+    import threading
+
+    from seaweedfs_tpu_torch.cluster.client import MasterClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.ops.rs_codec import Encoder
+
+    master = MasterServer(port=0, reap_interval=3600)
+    master.start()
+    (tmp_path / "srv").mkdir()
+    vs = VolumeServer([str(tmp_path / "srv")], master.address, heartbeat_interval=3600,
+                      encoder=Encoder(10, 4, device="cpu"))
+    vs.start()
+    entered, release = threading.Event(), threading.Event()
+    ingest = master.topology.process_heartbeat
+
+    def held(hb):
+        entered.set()
+        release.wait(10)
+        ingest(hb)
+
+    master.topology.process_heartbeat = held
+    beat = threading.Thread(target=vs.heartbeat_once)
+    beat.start()
+    client = MasterClient(master.address)
+    try:
+        assert entered.wait(10)  # the snapshot (no volume yet) is at the master
+        master.topology.process_heartbeat = ingest
+        threading.Timer(0.5, release.set).start()
+        fid = master._rpc_assign({"collection": "fresh"}, None)["fid"]
+        beat.join(10)
+        vid = int(fid.split(",")[0])
+        assert [loc.url for loc in client.lookup(vid, refresh=True)] == [vs.url]
+        assert client.upload(fid, b"grown") == 5 and client.read(fid) == b"grown"
+    finally:
+        release.set()
+        client.close()
+        stop_all([vs, master])

@@ -9,6 +9,7 @@ one package's gateway is served byte-equal by the other's, identities
 saved by one package load in the other, and both signers agree at a pinned
 time. Tolerance 0 everywhere."""
 
+import calendar
 import contextlib
 import hashlib
 import json
@@ -489,10 +490,16 @@ def test_presigned_url_expiry(stack, monkeypatch):
     _req(s3, "PUT", "/presign-exp")
     _req(s3, "PUT", "/presign-exp/f.txt", b"x")
     url = presign_url(AK, SK, "GET", f"http://{s3.url}/presign-exp/f.txt", expires=1)
+    # the gateway's clock is driven for both GETs: the link's own second,
+    # then 5 s past it (a real one-second window races a loaded host)
+    amz_date = urllib.parse.parse_qs(urllib.parse.urlsplit(url).query)["X-Amz-Date"][0]
+    signed_at = calendar.timegm(time.strptime(amz_date, "%Y%m%dT%H%M%SZ"))
+    clock = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time) if not k.startswith("_")})
+    monkeypatch.setattr(auth_mod, "time", clock)
+    clock.time = lambda: float(signed_at)
     with urllib.request.urlopen(url, timeout=10) as r:
         assert r.status == 200
-    real_time = auth_mod.time.time
-    monkeypatch.setattr(auth_mod.time, "time", lambda: real_time() + 5)
+    clock.time = lambda: signed_at + 5.0
     code, _, body = _raw_get(url)
     assert code == 403, "expired presigned link must be refused"
     # out-of-range X-Amz-Expires is malformed
@@ -597,28 +604,43 @@ def test_bucket_collection_mapping_and_reclaim(stack):
     # the chunk's volume carries the bucket collection
     entry = s3.filer.lookup("/buckets/collbkt/obj1")
     assert entry.attributes.collection == "collbkt"
-    import time as _time
-
-    _time.sleep(0.8)  # heartbeat registers the new volume's collection
+    # a heartbeat registers the new volume's collection with the master
+    _wait_for(lambda: "collbkt" in {v.get("collection") for v in _master_volumes(s3)})
     # delete the object then the bucket; the collection's volumes drop
     _req(s3, "DELETE", "/collbkt/obj1")
     code, _, _ = _req(s3, "DELETE", "/collbkt")
     assert code == 204
-    _time.sleep(0.8)
+    colls = _wait_for(lambda: {v.get("collection") for v in _master_volumes(s3)},
+                      until=lambda colls: "collbkt" not in colls)
+    assert "collbkt" not in colls, colls
+
+
+def _master_volumes(s3) -> list:
+    """Every volume in the master's topology, the master found through the
+    filer's configuration."""
     from seaweedfs_tpu_torch import rpc as _rpc
 
-    # discover the master through the filer config and check the topology
     cfg = s3.filer.configuration()
     with _rpc.RpcClient(cfg["masters"][0]) as c:
         topo = c.call("weedtpu.Master", "VolumeList", {})
-    colls = {
-        v.get("collection")
+    return [
+        v
         for racks in topo["data_centers"].values()
         for nodes in racks.values()
         for n in nodes
         for v in n.get("volumes", [])
-    }
-    assert "collbkt" not in colls, colls
+    ]
+
+
+def _wait_for(probe, until=bool, timeout=15.0):
+    """Poll `probe()` until `until(value)` holds or `timeout` seconds pass;
+    the last value either way (heartbeats land on the master's schedule)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        value = probe()
+        if until(value) or time.monotonic() > deadline:
+            return value
+        time.sleep(0.05)
 
 
 def test_multipart_parts_inherit_bucket_collection(stack):
@@ -651,23 +673,10 @@ def test_multipart_parts_inherit_bucket_collection(stack):
     assert code == 200
     entry = s3.filer.lookup("/buckets/mpcoll/big.bin")
     vid = int(entry.chunks[0].fid.split(",", 1)[0])
-    # the final object's needles sit in a collection-mpcoll volume
-    cfg = s3.filer.configuration()
-    from seaweedfs_tpu_torch import rpc as _rpc
-
-    import time as _time
-
-    _time.sleep(0.8)
-    with _rpc.RpcClient(cfg["masters"][0]) as c:
-        topo = c.call("weedtpu.Master", "VolumeList", {})
-    vol = next(
-        v
-        for racks in topo["data_centers"].values()
-        for nodes in racks.values()
-        for n in nodes
-        for v in n.get("volumes", [])
-        if int(v["id"]) == vid
-    )
+    # the final object's needles sit in a collection-mpcoll volume, once a
+    # heartbeat has carried that volume to the master
+    vols = _wait_for(lambda: [v for v in _master_volumes(s3) if int(v["id"]) == vid])
+    vol = vols[0]
     assert vol.get("collection") == "mpcoll"
 
 
@@ -1464,13 +1473,18 @@ def s3_stack(p, root):
     """A master (cookies seeded), one volume server on the package's CPU
     encoder, a filer on the log store under `root` (64 KiB chunks) and the
     package's S3 gateway with one identity. Started again on the same
-    `root`, by either package, it serves what was written before."""
+    `root`, by either package, it serves what was written before. The
+    volume server heartbeats when it starts and when one of its RPCs
+    pushes a heartbeat, not on a period: the reference's can lose a volume
+    grown for a new bucket to a periodic heartbeat in flight (the port's
+    VolumeCreate waits for those; see `test_torch_master.py`), which answers
+    500 on its side of a comparison under load."""
     c = p.f.cluster
     master = c.MasterServer(port=0, reap_interval=3600)
     master._rng = random.Random(7)
     master.start()
     (root / "vol").mkdir(exist_ok=True)
-    vs = c.VolumeServer([str(root / "vol")], master.address, heartbeat_interval=0.3,
+    vs = c.VolumeServer([str(root / "vol")], master.address, heartbeat_interval=3600,
                         max_volume_count=200, encoder=c.encoder())
     vs.start()
     fs = p.f.FilerServer(master.address, store=p.f.make_store("log", str(root / "store")),
@@ -1672,8 +1686,9 @@ def test_one_request_script_gives_the_same_replies(tmp_path):
         with s3_stack(p, tmp_path / name) as (s3, _):
             out[name] = _request_script(p, s3)
     assert len(out["port"]) == len(out["ref"]) > 100
-    for ref, port in zip(out["ref"], out["port"]):
-        assert port == ref
+    for i, (ref, port) in enumerate(zip(out["ref"], out["port"])):
+        assert port == ref, (f"reply {i} to {ref[0]} {ref[1]}?{ref[2]} differs:\n"
+                             f"ref  {ref[3]}\nport {port[3]}")
     codes = {re.search(r"<Code>([^<]*)</Code>", rep[3][2]).group(1)
              for rep in out["port"] if "<Code>" in rep[3][2]}
     assert {"BucketAlreadyExists", "NoSuchKey", "NoSuchBucket", "InvalidPart", "NoSuchUpload",

@@ -211,8 +211,7 @@ def test_help_and_volume_list(tmp_path, monkeypatch):
     ref_names = out["ref"].pop("names")
     port_names = out["port"].pop("names")
     assert out["port"] == out["ref"]
-    left_out = ("mq.",)
-    assert port_names == [n for n in ref_names if not n.startswith(left_out)]
+    assert port_names == ref_names
 
 
 def _ec_encode_read_rebuild_balance(pkg, root):
@@ -613,8 +612,8 @@ def test_ec_backend_without_a_card_raises():
 def test_filer_client_and_fsck_walk_raise(tmp_path):
     """With no filer announced to the master, the env's filer client raises
     the reference's ShellError, and so does volume.fsck once its volume
-    scan reaches the filer walk; the fs.* and s3.* families are registered
-    (mq.* is not ported yet)."""
+    scan reaches the filer walk; the fs.*, s3.* and mq.* families are
+    registered."""
     with shell_cluster(PORT, tmp_path, n=1) as (master, servers, client, env):
         upload_some(PORT, client, n=2, seed=9)
         with pytest.raises(port_shell.ShellError, match="no filer registered"):
@@ -625,7 +624,7 @@ def test_filer_client_and_fsck_walk_raise(tmp_path):
         names = port_shell.commands()
         assert sum(c.startswith("fs.") for c in names) == 13
         assert sum(c.startswith("s3.") for c in names) == 4
-        assert not any(c.startswith("mq.") for c in names)
+        assert sum(c.startswith("mq.") for c in names) == 3
 
 
 def test_shell_command_runs_a_script(tmp_path):
