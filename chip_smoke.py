@@ -7,6 +7,15 @@ Phases, one JSON line each:
            versions, and whether grpc and google.protobuf import (their
            versions, or null); exits 1 without CUDA
   build    compiles every kernel library from seaweedfs_tpu_torch/csrc/
+  lowering the build proof (`ops/cuda_lowering.py`): every library again
+           (now from the cache: its kept ptxas log must name as many
+           kernels as the cold build's), each one's registers, spill bytes
+           and static shared memory, and every variant at each of the ten
+           proof shapes (the reference's TPU lowering shapes) through
+           `rs_cuda.apply_matrix`, one launch each, byte-exact against its
+           plain version on the card and the int8 kernel; the counts are
+           set to 0 just before and read after (10 launches per variant);
+           exits 1 on any entry that is not ok
   kernel_checks
            each of the five kernels (variants int8, bf16, u8, mplane, dma)
            against its own plain PyTorch version on the card, byte-exact
@@ -607,7 +616,9 @@ def check_kernels(seed: int) -> dict[str, list[dict]]:
 def dma_ring(ptxas_log: str) -> dict:
     """The dma kernel's ring as it launches, held against `rs_cuda.dma_plan`,
     and `ptxas -v` of its instantiations (NW = ceil(C/4) words per column,
-    NT = R for R <= 4, else 0)."""
+    NT = R for R <= 4, else 0), from the log `_build.build()` keeps beside
+    the library (a cached library's too). The main path's two, NW3_NT4 and
+    NW3_NT1, must be in it."""
     import re
 
     from seaweedfs_tpu_torch.ops import _build, rs_cuda
@@ -627,12 +638,50 @@ def dma_ring(ptxas_log: str) -> dict:
         if m:
             kernels[f"NW{m.group(1)}_NT{m.group(2)}"] = rep
     main = {k: kernels.get(k) for k in ("NW3_NT4", "NW3_NT1")}  # (10, 4) and (10, 1)
+    check(all(main.values()), f"the build's ptxas log lacks the main path's dma kernels: {main}")
     return {
         "plans": plans, "ptxas_main_path": main,
         "ptxas_kernels": len(kernels),
         "max_registers": max((v["registers"] for v in kernels.values()), default=None),
         "spilling": sorted(k for k, v in kernels.items() if v["spill_stores"] or v["spill_loads"]),
     }
+
+
+def run_lowering(card: str, built: dict) -> dict:
+    """The lowering phase: `cuda_lowering.run_lowering_proof()` on the card
+    (every library built, now from the cache, with its ptxas report, and
+    every variant at every proof shape against its plain version and the
+    int8 kernel), with the launch counts set to 0 just before it. `built`
+    is the build phase's report: each library's cached report must name
+    as many kernels as its cold build's log. Returns the phase's line."""
+    from seaweedfs_tpu_torch.ops import _build, cuda_lowering, rs_cuda
+
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    entries = cuda_lowering.run_lowering_proof()
+    launches = dict(rs_cuda.launches_by_variant)
+    seconds = time.perf_counter() - t0
+    libraries = {e["library"]: {k: e.get(k) for k in (
+        "ok", "cached", "instantiations", "max_registers", "spill_bytes", "max_smem", "error")}
+        for e in entries if e["kind"] == "library"}
+    shapes: dict[str, dict] = {}
+    for e in entries:
+        if e["kind"] == "launch":
+            shapes.setdefault(e["shape"], {})[e["variant"]] = e["ok"]
+    failed = [{k: e.get(k) for k in ("kind", "library", "shape", "variant", "error")}
+              for e in entries if not e["ok"]]
+    cold = {name: len(_build.ptxas_report(b["ptxas"])) for name, b in built.items()}
+    for name, lib in libraries.items():
+        if lib["ok"] and lib["instantiations"] != cold[name]:
+            failed.append({"kind": "library", "library": name,
+                           "error": f"cached ptxas report names {lib['instantiations']} kernels, "
+                                    f"the build's {cold[name]}"})
+    want = {v: len(cuda_lowering.PROOF_SHAPES) for v in cuda_lowering.VARIANTS}
+    if launches != want:
+        failed.append({"kind": "launches", "error": f"launched {launches}, want {want}"})
+    return {"phase": "lowering", "card": card, "seconds": seconds, "ok": not failed,
+            "entries": len(entries), "launches": launches, "libraries": libraries,
+            "shapes": shapes, "failed": failed}
 
 
 def run_sweep(seed: int) -> dict:
@@ -5040,6 +5089,11 @@ def main(argv=None) -> int:
     check(set(built) == set(_build.SOURCES), f"built {sorted(built)}")
     for name, v in built.items():
         print(f"[{name}] {v['ptxas']}", file=sys.stderr)
+    lowering = run_lowering(card, built)
+    emit(lowering)
+    if not lowering["ok"]:
+        print(f"chip_smoke: the build proof failed: {lowering['failed']}", file=sys.stderr)
+        return 1
     emit({"phase": "dma_ring", "card": card, **dma_ring(built["gf_dma"]["ptxas"])})
 
     checks = check_kernels(args.seed)

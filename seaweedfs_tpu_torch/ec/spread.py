@@ -113,6 +113,7 @@ class SpreadSession:
                 # one open, no exists-check first: the seal may rename the
                 # partial into its final shard at any moment, also between
                 # a check and an open
+                # weedlint: ignore[open-no-ctx] scoped by the `with f:` below; opened bare so that a seal's rename shows as FileNotFoundError here
                 f = open(ingest_mod.part_path(self.base, st.shard_id), "rb")
             except FileNotFoundError:
                 # renamed: finalize() owns the tail from here — NOT a

@@ -497,7 +497,8 @@ class LocalSlabSource(SlabSource):
     """`readinto` straight from a local shard file."""
 
     def __init__(self, path: str):
-        self._f = open(path, "rb")  # owned by the source, closed in close()
+        # weedlint: ignore[open-no-ctx] handle owned by the source, closed in close()
+        self._f = open(path, "rb")
 
     def read_into(self, offset: int, out: np.ndarray) -> None:
         read_padded_into(self._f, offset, out)
@@ -802,9 +803,10 @@ class LocalProjectionSource(SlabSource):
         self.bytes_fetched = 0
         self._coeffs = coeffs
         self._enc = encoder
-        self._files = []  # owned by the source, closed in close()
+        self._files = []
         try:
             for p in paths:
+                # weedlint: ignore[open-no-ctx] handles owned by the source, closed in close()
                 self._files.append(open(p, "rb"))
         except BaseException:
             self.close()

@@ -3,7 +3,12 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `_build/lib<name>-<hash>.so` at first use, then loaded with ctypes.
 The hash covers the source, the shared headers (`csrc/*.cuh`) and the
-flags, so an edited source is rebuilt rather than a stale library loaded. Nothing here runs at import time.
+flags, so an edited source is rebuilt rather than a stale library loaded.
+The compiler's output (`-Xptxas=-v`: each kernel's registers, spills and
+shared memory) is kept beside the library as `lib<name>-<hash>.ptxas.log`,
+put in place before it, so a library that is already built reports the
+same resources as a fresh build; a library with no log beside it is
+built again. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -53,36 +58,69 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 
 
+def log_path(lib: str) -> str:
+    """The `nvcc -Xptxas=-v` log kept beside the library at `lib`."""
+    return lib[: -len(".so")] + ".ptxas.log"
+
+
+def _read_log(path: str):
+    """The log at `path`, or None when there is none."""
+    try:
+        with open(path, encoding="utf-8") as f:
+            return f.read()
+    except FileNotFoundError:
+        return None
+
+
 def build(names=None) -> dict[str, dict]:
-    """Compile every named library that is not built yet, one nvcc process
-    per source, all started together. Returns {name: {"path", "seconds",
-    "ptxas"}} (seconds 0.0 and no ptxas report for an existing library).
-    Raises RuntimeError with the compiler's output when a build fails."""
+    """Compile every named library that is not built yet (or has no ptxas
+    log beside it), one nvcc process per source, all started together.
+    Returns {name: {"path", "seconds", "ptxas", "cached"}}: an existing
+    library has seconds 0.0 and the log its build kept. Raises
+    RuntimeError with the compiler's output when a build fails."""
+    built = build_each(names)
+    failures = [str(b) for b in built.values() if isinstance(b, RuntimeError)]
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return built
+
+
+def build_each(names=None) -> dict[str, dict | RuntimeError]:
+    """`build`, but a library whose nvcc fails maps to a RuntimeError with
+    the compiler's output instead of failing the others' build."""
     names = list(SOURCES if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out: dict[str, dict] = {}
+    out: dict[str, dict | RuntimeError] = {}
     procs = {}
     t0 = time.perf_counter()
     for name in names:
         path = lib_path(name)
-        if os.path.exists(path):
-            out[name] = {"path": path, "seconds": 0.0, "ptxas": ""}
+        log = _read_log(log_path(path)) if os.path.exists(path) else None
+        if log is not None:
+            out[name] = {"path": path, "seconds": 0.0, "ptxas": log, "cached": True}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])]
         procs[name] = (path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
-    failures = []
     for name, (path, tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            out[name] = RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
-        os.replace(tmp, path)  # atomic: a concurrent build never loads a torn .so
-        out[name] = {"path": path, "seconds": time.perf_counter() - t0, "ptxas": log}
-    if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        # the log first, then the library, each by an atomic rename: a
+        # library in place always has its log, and a concurrent build never
+        # loads a torn .so
+        tmp_log = f"{log_path(path)}.{os.getpid()}.tmp"
+        with open(tmp_log, "w", encoding="utf-8") as f:
+            f.write(log)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp_log, log_path(path))
+        os.replace(tmp, path)
+        out[name] = {"path": path, "seconds": time.perf_counter() - t0, "ptxas": log,
+                     "cached": False}
     return out
 
 

@@ -97,6 +97,8 @@ import tempfile
 import threading
 import time
 
+from seaweedfs_tpu_torch.utils import config
+
 #: the directory that holds the `seaweedfs_tpu_torch` package: the servers'
 #: working directory, so `python -m seaweedfs_tpu_torch` resolves this copy
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -215,6 +217,7 @@ class Node:
         # child); in a chaos test the server logs are the evidence. A new
         # process (fork+exec), never a fork of this one: this process may
         # hold a CUDA context, and the server opens its own
+        # weedlint: ignore[open-no-ctx] node-lifetime server log, the child's stdout/stderr, closed in kill()
         self.log = open(os.path.join(self.dir, "server.log"), "ab")
         self.proc = subprocess.Popen(
             self.command(), cwd=PKG_ROOT, stdout=self.log, stderr=self.log
@@ -285,12 +288,14 @@ def run_rack_mode(seconds: int, device: str = "cuda", out: str | None = None) ->
     # scheduler + detection tuning must land BEFORE the master/server
     # processes exist (Node.start copies os.environ; the in-process
     # master reads the registry at construction)
-    os.environ.setdefault("WEEDTPU_REPAIR", "on")
-    os.environ.setdefault("WEEDTPU_REPAIR_MAX_INFLIGHT", "1")
-    os.environ.setdefault("WEEDTPU_REPAIR_SETTLE_S", "6.0")
-    os.environ.setdefault("WEEDTPU_REPAIR_SCAN_S", "1.0")
-    os.environ.setdefault("WEEDTPU_REPAIR_DEAD_S", "8.0")
-    os.environ.setdefault("WEEDTPU_REPAIR_REPORT_FAILURES", "2")
+    config.setdefault_env({
+        "WEEDTPU_REPAIR": "on",
+        "WEEDTPU_REPAIR_MAX_INFLIGHT": "1",
+        "WEEDTPU_REPAIR_SETTLE_S": "6.0",
+        "WEEDTPU_REPAIR_SCAN_S": "1.0",
+        "WEEDTPU_REPAIR_DEAD_S": "8.0",
+        "WEEDTPU_REPAIR_REPORT_FAILURES": "2",
+    })
 
     from seaweedfs_tpu_torch.cluster import topology as topo_mod
     from seaweedfs_tpu_torch.cluster.client import MasterClient
@@ -718,24 +723,28 @@ def main(argv=None) -> int:
         # live EC shard files) with the background scrubber running HOT:
         # short cycle, no rate cap, prompt repair retries; detection
         # latency is scan-bound. Must land before the servers start.
-        os.environ.setdefault("WEEDTPU_SCRUB", "on")
-        os.environ.setdefault("WEEDTPU_SCRUB_INTERVAL", "0.5")
-        os.environ.setdefault("WEEDTPU_SCRUB_RATE_MB", "0")
-        os.environ.setdefault("WEEDTPU_SCRUB_REPAIR_BACKOFF", "1.0")
+        config.setdefault_env({
+            "WEEDTPU_SCRUB": "on",
+            "WEEDTPU_SCRUB_INTERVAL": "0.5",
+            "WEEDTPU_SCRUB_RATE_MB": "0",
+            "WEEDTPU_SCRUB_REPAIR_BACKOFF": "1.0",
+        })
     if inline_mode:
         # must land before the server subprocesses start (Node.start copies
         # os.environ); bench-scale rows so soak-sized volumes complete them
-        os.environ.setdefault("WEEDTPU_INLINE_EC", "on")
-        os.environ.setdefault("WEEDTPU_INLINE_EC_LARGE_BLOCK", "8192")
-        os.environ.setdefault("WEEDTPU_INLINE_EC_SMALL_BLOCK", "2048")
+        config.setdefault_env({
+            "WEEDTPU_INLINE_EC": "on",
+            "WEEDTPU_INLINE_EC_LARGE_BLOCK": "8192",
+            "WEEDTPU_INLINE_EC_SMALL_BLOCK": "2048",
+        })
     modeled_delay_ms = 0.0
     if not wedge_mode:
         # stretch rebuild windows so the trace scenario's mid-rebuild kill
         # lands mid-stream, not after a loopback-instant rebuild (wedge
         # mode runs without it: the ladder under test there is
         # latency-sensitive)
-        os.environ.setdefault("WEEDTPU_BENCH_RPC_DELAY_MS", "25")
-        modeled_delay_ms = float(os.environ["WEEDTPU_BENCH_RPC_DELAY_MS"])
+        config.setdefault_env({"WEEDTPU_BENCH_RPC_DELAY_MS": "25"})
+        modeled_delay_ms = float(config.env("WEEDTPU_BENCH_RPC_DELAY_MS"))
 
     from seaweedfs_tpu_torch.cluster.client import MasterClient
     from seaweedfs_tpu_torch.cluster.master import MasterServer

@@ -88,6 +88,7 @@ def open_resume_out(out_path: str, resume: bool):
     """Open the harvest file. On resume, a crash mid-write leaves a torn
     tail with no newline; terminate it first, so the next record is not
     glued onto the fragment."""
+    # weedlint: ignore[open-no-ctx] harvest handle returned to the caller, which closes it after the sweep
     out_f = open(out_path, "a" if resume else "w", encoding="utf-8")
     if resume and out_f.tell() > 0:
         with open(out_path, "rb") as chk:

@@ -20,6 +20,7 @@ variant's own tensor-core rate) and the card line. Exits 1 on a mismatch or with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -73,8 +74,8 @@ def main(argv=None) -> int:
     ]
     rng = np.random.default_rng(args.seed)
     bad = []
-    out = open(args.out, "a") if args.out else None
-    try:
+    with contextlib.ExitStack() as stack:
+        out = stack.enter_context(open(args.out, "a")) if args.out else None
         for shape, m, n in shapes:
             data = torch.from_numpy(rng.integers(0, 256, (m.shape[1], n), dtype=np.uint8)).cuda()
             bufs = (data, data.clone())  # launches alternate: together > the 50 MB L2
@@ -100,9 +101,6 @@ def main(argv=None) -> int:
                     bad.append((v, shape))
             del data, bufs
             torch.cuda.empty_cache()
-    finally:
-        if out:
-            out.close()
     if bad:
         print(f"kernel_times: kernels differ from their plain versions at {bad}", file=sys.stderr)
         return 1

@@ -170,13 +170,12 @@ def main(argv=None) -> int:
             "cycles_per_product_per_subpartition": 4 * sms * max_mhz * 1e6 / rate,
             "one_warp_cycles_per_product": one_warp, "latency_cycles": latency, "max_sm_mhz": max_mhz, "seconds": sec, "card": card,
         })
-    out = open(args.out, "a") if args.out else None
     for rec in lines:
         print(json.dumps(rec), flush=True)
-        if out:
-            out.write(json.dumps(rec) + "\n")
-    if out:
-        out.close()
+    if args.out:
+        with open(args.out, "a") as out:
+            for rec in lines:
+                out.write(json.dumps(rec) + "\n")
     return 0
 
 

@@ -282,6 +282,7 @@ def measure_trace_overhead(
     servers."""
     import itertools
 
+    # weedlint: ignore[env-raw-read] the raw value (or its absence), restored after the batches; no configuration read
     prev = os.environ.get("WEEDTPU_TRACE")
 
     def pct(xs: list, q: float) -> float:
@@ -737,7 +738,7 @@ def main(argv=None) -> int:
     # module-global RING was already constructed at import (possibly by
     # the hosting test process, long before this env write), so its
     # capacity is widened directly.
-    os.environ.setdefault("WEEDTPU_TRACE_RING", "65536")
+    config.setdefault_env({"WEEDTPU_TRACE_RING": "65536"})
     from seaweedfs_tpu_torch.obs import trace as trace_obs
 
     trace_obs.RING.capacity = max(trace_obs.RING.capacity, 65536)
@@ -749,41 +750,43 @@ def main(argv=None) -> int:
     # stays SHORT so warm entries keep expiring and the decoded class
     # keeps earning real reconstruction samples alongside cache hits.
     try:
-        _cache_mb = float(os.environ.get("WEEDTPU_READ_CACHE_MB", "0") or 0.0)
+        _cache_mb = config.env("WEEDTPU_READ_CACHE_MB")
     except ValueError:
         _cache_mb = 0.0
     if _cache_mb <= 0:
         os.environ["WEEDTPU_READ_CACHE_MB"] = "64"
-    os.environ.setdefault(
-        "WEEDTPU_READ_CACHE_TTL_S", "2.0" if args.smoke else "5.0"
-    )
+    config.setdefault_env({"WEEDTPU_READ_CACHE_TTL_S": "2.0" if args.smoke else "5.0"})
 
     if args.chaos:
         # the fleet-repair scheduler is part of the serving story under
         # kills: killed holders' shards draw mass-rebuild dispatches
         # while the load runs. Must land BEFORE MasterServer() — the
         # master reads it once at construction.
-        os.environ.setdefault("WEEDTPU_REPAIR", "on")
+        config.setdefault_env({"WEEDTPU_REPAIR": "on"})
     if args.rebuild_storm:
         # must land BEFORE the server processes start (they read it once
         # at init); a tight gate makes the storm actually queue
-        os.environ.setdefault("WEEDTPU_REBUILD_MAX_INFLIGHT", "4")
+        config.setdefault_env({"WEEDTPU_REBUILD_MAX_INFLIGHT": "4"})
     if args.put_fraction > 0:
         # write traffic exercises the encode-on-write path: servers start
         # with inline EC on and a bench-scale stripe geometry so PUT-fed
         # volumes actually complete large rows within the run (the
         # production 1 GiB rows would never fill here)
-        os.environ.setdefault("WEEDTPU_INLINE_EC", "on")
-        os.environ.setdefault("WEEDTPU_INLINE_EC_LARGE_BLOCK", str(256 << 10))
-        os.environ.setdefault("WEEDTPU_INLINE_EC_SMALL_BLOCK", str(16 << 10))
+        config.setdefault_env({
+            "WEEDTPU_INLINE_EC": "on",
+            "WEEDTPU_INLINE_EC_LARGE_BLOCK": str(256 << 10),
+            "WEEDTPU_INLINE_EC_SMALL_BLOCK": str(16 << 10),
+        })
     if args.corrupt:
         # corruption mode runs the scrubber hot (short cycle, no rate cap,
         # prompt repair retries) so detection latency is scan-bound, not
         # idle-bound; must land before the server processes start
-        os.environ.setdefault("WEEDTPU_SCRUB", "on")
-        os.environ.setdefault("WEEDTPU_SCRUB_INTERVAL", "0.5")
-        os.environ.setdefault("WEEDTPU_SCRUB_RATE_MB", "0")
-        os.environ.setdefault("WEEDTPU_SCRUB_REPAIR_BACKOFF", "1.0")
+        config.setdefault_env({
+            "WEEDTPU_SCRUB": "on",
+            "WEEDTPU_SCRUB_INTERVAL": "0.5",
+            "WEEDTPU_SCRUB_RATE_MB": "0",
+            "WEEDTPU_SCRUB_REPAIR_BACKOFF": "1.0",
+        })
 
     rec = slo.LatencyRecorder()
     lost: list[dict] = []
@@ -1247,7 +1250,7 @@ def main(argv=None) -> int:
                 workers = []
                 for i in range(args.procs):
                     out_i = os.path.join(td, f"gen{i}.json")
-                    log_i = open(  # weedlint: ignore[open-no-ctx]
+                    log_i = open(  # weedlint: ignore[open-no-ctx] worker log, the child's stdout/stderr, closed once the worker exits
                         os.path.join(td, f"gen{i}.log"), "ab"
                     )
                     proc = subprocess.Popen(

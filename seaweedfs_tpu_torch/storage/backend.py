@@ -23,7 +23,7 @@ class DiskFile:
     def __init__(self, path: str, writable: bool = True):
         exists = os.path.exists(path)
         mode = ("r+b" if exists else "w+b") if writable else "rb"
-        # a backend-lifetime handle, closed through the seam's close()
+        # weedlint: ignore[open-no-ctx] backend-lifetime handle, closed via the seam's close()
         self.f = open(path, mode)
         self.path = path
 
@@ -37,7 +37,7 @@ class MemoryMappedFile:
 
     def __init__(self, path: str):
         self.path = path
-        # pinned open while the mmap lives, closed in close()
+        # weedlint: ignore[open-no-ctx] pinned open while the mmap lives, closed in close()
         self._f = open(path, "rb")
         self._mm = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
         self._pos = 0

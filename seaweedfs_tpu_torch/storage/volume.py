@@ -63,6 +63,7 @@ class Volume:
             exists = True
         else:
             exists = os.path.exists(self.dat_path)
+            # weedlint: ignore[open-no-ctx] mount-lifetime .dat handle, closed in close()
             self._dat = open(self.dat_path, "r+b" if exists else "w+b")
         try:
             if exists:
@@ -93,6 +94,7 @@ class Volume:
                 self._write_super_block()
                 if needle_map_kind != "memory":
                     self.nm = new_needle_map(needle_map_kind, self.base_path)
+            # weedlint: ignore[open-no-ctx] mount-lifetime .idx handle, closed in close()
             self._idx = open(self.idx_path, "ab")
             # live bytes for the garbage ratio that drives automatic vacuum:
             # one O(live) pass at mount, then kept up to date
@@ -365,8 +367,9 @@ class Volume:
             self._idx.close()
             os.replace(cpd_dat, self.dat_path)
             os.replace(cpd_idx, self.idx_path)
+            # weedlint: ignore[open-no-ctx] compaction swap reopens the mount-lifetime handles
             self._dat = open(self.dat_path, "r+b")
-            self._idx = open(self.idx_path, "ab")
+            self._idx = open(self.idx_path, "ab")  # weedlint: ignore[open-no-ctx] see above
             self.super_block = new_sb
             if self.needle_map_kind != "memory":
                 # the sidecar's watermark refers to the old .idx: drop it so

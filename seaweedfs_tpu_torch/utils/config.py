@@ -499,6 +499,14 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             "Seed for the trace-sampling RNG (deterministic retention for tests "
             "and replays); 0 = OS entropy.",
         ),
+        EnvVar(
+            "WEEDTPU_FSREPLAY_MAX_PREFIXES", 48,
+            "Crash-prefix replay budget per recorded workload: at most this many "
+            "prefixes of the op trace are materialized and driven through the "
+            "real resume entrypoints (evenly sampled, endpoints always kept) so "
+            "the tier-1 replay gate stays inside its time budget. <=0 = every "
+            "prefix.",
+        ),
     )
 }
 
@@ -509,6 +517,18 @@ def env(name: str) -> Any:
     if var is None:
         raise KeyError(f"{name} is not in the WEEDTPU env registry")
     return var.value()
+
+
+def setdefault_env(knobs: dict[str, str]) -> None:
+    """Set each registered knob in `knobs` that the environment does not
+    hold yet (`os.environ.setdefault`): the settings a harness gives the
+    server processes it starts, which a value the caller exported keeps.
+    An unregistered name raises KeyError."""
+    for name in knobs:
+        if name not in ENV_REGISTRY:
+            raise KeyError(f"{name} is not in the WEEDTPU env registry")
+    for name, value in knobs.items():
+        os.environ.setdefault(name, value)
 
 
 def env_table_markdown() -> str:

@@ -2213,3 +2213,108 @@ def test_the_mq_broker_and_filer_sync_commands_open_no_context_on_the_card(card,
         fs.stop()
         vs.stop()
         master.stop()
+
+
+# -- the build proof and the lock recorder on the card -------------------------
+
+
+def test_lowering_proof_on_the_card(card):
+    """`cuda_lowering.run_lowering_proof()`: every library built with its
+    ptxas report, every variant at every proof shape one launch, equal to
+    its plain version on the card and to the int8 kernel."""
+    from seaweedfs_tpu_torch.ops import _build, cuda_lowering
+
+    entries = cuda_lowering.run_lowering_proof()
+    bad = [e for e in entries if not e["ok"]]
+    assert not bad, bad
+    libraries = [e for e in entries if e["kind"] == "library"]
+    assert {e["library"] for e in libraries} == set(_build.SOURCES)
+    assert all(e["instantiations"] and e["max_registers"] for e in libraries), libraries
+    launches = [e for e in entries if e["kind"] == "launch"]
+    assert len(launches) == len(cuda_lowering.PROOF_SHAPES) * len(cuda_lowering.VARIANTS)
+    assert all(e["launches"] == 1 and e["equal"] and e["agrees"] for e in launches)
+    for spec in cuda_lowering.PROOF_SHAPES:
+        shas = {e["sha256"] for e in launches if e["shape"] == spec["name"]}
+        assert len(shas) == 1, spec["name"]
+
+
+#: run in a fresh process: the port's recorder is installed before any of
+#: the port's modules is imported, so that their module-level locks (the
+#: launch counter's, the build's, the stats registry's) are observed too
+LOCK_PROBE = r"""
+import json, sys, threading
+from seaweedfs_tpu_torch.analysis import lockrec
+rec = lockrec.install()
+import numpy as np
+from seaweedfs_tpu_torch.ec import stripe
+from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
+from seaweedfs_tpu_torch.ops import rs_cuda
+from seaweedfs_tpu_torch.ops.rs_codec import Encoder
+from seaweedfs_tpu_torch.storage import idx, types
+
+work, device = sys.argv[1], sys.argv[2]
+rng = np.random.default_rng(5)
+base = work + "/v1"
+needles = [(i, 8 + 2000 * (i - 1), 1500) for i in range(1, 17)]
+with open(base + ".dat", "wb") as f:
+    f.write(rng.integers(0, 256, size=2000 * 16 + 8, dtype=np.uint8).tobytes())
+idx.write_entries([(i, types.offset_to_bytes(o), n) for i, o, n in needles], base + ".idx")
+stripe.write_ec_files(base, large_block_size=4096, small_block_size=512, buffer_size=512,
+                      encoder=Encoder(10, 4, device="cpu"))
+stripe.write_sorted_file_from_idx(base)
+enc = Encoder(10, 4, device=device)
+kw = dict(encoder=enc, large_block_size=4096, small_block_size=512, warm_on_mount=False)
+with EcVolume(base, **kw) as ev:
+    want = {i: ev.read_needle_blob(i) for i, _, _ in needles}
+got, errors = {}, []
+launches0 = rs_cuda.launches
+with EcVolume(base, remote_reader=lambda s, o, n: None, **kw) as ev:
+    for s in (0, 3, 7, 12):
+        ev.drop_local_shard(s)
+
+    def read(ids):
+        try:
+            for i in ids:
+                got[(threading.get_ident(), i)] = ev.read_needle_blob(i) == want[i]
+        except Exception as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=read, args=([i for i, _, _ in needles],))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+mine = [[a, b, n] for (a, b), n in sorted(rec.edges().items())
+        if lockrec.PACKAGE in a and lockrec.PACKAGE in b]
+print(json.dumps({"equal": all(got.values()) and len(got) == 8 * len(needles),
+                  "errors": errors, "launches": rs_cuda.launches - launches0,
+                  "edges": mine, "cycles": rec.cycles(only_containing=lockrec.PACKAGE)}))
+"""
+
+
+def run_lock_probe(work, device: str) -> dict:
+    """`LOCK_PROBE` in a fresh process: concurrent degraded reads of an
+    EcVolume whose encoder runs on `device`, under the port's recorder."""
+    import json
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", LOCK_PROBE, str(work), device],
+                          capture_output=True, text=True, timeout=300, cwd=root,
+                          env=dict(os.environ, PYTHONPATH=root,
+                                   WEEDTPU_READ_CACHE_MB="64"))  # the default: the cache on
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_lock_recorder_over_degraded_reads_on_the_card(card, tmp_path):
+    """The port's lock recorder over concurrent degraded reads whose decodes
+    launch on the card: the graph of the port's own locks is acyclic and
+    not empty."""
+    out = run_lock_probe(tmp_path, "cuda")
+    assert out["equal"] and not out["errors"], out
+    assert out["launches"] > 0, out
+    assert out["edges"], out
+    assert out["cycles"] == [], out

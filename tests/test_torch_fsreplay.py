@@ -1,6 +1,7 @@
-"""Crash-prefix replay of the port's three on-disk states, with the JAX
-package's `analysis.fsrec` harness: every filesystem op of a port workload
-is recorded, and for every sampled crash prefix x variant (clean, torn or
+"""Crash-prefix replay of the port's three on-disk states, with the port's
+own `analysis.fsrec` harness (held to the JAX package's: one recorded
+trace gives both the same prefix schedules and post-crash states): every
+filesystem op of a port workload is recorded, and for every sampled crash prefix x variant (clean, torn or
 lost tail) the post-crash tree is materialized and driven through the
 port's real recovery entry point.
 
@@ -22,11 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from seaweedfs_tpu.analysis import fsrec
-from seaweedfs_tpu.utils import config as ref_config
+from seaweedfs_tpu.analysis import fsrec as ref_fsrec
+from seaweedfs_tpu_torch.analysis import fsrec
 from seaweedfs_tpu_torch.ec import convert, ingest, scrub, stripe
 from seaweedfs_tpu_torch.ec.constants import TOTAL_SHARDS_COUNT
 from seaweedfs_tpu_torch.ops import rs_codec
+from seaweedfs_tpu_torch.utils import config
 
 ENC = rs_codec.Encoder(10, 4, device="cpu")
 LARGE, SMALL, BUF = 8192, 2048, 2048
@@ -63,7 +65,7 @@ def _replay(trace, scratch_root, check, extra_prefixes=()):
     """`check(scratch_dir, n_ops, variant)` over the sampled prefixes x
     crash variants, identical post-crash states deduplicated."""
     sched = set(fsrec.prefix_schedule(
-        len(trace.ops), int(ref_config.env("WEEDTPU_FSREPLAY_MAX_PREFIXES"))))
+        len(trace.ops), int(config.env("WEEDTPU_FSREPLAY_MAX_PREFIXES"))))
     sched.update(extra_prefixes)
     seen, outcomes, n_dirs = set(), [], 0
     for n in sorted(sched):
@@ -268,3 +270,37 @@ def test_port_scrub_cursor_crash_prefix_replay(tmp_path):
 
     _replay(trace, tmp_path / "replay", check)
     assert fresh in states and len(states & set(saved)) >= 2
+
+
+def test_one_trace_gives_both_packages_the_same_schedules_and_states(tmp_path):
+    """A port conversion and cut-over recorded once by the port's recorder:
+    the reference's `prefix_schedule` and `simulate_prefix`, given the same
+    trace (as the reference's own FsTrace), return what the port's do, at
+    every prefix and crash variant."""
+    work = tmp_path / "work"
+    work.mkdir()
+    base = os.path.join(str(work), "1")
+    data = np.random.default_rng(11).integers(0, 256, 9000, dtype=np.uint8).tobytes()
+    with open(base + ".dat", "wb") as f:
+        f.write(data)
+    stripe.write_ec_files(base, 2048, 256, buffer_size=256, encoder=ENC)
+
+    def workload():
+        convert.convert_ec_files(base, "cauchy_12_3", encoder=ENC, buffer_size=256,
+                                 journal_bytes=1024, verify=True)
+        convert.cutover(base)
+
+    trace = _record(work, workload)
+    kinds = {op.kind for op in trace.ops}
+    assert {"create", "write", "fsync", "replace", "unlink"} <= kinds, kinds
+    theirs = ref_fsrec.FsTrace(trace.root, dict(trace.initial), [
+        ref_fsrec.FsOp(op.kind, op.path, op.offset, op.data, op.dst, op.site)
+        for op in trace.ops])
+    n = len(trace.ops)
+    for budget in (0, 1, 2, 5, 24, 48, n - 1, n, n + 7):
+        assert fsrec.prefix_schedule(n, budget) == ref_fsrec.prefix_schedule(n, budget), budget
+    assert fsrec.VARIANTS == ref_fsrec.VARIANTS
+    for k in range(n + 1):
+        for variant in fsrec.VARIANTS:
+            assert (fsrec.simulate_prefix(trace, k, variant)
+                    == ref_fsrec.simulate_prefix(theirs, k, variant)), (k, variant)

@@ -83,7 +83,12 @@ def test_port_has_modules_for_every_layer():
                  "replication/__init__.py", "replication/replicator.py",
                  "replication/sinks.py", "command/sync.py", "mq/__init__.py",
                  "mq/broker.py", "shell/command_mq.py", "mount/__init__.py",
-                 "mount/page_writer.py", "mount/wfs.py", "mount/fuse_adapter.py"):
+                 "mount/page_writer.py", "mount/wfs.py", "mount/fuse_adapter.py",
+                 "analysis/__init__.py", "analysis/__main__.py", "analysis/graph.py",
+                 "analysis/resources.py", "analysis/envreg.py", "analysis/durability.py",
+                 "analysis/donation.py", "analysis/lock_order.py", "analysis/wire_drift.py",
+                 "analysis/obs_drift.py", "analysis/lockrec.py", "analysis/fsrec.py",
+                 "ops/cuda_lowering.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc"):
         assert os.path.exists(os.path.join(PORT, "csrc", src)), src
