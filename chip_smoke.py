@@ -6,7 +6,8 @@ Phases, one JSON line each:
   device   the card (nvidia-smi name and power limit), the torch and CUDA
            versions, and whether grpc and google.protobuf import (their
            versions, or null); exits 1 without CUDA
-  build    compiles every kernel library from seaweedfs_tpu_torch/csrc/
+  build    compiles every kernel library from seaweedfs_tpu_torch/csrc/,
+           and beside them the host codecs' library (csrc/gf_host.cc, g++)
   lowering the build proof (`ops/cuda_lowering.py`): every library again
            (now from the cache: its kept ptxas log must name as many
            kernels as the cold build's), each one's registers, spill bytes
@@ -80,6 +81,19 @@ Phases, one JSON line each:
            `read_intervals`, whose two intervals per lost shard decode in one
            bucketed `reconstruct_batch`. Every blob must equal the .dat bytes,
            zero-padded past its end; a deleted needle raises NeedleDeleted
+  host_codec
+           right after e2e: the host codecs of `csrc/gf_host.cc` on the
+           card's host (its CPU model and cores, AVX2, the XOR executor's
+           SIMD level; a host where the library does not build fails):
+           native, xorsched and xorsched's numpy interpreter byte-exact
+           (tolerance 0) against the int8 kernel and its plain version at
+           (4, 10) x 4 MiB and (1, 10) x 4 KiB, with their GB/s; volume 1
+           loses shards 0/5/10/13 again and is rebuilt by
+           `command.local.rebuild` with a native and an xorsched encoder,
+           every rebuilt shard's sha256 equal to the card rebuild's; each
+           rebuild's survivor GB/s beside the card's from this run and the
+           card/native ratio (the AVX2 baseline on the card's own host).
+           Must take 20 s or less
   mesh     right after e2e, with the launch counts reset: volume 2 (the
            1 GiB factory volume, 64 MiB large blocks) through
            `command.local.encode` with a mesh encoder (`Encoder(backend=
@@ -1060,6 +1074,94 @@ def run_volume(base: str, gib: float, large_block: int, seed: int, card: str,
         "verified": True, "crc_match": True, "decoded_sha256_match": True,
         "card": card, "degraded_read": degraded,
     }
+
+
+def _host_gbps(fn, in_bytes: int, runs: int) -> tuple:
+    """(fn's result, GB/s of input bytes over its best of `runs` calls)."""
+    best, out = float("inf"), None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, in_bytes / best / 1e9
+
+
+def run_host_codec(base: str, vol: dict, seed: int, card: str, device: str = "cuda") -> dict:
+    """The host codecs on the card's host (`native`, the AVX2 split table
+    of `csrc/gf_host.cc` on all cores, and `xorsched`, its XOR-schedule
+    executor at the knobs' defaults, and that executor's numpy
+    interpreter): the host's fingerprint and SIMD levels, each codec
+    byte-exact (tolerance 0) against the int8 kernel and its plain version
+    at the encode shape (4, 10) x 4 MiB and the degraded shape (1, 10) x
+    4 KiB, with its GB/s there; then the factory volume at `base` (its
+    shards rebuilt on the card by `run_volume`) loses LOST again and is
+    rebuilt by `command.local.rebuild` with a native and then an xorsched
+    encoder, each rebuilt shard's sha256 equal to the card rebuild's. Its
+    rebuild GB/s (survivor bytes, the survivors in the page cache from the
+    card's run) beside the card's from `vol`: the card/native ratio is the
+    AVX2 baseline on the card's own host, a reading."""
+    from seaweedfs_tpu_torch.command import local
+    from seaweedfs_tpu_torch.ec import stripe
+    from seaweedfs_tpu_torch.ops import gf8, rs_codec, rs_cuda, xorsched
+    from seaweedfs_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    out = {"phase": "host_codec", "card": card, "host": rs_codec._host_fingerprint(),
+           "has_avx2": native.has_avx2(), "has_mt": native.has_mt(),
+           "xor_simd": xorsched.native_level(), "native_available": xorsched.native_available(),
+           "tolerance": 0}
+    check(out["native_available"] and out["xor_simd"] != "unavailable",
+          "csrc/gf_host.cc did not build on the card's host: only the interpreter would run")
+    rng = np.random.default_rng(seed)
+    one_lost = rs_codec.Encoder(10, 4, device="cpu").reconstruction_matrix(
+        [s for s in range(14) if s != 5][:10], (5,))
+    codecs = {"native": rs_codec.Encoder(10, 4, backend="native"),
+              "xorsched": rs_codec.Encoder(10, 4, backend="xorsched")}
+    cases = []
+    for label, m, n in (("encode", gf8.parity_matrix(10, 4), 4 << 20), ("degraded4k", one_lost, 4096)):
+        data = rng.integers(0, 256, (10, n), dtype=np.uint8)
+        dev = torch.from_numpy(data).to(device)
+        int8 = rs_cuda.apply_matrix(m, dev, variant="int8").cpu().numpy()
+        plain = rs_cuda.plain_apply(m, dev, variant="int8").cpu().numpy()
+        row = {"shape": label, "matrix": list(m.shape), "data": list(data.shape),
+               "plain_equal": bool(np.array_equal(plain, int8))}
+        runs = 3 if label == "encode" else 20
+        for name, enc in codecs.items():
+            got, row[f"{name}_gbps"] = _host_gbps(lambda e=enc: e.project(m, data), data.nbytes, runs)
+            row[f"{name}_equal"] = bool(np.array_equal(got, int8))
+        # the interpreter at a 64 KiB tile (fewer numpy calls; the bytes are the same)
+        prog = xorsched.compile_schedule(m, tile_sym=64 << 10)
+        got, row["interpreter_gbps"] = _host_gbps(
+            lambda: np.stack(xorsched.apply(prog, list(data))), data.nbytes, 1)
+        row["interpreter_equal"] = bool(np.array_equal(got, int8))
+        row["equal"] = all(v for k, v in row.items() if k.endswith("_equal"))
+        row["max_abs_err"] = 0 if row["equal"] else 255
+        cases.append(row)
+    out["cases"] = cases
+    check(all(c["equal"] for c in cases), f"host codecs disagree with the int8 kernel: {cases}")
+    card_sha = {s: sha256_file(stripe.shard_file_name(base, s)) for s in LOST}
+    shard = vol["shard_bytes"]
+    rebuilds = {"card": {"gbps": vol["rebuild_gbps"], "seconds": vol["rebuild_s"],
+                         "variant": vol["variant"]}}
+    for name, enc in codecs.items():
+        for s in LOST:
+            os.remove(stripe.shard_file_name(base, s))
+        t0 = time.perf_counter()
+        reb = local.rebuild(base, "cpu", encoder=enc)
+        seconds = time.perf_counter() - t0
+        check(reb["rebuilt_shards"] == list(LOST), reb)
+        same = {s: sha256_file(stripe.shard_file_name(base, s)) == card_sha[s] for s in LOST}
+        check(all(same.values()), f"{name} rebuild differs from the card's: {same}")
+        rebuilds[name] = {"seconds": seconds, "gbps": 10 * shard / seconds / 1e9,
+                          "sha256_equal": True}
+    out["rebuild"] = {"shard_bytes": shard, "survivor_bytes": 10 * shard, "lost": list(LOST),
+                      "page_cache": "warm", **rebuilds}
+    out["card_over_native"] = rebuilds["card"]["gbps"] / rebuilds["native"]["gbps"]
+    out["card_over_xorsched"] = rebuilds["card"]["gbps"] / rebuilds["xorsched"]["gbps"]
+    out["schedule_cache"] = xorsched.schedule_cache_info()
+    out["seconds"] = time.perf_counter() - t_phase
+    check(out["seconds"] <= 20.0, f"the host_codec phase took {out['seconds']:.1f} s (> 20 s)")
+    return out
 
 
 MESH_LOST = (0, 5, 11, 13)
@@ -5082,10 +5184,17 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "grpc": _version_if_importable("grpc"),
           "protobuf": _version_if_importable("google.protobuf")})
 
+    from seaweedfs_tpu_torch.utils import native
+
     t0 = time.perf_counter()
+    # the host codecs' library (g++) builds beside the kernels (nvcc)
+    host_lib = threading.Thread(target=native.load_gf)
+    host_lib.start()
     built = _build.build()
+    host_lib.join()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {k: {"seconds": v["seconds"]} for k, v in built.items()}})
+          "libraries": {k: {"seconds": v["seconds"]} for k, v in built.items()},
+          "gf_host": native.load_gf() is not None})
     check(set(built) == set(_build.SOURCES), f"built {sorted(built)}")
     for name, v in built.items():
         print(f"[{name}] {v['ptxas']}", file=sys.stderr)
@@ -5133,6 +5242,8 @@ def main(argv=None) -> int:
         reads = [v.pop("degraded_read") for v in vols]
         emit({"phase": "e2e", "card": card, "volumes": vols, "launches": main_launches})
         emit({"phase": "degraded_read", "card": card, "volumes": [r for r in reads if r]})
+        # the host codecs on this host, against the card, on volume 1
+        emit(run_host_codec(os.path.join(SCRATCH, "1"), vols[0], args.seed, card))
         # the mesh path counts its own launches (reset inside, read after)
         slice_lines = {"mesh": run_mesh(SCRATCH, vols[1], card)}
         emit({"phase": "mesh", **slice_lines["mesh"]})

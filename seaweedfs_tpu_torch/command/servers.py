@@ -98,7 +98,8 @@ def _maybe_metrics(port: int):
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--device", default=None,
-        help="torch device the EC work runs on (default: cuda; cpu runs the plain version)",
+        help="torch device the EC work runs on (default: cuda; cpu runs the plain version; "
+             "WEEDTPU_BACKEND=native|xorsched runs that host codec on the CPU instead)",
     )
 
 

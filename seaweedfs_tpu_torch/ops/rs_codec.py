@@ -1,11 +1,20 @@
 """Reed-Solomon codec facade: the `reedsolomon.Encoder`-shaped seam.
 
-Three backends:
+Five backends:
 
   * "cuda":  the hand-written kernels (`rs_cuda`); the backend of an
     encoder on a CUDA device, and the default (`new_encoder()` runs on the
     card and raises when there is none).
   * "torch": the plain PyTorch versions (`rs_torch`), only with device="cpu".
+  * "native": the host codec of the reference's CPU floor, the AVX2
+    split-table GF(2^8) multiply-accumulate (`csrc/gf_host.cc` through
+    `utils.native`, all cores); always on the CPU, and it raises where the
+    library cannot be built.
+  * "xorsched": the compiled XOR-schedule host codec (`ops.xorsched`): each
+    matrix lowered once to a bit-plane XOR program (a bounded LRU) and
+    replayed by the native executor (GFNI/AVX-512, AVX2 or scalar), or by
+    the numpy interpreter where the library cannot be built
+    (`selection["xor_simd"]` says "unavailable" then); always on the CPU.
   * "mesh":  every card of the host driven from this process
     (`parallel.backend.MeshDispatch`: dp x sp sharded applies, the ring or
     all_to_all rebuild), each card's step the "cuda" backend's kernel; with
@@ -13,10 +22,13 @@ Three backends:
     `new_encoder()` promotes a multi-card host to it only on committed
     on-chip mesh evidence (`pick_mesh_backend`).
 
-Either way an encoder carries a kernel variant (`FUSED_VARIANTS`) and a
-tile, the counterparts of the reference's `pallas_mxu`/`pallas_tile`;
-`new_encoder` on a card picks them from committed on-chip evidence
-(`pick_device_backend`), int8 with its own tile when there is none.
+A card encoder carries a kernel variant (`FUSED_VARIANTS`) and a tile, the
+counterparts of the reference's `pallas_mxu`/`pallas_tile`; `new_encoder`
+on a card picks them from committed on-chip evidence
+(`pick_device_backend`), int8 with its own tile when there is none. The
+host codecs serve only when asked for (`backend=`, `WEEDTPU_BACKEND`, or
+"auto" on the CPU, where `pick_cpu_backend` applies the reference's
+same-host CPU bench rule).
 
 Per-loss-pattern decode matrices are built on the host by GF Gaussian
 elimination and kept in an LRU cache, the role of klauspost's inversion
@@ -36,9 +48,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import gf8, rs_cuda
+from seaweedfs_tpu_torch.ops import gf8, rs_cuda, xorsched
 from seaweedfs_tpu_torch.parallel import sharded
-from seaweedfs_tpu_torch.utils import config
+from seaweedfs_tpu_torch.utils import config, native
 
 #: committed on-chip measurement evidence older than this many days no
 #: longer moves the kernel choice away from int8: the kernels under
@@ -52,6 +64,10 @@ FUSED_VARIANTS = ("int8", "bf16", "u8", "mplane", "dma")
 assert tuple(rs_cuda.KERNELS) == FUSED_VARIANTS, (
     f"kernel table {tuple(rs_cuda.KERNELS)} drifted from FUSED_VARIANTS {FUSED_VARIANTS}"
 )
+
+#: the backends an Encoder takes; the two host codecs run on the CPU
+HOST_CODECS = ("native", "xorsched")
+_BACKENDS = ("cuda", "torch") + HOST_CODECS + ("mesh",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +202,17 @@ class _FusedBlocks(LazyResult):
         self.parts = parts
 
 
+def _host_stack(shards, width: Optional[int] = None) -> np.ndarray:
+    """A uint8 host stack of `shards`, `width` columns wide with zeros past
+    N when given (a bucketed reconstruct)."""
+    host = np.asarray(shards, dtype=np.uint8)
+    if width is not None and width != host.shape[-1]:
+        wide = np.zeros(host.shape[:-1] + (width,), dtype=np.uint8)
+        wide[..., : host.shape[-1]] = host
+        host = wide
+    return host
+
+
 def _host_tensor(a) -> torch.Tensor:
     """A uint8 CPU tensor over `a` without copying where numpy allows it
     (a strided view stays strided; a read-only array is copied)."""
@@ -206,8 +233,10 @@ class Encoder:
     the all-cards rule) over `mesh_devices` (default: every card, or the
     CPU), with the `mesh_rebuild` formulation ("ring" or "alltoall",
     default `WEEDTPU_MESH_REBUILD`) for `reconstruct_lazy`.
-    All shards in one call share a length; striping and padding live a
-    layer up in `ec.stripe`."""
+    backend="native" or "xorsched" runs a host codec on the CPU (device
+    None or "cpu"; another device raises), computing synchronously: its
+    "lazy" results are ndarrays already. All shards in one call share a
+    length; striping and padding live a layer up in `ec.stripe`."""
 
     #: shard-length buckets of the serving path's reconstructs (needle
     #: intervals: KiBs up to one 1 MiB small block). On the card a
@@ -221,7 +250,7 @@ class Encoder:
         parity_shards: int = 4,
         matrix_kind: str = "vandermonde",
         backend: Optional[str] = None,
-        device="cuda",
+        device=None,
         variant: str = "int8",
         tile: Optional[int] = None,
         mesh_shape: Optional[Sequence[int]] = None,
@@ -232,12 +261,23 @@ class Encoder:
             raise ValueError("shard counts must be positive")
         if data_shards + parity_shards > 256:
             raise ValueError("GF(2^8) supports at most 256 total shards")
-        self.device = torch.device(device)
+        if backend in HOST_CODECS:
+            if device is not None and torch.device(device).type != "cpu":
+                raise ValueError(
+                    f"backend {backend!r} is a host codec: it runs on the cpu, not {device}"
+                )
+            device = "cpu"
+            if backend == "native" and native.load_gf() is None:
+                raise RuntimeError(
+                    "backend 'native' needs csrc/gf_host.cc built by the host C++ "
+                    "compiler, and it cannot be built here"
+                )
+        self.device = torch.device("cuda" if device is None else device)
         want = "cuda" if self.device.type == "cuda" else "torch"
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        if backend == "mesh":
-            want = "mesh"
+        if backend == "mesh" or backend in HOST_CODECS:
+            want = backend
         elif backend is not None and backend != want:
             raise ValueError(
                 f"backend {backend!r} does not run on {self.device} (want {want!r} or 'mesh')"
@@ -259,6 +299,8 @@ class Encoder:
             "backend": want, "device": str(self.device), "variant": variant,
             "tile": tile, "source": "explicit",
         }
+        if want == "xorsched":  # the interpreter serves where this is "unavailable"
+            self.selection["xor_simd"] = xorsched.native_level()
         self.gen_matrix = gf8.generator_matrix(matrix_kind, data_shards, self.total_shards)
         self.parity_matrix = np.ascontiguousarray(self.gen_matrix[data_shards:])
         # mesh backend config: dp x sp shape and rebuild formulation (None =
@@ -316,15 +358,46 @@ class Encoder:
         with the result. The mesh backend spreads the columns over its
         devices (`MeshDispatch.apply`)."""
         self._count_dispatch()
+        if self.backend == "native":
+            return self._apply_native(m, _host_stack(shards, width))
+        if self.backend == "xorsched":
+            return self._apply_xorsched(m, _host_stack(shards, width))
         if self.backend == "mesh":
-            host = np.asarray(shards, dtype=np.uint8)
-            if width is not None and width != host.shape[-1]:
-                wide = np.zeros(host.shape[:-1] + (width,), dtype=np.uint8)
-                wide[..., : host.shape[-1]] = host
-                host = wide
-            return self._mesh_dispatch().apply(m, host)
+            return self._mesh_dispatch().apply(m, _host_stack(shards, width))
         dev, src = self._to_device(shards, width)
         return LazyResult(rs_cuda.apply_matrix(m, dev, self.tile, self.variant), source=src)
+
+    @staticmethod
+    def _apply_native(m: np.ndarray, shards: np.ndarray) -> np.ndarray:
+        """The AVX2 split-table apply of `utils.native` on all cores: one
+        library call, per-element slice pointers for a batched stack.
+        Raises where the library is unavailable: no other path serves a
+        native encoder."""
+        shards = np.ascontiguousarray(shards)
+        if shards.shape[-1] == 0:
+            return np.zeros(shards.shape[:-2] + (m.shape[0], 0), dtype=np.uint8)
+        if shards.ndim == 2:
+            outs = native.gf_matrix_apply_native(m, list(shards), shards.shape[1], threads=0)
+            out = None if outs is None else np.stack(outs)
+        else:
+            out = native.gf_matrix_apply_batch_native(m, shards, threads=0)
+        if out is None:
+            raise RuntimeError("the gf_host library is unavailable: the native backend cannot serve")
+        return out
+
+    @staticmethod
+    def _apply_xorsched(m: np.ndarray, shards: np.ndarray) -> np.ndarray:
+        """The compiled XOR-schedule apply (`ops.xorsched`): the matrix
+        lowered once to a bit-plane XOR program (LRU keyed by matrix bytes
+        and tile geometry) and replayed over the shard widths by the native
+        executor, or by the numpy interpreter where the library is missing."""
+        shards = np.ascontiguousarray(shards)
+        if shards.ndim == 2:
+            out = np.stack(xorsched.apply_matrix(m, list(shards)))
+        else:
+            out = np.stack([np.stack(xorsched.apply_matrix(m, list(b))) for b in shards])
+        xorsched.export_cache_stats()
+        return out
 
     def _to_device(self, shards, width: Optional[int] = None
                    ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -545,7 +618,10 @@ class Encoder:
         encoder's kernel on a column view of it (so at any byte offset),
         and the result comes back in one copy when it is read. On the mesh
         backend each block is one mesh dispatch of its host columns, and
-        the blocks are gathered when the result is read."""
+        the blocks are gathered when the result is read. The host codecs
+        return the (max_m, W) ndarray: xorsched runs every block in one
+        `xorsched.apply_blocks` pass, each block its own LRU'd program (the
+        composite matrix is never compiled), native one call per block."""
         if len(staging.shape) != 2:
             raise ValueError(f"want a 2-D (max_k, W) staging batch, got {tuple(staging.shape)}")
         if not blocks:
@@ -570,6 +646,14 @@ class Encoder:
             if a0 + aw > b0:
                 raise ValueError("block column ranges overlap")
         max_m = max(m.shape[0] for _, m, _, _ in spans)
+        if self.backend == "xorsched":
+            return self._reconstruct_block_xorsched(staging, spans, max_m)
+        if self.backend == "native":
+            host = np.asarray(staging, dtype=np.uint8)
+            out = np.empty((max_m, width_total), dtype=np.uint8)
+            for k, m, c0, w in spans:
+                out[: m.shape[0], c0 : c0 + w] = self._apply_lazy(m, host[:k, c0 : c0 + w])
+            return out
         if self.backend == "mesh":
             host, md, handles = np.asarray(staging, dtype=np.uint8), self._mesh_dispatch(), []
             for k, m, c0, w in spans:
@@ -586,6 +670,23 @@ class Encoder:
             )
         return _FusedBlocks(out, src, [(m.shape[0], c0, w) for _, m, c0, w in spans])
 
+    def _reconstruct_block_xorsched(self, staging, spans: Sequence[tuple], max_m: int
+                                    ) -> np.ndarray:
+        """The stitched path: one native (or interpreter) pass over the flat
+        (block, width-tile) task list, each block writing its row slices of
+        the fused output in place."""
+        self._count_dispatch()
+        staging = np.ascontiguousarray(np.asarray(staging, dtype=np.uint8))
+        out = np.empty((max_m, staging.shape[1]), dtype=np.uint8)
+        progs, ins, outs = [], [], []
+        for k, m, c0, w in spans:
+            progs.append(xorsched.get_schedule(m))
+            ins.append([staging[r, c0 : c0 + w] for r in range(k)])
+            outs.append([out[r, c0 : c0 + w] for r in range(m.shape[0])])
+        xorsched.apply_blocks(progs, ins, outputs_per_block=outs)
+        xorsched.export_cache_stats()
+        return out
+
     def reconstruct_batch(
         self, stack, survivors: Sequence[int], wanted: Sequence[int], bucketed: bool = False
     ) -> np.ndarray:
@@ -601,9 +702,10 @@ class Encoder:
 
     def _bucket_for(self, n: int) -> Optional[int]:
         """The bucket an N-column reconstruct pads to: None on the CPU
-        (the plain version has no shapes to repeat, and padding only adds
-        columns), for N = 0, and past the largest bucket."""
-        if self.backend == "torch" or n == 0:
+        (the plain version and the host codecs have no shapes to repeat,
+        and padding only adds columns), for N = 0, and past the largest
+        bucket."""
+        if self.backend in ("torch",) + HOST_CODECS or n == 0:
             return None
         for b in self.RECONSTRUCT_BUCKETS:
             if n <= b:
@@ -624,8 +726,9 @@ class Encoder:
         """Launch each bucketed reconstruct shape once, so the first
         degraded read finds the kernel library loaded and the operand
         cache filled (any matrix of the right shape will do). Returns the
-        shapes launched: 0 on the CPU, where there is nothing to warm."""
-        if self.backend == "torch":
+        shapes launched: 0 on the CPU, where there is nothing to warm (an
+        xorsched program is compiled at its first dispatch)."""
+        if self.backend in ("torch",) + HOST_CODECS:
             return 0
         count = 0
         for rows in wanted_counts:
@@ -954,6 +1057,148 @@ def pick_mesh_backend(n_devices: int, art_dir: Optional[str] = None) -> tuple[bo
     return True, decision
 
 
+# -- committed CPU bench evidence (the xorsched promotion input) ----------------
+
+
+def _cpu_backend() -> str:
+    """Best CPU path: the host codec library ("native") when it builds and
+    loads, else the plain version ("torch")."""
+    return "native" if native.load_gf() is not None else "torch"
+
+
+def _host_fingerprint() -> dict:
+    """Identity of THIS host for same-host evidence matching: cpu model
+    string + logical core count. Hostnames are ephemeral in the fleet;
+    the model+cores pair is what decides whether a committed BENCH number
+    was measured on silicon equivalent to the one now selecting."""
+    model = ""
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as f:
+            for line in f:
+                if line.lower().startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if not model:
+        import platform
+
+        model = platform.processor() or platform.machine() or ""
+    return {"cpu": model, "cores": int(os.cpu_count() or 0)}
+
+
+def load_cpu_bench_evidence(art_dir: Optional[str] = None) -> Optional[dict]:
+    """Newest `BENCH_r*.json` in the port's evidence directory (`art_dir`,
+    default `artifacts/`) whose payload carries an `xor` section, unwrapped
+    from the round wrapper ({"n", "cmd", "rc", "tail", "parsed"}) when
+    present, with `_file` recording provenance. Rounds without an xor
+    section are skipped rather than treated as de-promoting evidence. None
+    when no readable file carries one; an unreadable newest file does not
+    hide older ones."""
+    art_dir = art_dir or _artifacts_dir()
+    try:
+        names = sorted(
+            f for f in os.listdir(art_dir) if f.startswith("BENCH_r") and f.endswith(".json")
+        )
+    except OSError:
+        return None
+    for name in reversed(names):
+        try:
+            with open(os.path.join(art_dir, name), encoding="utf-8") as f:
+                ev = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if not isinstance(ev, dict):
+            continue
+        if isinstance(ev.get("parsed"), dict):
+            ev = dict(ev["parsed"], n=ev.get("n"))
+        if isinstance(ev.get("xor"), dict):
+            ev["_file"] = name
+            return ev
+    return None
+
+
+def pick_cpu_backend(art_dir: Optional[str] = None) -> tuple[str, dict]:
+    """The CPU-floor decision of `backend="auto"` on the CPU: the compiled
+    XOR-schedule backend ONLY when a committed `BENCH_r*.json` carries a
+    fresh SAME-HOST byte-verified measurement in which xorsched's encode
+    beats the native number recorded in the SAME run (both numbers move
+    with a shared box's noise together, so the committed ratio is the
+    evidence). Absent, stale, other-host, unverified or losing evidence
+    keeps `_cpu_backend()`'s pick, and so does a host whose native executor
+    cannot be built: the interpreter cannot beat AVX2. The decision dict
+    names the evidence file and round, both numbers and the reason; its
+    reason strings are the reference's."""
+    base = _cpu_backend()
+    ev = load_cpu_bench_evidence(art_dir)
+    if ev is None:
+        return base, {
+            "backend": base,
+            "reason": "no committed CPU bench evidence with an xor section",
+        }
+    xor = ev["xor"]
+    decision: dict = {"evidence_file": ev.get("_file"), "evidence_round": _evidence_round(ev)}
+    age = _evidence_age_days(xor)
+    if age is None:
+        decision.update(
+            backend=base,
+            reason=f"xor evidence age unparseable (when={xor.get('when')!r}): treated as stale",
+        )
+        return base, decision
+    if age > EVIDENCE_MAX_AGE_DAYS:
+        decision.update(
+            backend=base,
+            reason=f"xor evidence stale ({age:.0f}d > {EVIDENCE_MAX_AGE_DAYS:.0f}d)",
+        )
+        return base, decision
+    host = xor.get("host") or {}
+    here = _host_fingerprint()
+    if str(host.get("cpu", "")) != here["cpu"] or int(host.get("cores") or 0) != here["cores"]:
+        decision.update(
+            backend=base,
+            reason=(
+                f"evidence measured on a different host "
+                f"({host.get('cpu')!r} x{host.get('cores')}): not transferable"
+            ),
+        )
+        return base, decision
+    if xor.get("match") is not True:
+        # only a run that completed byte verification is evidence: a
+        # fast-but-wrong executor must not promote
+        decision.update(backend=base, reason="xor evidence did not complete byte-verification")
+        return base, decision
+    enc = xor.get("encode") or {}
+    xs, nat = enc.get("xorsched_gbps"), enc.get("native_gbps")
+    decision["xorsched_gbps"] = float(xs) if isinstance(xs, (int, float)) else None
+    decision["native_gbps"] = float(nat) if isinstance(nat, (int, float)) else None
+    if not isinstance(xs, (int, float)) or not isinstance(nat, (int, float)) or nat <= 0:
+        decision.update(
+            backend=base, reason="xor evidence lacks a same-run xorsched/native encode pair"
+        )
+        return base, decision
+    if xs <= nat:
+        decision.update(
+            backend=base,
+            reason=f"committed xorsched encode {xs} does not beat same-run native {nat}",
+        )
+        return base, decision
+    if not xorsched.native_available():
+        # the reference's reason word for word (the decision dicts compare equal)
+        decision.update(
+            backend=base,
+            reason=(
+                "libweedtpu.so lacks weedtpu_xor_schedule_apply "
+                "(stale binary: run make -C native): library path keeps serving"
+            ),
+        )
+        return base, decision
+    decision.update(
+        backend="xorsched",
+        reason=f"committed same-host bench: xorsched encode {xs} beats same-run native {nat}",
+    )
+    return "xorsched", decision
+
+
 def _card_count() -> int:
     return torch.cuda.device_count()
 
@@ -977,24 +1222,57 @@ def new_encoder(
     is recorded either way. backend="mesh" forces the mesh backend
     (`WEEDTPU_MESH_SHAPE`/`WEEDTPU_MESH_REBUILD`, evidence or the default
     rule); a mesh encoder's mesh is built here, so one that cannot be built
-    raises now. The decision and an audit line land on `enc.selection`."""
+    raises now.
+
+    backend="native" or "xorsched" builds that host codec on the CPU,
+    whatever `device` says ("native" raises where its library cannot be
+    built). backend="auto" on the CPU (device="cpu", or no device and no
+    card) is the reference's CPU-host rule, `pick_cpu_backend`; on a card it
+    is the default above. `WEEDTPU_BACKEND`, when set and not empty,
+    overrides a caller that names no backend (source
+    "env:WEEDTPU_BACKEND"); unlike the reference's, an unset knob keeps the
+    port's default, not "auto". No other path reaches a host codec. The
+    decision and an audit line land on `enc.selection`."""
     if family is not None:
         geom = geometry_for(family)
         data_shards, parity_shards = geom.data_shards, geom.parity_shards
         matrix_kind = geom.matrix_kind
-    dev = torch.device("cuda" if device is None else device)
+    source: Optional[str] = None
+    if backend is None:
+        env = config.env("WEEDTPU_BACKEND").strip().lower()
+        if env:
+            if env not in ("auto",) + _BACKENDS:
+                raise ValueError(f"WEEDTPU_BACKEND={env!r} is not one of {('auto',) + _BACKENDS}")
+            backend = env
+            source = None if env == "auto" else "env:WEEDTPU_BACKEND"
+    if backend in HOST_CODECS or (backend == "torch" and device is None):
+        dev = torch.device("cpu")
+    elif backend == "auto" and device is None:
+        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    else:
+        dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port's encoder runs on the card; pass "
             "device='cpu' for the plain version"
         )
+    if source is None:
+        source = "default" if device is None and backend in (None, "auto") else "explicit"
     decision: dict = {}
+    if backend == "auto":
+        if dev.type == "cpu":
+            backend, decision = pick_cpu_backend()
+            source = "cpu-bench-evidence" if decision.get("evidence_file") else "platform"
+        else:
+            backend = None  # the card's default
     variant, tile = "int8", None
     mesh_dec: Optional[dict] = None
     mesh_kwargs: dict = {}
     if dev.type == "cuda":
         variant, decision = pick_device_backend(data_shards=data_shards, parity_shards=parity_shards)
         tile = decision.get("tile")
+        if decision.get("evidence_file"):
+            source = "on-chip-evidence"
         n_dev = _card_count()
         if n_dev > 1 and backend is None:
             ok, mesh_dec = pick_mesh_backend(n_dev)
@@ -1006,11 +1284,8 @@ def new_encoder(
     enc = Encoder(data_shards, parity_shards, matrix_kind=matrix_kind,
                   backend="mesh" if mesh_kwargs else backend, device=dev,
                   variant=variant, tile=tile, **mesh_kwargs)
-    source = "default" if device is None and backend is None else "explicit"
-    if decision.get("evidence_file"):
-        source = "on-chip-evidence"
-    selection = dict(decision, backend=enc.backend, device=str(dev), variant=variant,
-                     tile=tile, source=source)
+    selection = dict(decision, **enc.selection)
+    selection["source"] = source
     if mesh_dec is not None:
         selection["mesh"] = mesh_dec
         if mesh_kwargs:

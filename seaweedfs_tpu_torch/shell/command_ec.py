@@ -1386,7 +1386,11 @@ def do_ec_backend(args: list[str], env: CommandEnv, w: TextIO) -> None:
     variant and tile `new_encoder()` picks HERE for the shell's device and
     why — the evidence file/round behind a promotion, the mesh shape and
     rebuild formulation when the multi-card path is selected, and the reason
-    string when the default holds. On the CPU it names the plain version.
+    string when the default holds. On the CPU it names the plain version,
+    and for the CPU paths (torch, native, xorsched) it prints the
+    reference's CPU-floor line: which one serves, the BENCH evidence round
+    behind an xorsched promotion (- when the default held), the SIMD level
+    of the XOR executor and this process's compiled-schedule LRU.
     Read-only; no cluster lock."""
     parse_flags(args)
     from seaweedfs_tpu_torch.ops.rs_codec import new_encoder
@@ -1404,6 +1408,18 @@ def do_ec_backend(args: list[str], env: CommandEnv, w: TextIO) -> None:
         w.write(f"ec.backend: mesh not promoted: {mesh_dec.get('reason', 'n/a')}\n")
     if enc.backend == "torch":
         w.write("ec.backend: cpu: path=rs_torch (the kernels' plain version)\n")
+    if enc.backend in ("torch", "native", "xorsched"):
+        from seaweedfs_tpu_torch.ops import xorsched
+
+        ci = xorsched.schedule_cache_info()
+        w.write(
+            "ec.backend: cpu floor: "
+            f"path={enc.backend} "
+            f"evidence_round={enc.selection.get('evidence_round', '-')} "
+            f"xor_simd={xorsched.native_level()} "
+            f"sched_cache={ci['hits']}hit/{ci['misses']}miss "
+            f"size={ci['size']}/{ci['cap']} evict={ci['evictions']}\n"
+        )
 
 
 register(
@@ -1411,7 +1427,8 @@ register(
         "ec.backend",
         "ec.backend\n\treport the encoder factory's selection audit (kernel "
         "variant, tile,\n\tevidence file and round when a variant is promoted, "
-        "and the reason\n\tthe default held otherwise)",
+        "and the reason\n\tthe default held otherwise; on the CPU, the "
+        "cpu-floor line)",
         do_ec_backend,
     )
 )

@@ -203,6 +203,44 @@ ENV_REGISTRY: dict[str, EnvVar] = {
             "LRU cap on cached decode matrices.",
         ),
         EnvVar(
+            "WEEDTPU_BACKEND", "",
+            "Operator override of the encoder factory for callers that name no "
+            "backend: one of cuda | torch | native | xorsched | mesh | auto. "
+            "native and xorsched are the host codecs (csrc/gf_host.cc) and run "
+            "on the CPU whatever the device; auto runs the measured decision "
+            "(on the CPU, committed same-host CPU bench evidence). Empty keeps "
+            "the port's default (the card's kernel, or the plain version with "
+            "device cpu), not auto. Explicit new_encoder(backend=...) callers "
+            "are never overridden.",
+            str,
+        ),
+        EnvVar(
+            "WEEDTPU_XORSCHED_TILE_KB", 4,
+            "Width-axis tile of the xorsched executors, in KB per shard: each "
+            "tile keeps the whole bit-plane slot frame (inputs + grouped temps + "
+            "outputs) cache-resident while the XOR program replays. 4 KB keeps "
+            "the frame L1-sized; clamped to >= 1.",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_XORSCHED_CACHE", 64,
+            "Entry cap of the compiled XOR-schedule LRU (keyed by matrix bytes "
+            "+ tile geometry, like the decode-matrix memo). A compile takes tens "
+            "of milliseconds (a 10+4 parity) to about a second (a 20+4 decode "
+            "of four shards) and programs are KBs, so a small cap covers every "
+            "live (geometry, erasure-pattern) pair; clamped to >= 1.",
+            _at_least(1),
+        ),
+        EnvVar(
+            "WEEDTPU_XORSCHED_THREADS", 1,
+            "Worker threads of the width-parallel native xorsched executor: the "
+            "fused block-diagonal decode flattens to independent (block, "
+            "width-tile) tasks, spread across this many threads. 0 means "
+            "hardware concurrency (resolved natively); 1 keeps the "
+            "single-stream path; clamped to >= 0.",
+            _at_least(0),
+        ),
+        EnvVar(
             "WEEDTPU_V", 0,
             "glog verbosity level: glog.V(n) call sites with n <= this emit.",
         ),

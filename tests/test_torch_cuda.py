@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from seaweedfs_tpu_torch.ec import stripe
-from seaweedfs_tpu_torch.ops import gf8, rs_codec, rs_cuda, rs_torch
+from seaweedfs_tpu_torch.ops import cuda_lowering, gf8, rs_codec, rs_cuda, rs_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -2236,6 +2236,30 @@ def test_lowering_proof_on_the_card(card):
     for spec in cuda_lowering.PROOF_SHAPES:
         shas = {e["sha256"] for e in launches if e["shape"] == spec["name"]}
         assert len(shas) == 1, spec["name"]
+
+
+@pytest.mark.parametrize("shape", [s["name"] for s in cuda_lowering.PROOF_SHAPES])
+def test_host_codecs_equal_the_int8_kernel_at_the_proof_shapes(card, shape):
+    """The host codecs on the card's host (the native split table, the
+    xorsched native executor and its interpreter) against the int8 kernel
+    at every build-proof shape, byte-exact; each runs compiled here."""
+    from seaweedfs_tpu_torch.ops import xorsched
+    from seaweedfs_tpu_torch.utils import native
+
+    assert native.load_gf() is not None and xorsched.native_available()
+    spec = next(s for s in cuda_lowering.PROOF_SHAPES if s["name"] == shape)
+    m = cuda_lowering.proof_matrix(spec["rows"], spec["cols"])
+    host = cuda_lowering.proof_input(spec)
+    want = rs_cuda.apply_matrix(m, torch.from_numpy(host).to(card), spec["tile"], "int8")
+    want = want.cpu().numpy()
+    for backend in ("native", "xorsched"):
+        enc = rs_codec.Encoder(spec["cols"], 1, backend=backend)
+        assert enc.device.type == "cpu"
+        assert np.array_equal(np.asarray(enc._apply_lazy(m, host)), want), backend
+    prog = xorsched.get_schedule(m)
+    for b in range(spec["batch"]):
+        assert np.array_equal(np.stack(xorsched.apply(prog, list(host[b]))), want[b])
+        assert np.array_equal(np.stack(xorsched.apply_native(prog, list(host[b]), 0)), want[b])
 
 
 #: run in a fresh process: the port's recorder is installed before any of

@@ -36,11 +36,8 @@ PORT = os.path.join(ROOT, "seaweedfs_tpu_torch")
 #: the port's recorders directly, so no port code reads them
 RECORDER_KNOBS = {"WEEDTPU_LOCK_OBSERVE", "WEEDTPU_LOCK_OBSERVE_OUT", "WEEDTPU_FS_OBSERVE",
                   "WEEDTPU_FS_OBSERVE_OUT"}
-#: registered in the reference, not in the port: the knobs of the modules
-#: the port leaves out (xorsched, the backend selector) and the recorder
-#: switches
-LEFT_OUT_KNOBS = {"WEEDTPU_BACKEND", "WEEDTPU_XORSCHED_CACHE", "WEEDTPU_XORSCHED_THREADS",
-                  "WEEDTPU_XORSCHED_TILE_KB"} | RECORDER_KNOBS
+#: registered in the reference, not in the port: the recorder switches
+LEFT_OUT_KNOBS = RECORDER_KNOBS
 
 
 def fixture(name: str) -> str:
@@ -101,14 +98,12 @@ def test_fixture_findings_equal_reference(case, strict, monkeypatch):
 
 
 def test_env_fixture_differs_only_by_left_out_knobs():
-    """Under the port's own registry the env fixture gains exactly one
-    finding: its read of a knob of the left-out xorsched module."""
+    """Under the port's own registry the env fixture's findings are the
+    reference's: the xorsched knobs it reads are registered in both (the
+    host codecs are ported), and only the recorder switches are left out."""
     port = set(_keys(run(paths=[fixture("env_raw.py")], root=FIXTURES)))
     ref = set(_keys(ref_run(paths=[fixture("env_raw.py")], root=FIXTURES)))
-    assert ref <= port
-    extra = port - ref
-    assert [(r, ln) for r, _, ln, _ in extra] == [("env-unregistered", 16)], extra
-    assert "WEEDTPU_XORSCHED_CACHE" in next(iter(extra))[3]
+    assert port == ref and port
     assert set(ref_config.ENV_REGISTRY) - set(config.ENV_REGISTRY) == LEFT_OUT_KNOBS
 
 
@@ -177,10 +172,11 @@ def test_env_fixture_fires():
     assert len(raw) == 4, findings  # .get x2, getenv, subscript read
     assert all(f.line <= 14 for f in raw), raw
     names = " ".join(f.message for f in unreg)
-    # the reference's two, and the left-out xorsched knob the port lacks
-    assert len(unreg) == 3, findings
-    for name in ("WEEDTPU_NO_SUCH_KNOB", "WEEDTPU_XORSCHED_LRU", "WEEDTPU_XORSCHED_CACHE"):
+    # the reference's two: the xorsched cache knob is registered in the port too
+    assert len(unreg) == 2, findings
+    for name in ("WEEDTPU_NO_SUCH_KNOB", "WEEDTPU_XORSCHED_LRU"):
         assert name in names
+    assert "WEEDTPU_XORSCHED_CACHE" not in names
 
 
 def test_resource_fixture_fires():
@@ -386,7 +382,10 @@ def test_analysis_knobs_are_the_reference_ones(monkeypatch):
 
 def test_setdefault_env_keeps_exported_values_and_refuses_unknown_knobs(monkeypatch):
     monkeypatch.setenv("WEEDTPU_SCRUB", "off")
-    monkeypatch.delenv("WEEDTPU_SCRUB_INTERVAL", raising=False)
+    # set first, so that the teardown removes what setdefault_env adds (a
+    # delenv of an unset name records nothing to restore)
+    monkeypatch.setenv("WEEDTPU_SCRUB_INTERVAL", "")
+    monkeypatch.delenv("WEEDTPU_SCRUB_INTERVAL")
     config.setdefault_env({"WEEDTPU_SCRUB": "on", "WEEDTPU_SCRUB_INTERVAL": "0.5"})
     assert os.environ["WEEDTPU_SCRUB"] == "off"
     assert os.environ["WEEDTPU_SCRUB_INTERVAL"] == "0.5"
