@@ -318,12 +318,12 @@ Phases, one JSON line each:
            its md5 and its sha256 the file's; (3) `filer.copy` of 64 seeded
            local files, read back byte-equal; `filer.meta.tail` from the
            phase's start: one JSON line per event; (4) a WFS mount (chunk
-           cache off): 64 degraded files read whole and 256 seeded 64 KiB
+           cache off): 64 degraded files read whole and 128 seeded 64 KiB
            ranges, byte-equal, launches predicted; a 64 MiB file by seeded
            random writes with auto-flush, truncated, renamed, read back; (5)
            `fs.configure -locationPrefix /topics/ -collection mqwarm`, the
            `mq.broker` command's Broker, `mq.topic.configure -partitions 4`
-           through the shell, 8192 seeded 1 KiB records from 4 publishers,
+           through the shell, 2048 seeded 1 KiB records from 4 publishers,
            the broker stopped (its segments flush), `ec.encode -collection
            mqwarm` with shards 0 and 5 lost, a broker started again and a
            consumer group of two reading every record from the start:
@@ -332,6 +332,27 @@ Phases, one JSON line each:
            the segments' needles. Prints replicate files/s and MB/s, read
            p50/p99 by class per step, publish and consume records/s, and
            kernel ms x launches against the wall
+  bench    (on an emptied scratch directory) the measurement harness
+           `seaweedfs_tpu_torch/bench.py` on the card, in this process (its
+           launches counted), at the reference smokes' sizes: a `probe`
+           child (`python -m seaweedfs_tpu_torch.bench`), `xor --smoke`
+           (the four matrix forms through both XOR executors and the int8
+           kernel, byte-exact to the gf8 golden), `rebuild_batch --smoke`
+           (one fused dispatch for 5 signatures, 5 unfused, bytes equal),
+           `rebuild_remote` and `rebuild_trace` (in-process servers, 1 MiB;
+           rebuilt shards equal the golden, the trace wire 2/10 of the
+           slab's), `ingest` (inline equal to warm, delta bytes < 0.5x) and
+           `convert` (both pairs equal to the oracle, moved <= 0.5x); the
+           `device` mode on one (10, 4 MiB) batch (the plain version and the
+           five kernels: per-call and steady GB/s, device ms, each equal to
+           int8's; the rebuild matrix; a `torch.profiler` trace under the
+           scratch directory); and `scripts/device_window.py --window` with
+           a 300 s budget (stage 1 at (8, 10, 4 MiB), the sweep skipped,
+           the 128 MiB e2e encode and both rebuilds, the remote rebuild
+           at 8 MiB, not 48), every output under the scratch directory and its
+           GPU_MEASUREMENT file the one `pick_device_backend` reads there.
+           Prints each mode's ok, seconds and headline numbers, and the
+           phase's launches by kernel
   shell    (on an emptied scratch directory) the SeaweedFS wiki's EC
            deployment: a port master with WEEDTPU_REPAIR=on and a 256 MiB
            volume size limit, five volume servers in racks r0-r4 (each on
@@ -3970,13 +3991,13 @@ SYNC_BUCKET = "syncbkt"
 SYNC_VOLUMES = 3  # grown up front for the replica and the bucket
 SYNC_COPY_FILES = 64
 SYNC_MOUNT_FILES = 64
-SYNC_MOUNT_RANGES = 256
+SYNC_MOUNT_RANGES = 128  # cut from 256 for the script's time
 SYNC_MOUNT_RANGE = 64 << 10
 SYNC_MOUNT_WRITE = 64 << 20
 SYNC_MQ_COLLECTION = "mqwarm"
 SYNC_MQ_TOPIC = "events"
 SYNC_MQ_PARTITIONS = 4
-SYNC_MQ_RECORDS = 8192
+SYNC_MQ_RECORDS = 2048  # cut from 8192 for the script's time: each publish is one unary call
 SYNC_MQ_RECORD = 1 << 10
 SYNC_MQ_PUBLISHERS = 4
 SYNC_MQ_COMMIT_EVERY = 64
@@ -4559,6 +4580,142 @@ def run_sync(root: str, master, servers: list, fs, tree: dict, seed: int, card: 
 #: the shell and fleet phases' deployment (the SeaweedFS wiki's "Erasure
 #: Coding for warm storage": 10+4, volumes sealed once full, ec.encode
 #: -fullPercent=95, rack-aware spread, ec.rebuild/ec.balance under the lock)
+BENCH_WINDOW_BUDGET = 300  # under the 600 s the sweep needs: the sweep phase runs it
+BENCH_REMOTE_MIB = 8  # the window's remote rebuild, cut from 48 MiB for the call's time
+
+
+def _bench_mode(modes: dict, name: str, fn):
+    """Run one bench mode, keeping its report's ok, its seconds and its
+    launches by kernel under `modes[name]`."""
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    before = dict(rs_cuda.launches_by_variant)
+    t0 = time.perf_counter()
+    rep = fn()
+    modes[name] = {"ok": rep.get("ok"), "seconds": time.perf_counter() - t0,
+                   "launches": {k: v - before.get(k, 0)
+                                for k, v in rs_cuda.launches_by_variant.items()
+                                if v > before.get(k, 0)}}
+    return rep
+
+
+def run_bench(scratch: str, card: str, device: str = "cuda") -> dict:
+    """The bench phase (see the module doc): the harness's smoke modes, the
+    device mode and the device window on `device`, each report checked."""
+    from seaweedfs_tpu_torch import bench
+    from seaweedfs_tpu_torch.ops import rs_codec, rs_cuda
+    from seaweedfs_tpu_torch.scripts import device_window
+
+    on_card = device == "cuda"
+    os.makedirs(scratch, exist_ok=True)
+    before = dict(rs_cuda.launches_by_variant)
+    t_phase = time.perf_counter()
+    modes: dict = {}
+
+    def sub(name: str) -> str:
+        path = os.path.join(scratch, name)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    if on_card:
+        probe = _bench_mode(modes, "probe", lambda: bench._run_child("probe", timeout=120)[0] or {})
+        check(probe.get("ok") and probe.get("count") == torch.cuda.device_count(),
+              f"bench probe: {probe}")
+    xor = _bench_mode(modes, "xor", lambda: bench.mode_xor(device, smoke=True))
+    check(xor["ok"] and xor["match"] and xor["device_match"] and all(xor["verify"].values())
+          and all(xor["device_verify"].values()) and "when" not in xor
+          and xor["cache"]["size"] == 4, f"bench xor: {xor}")
+    rb = _bench_mode(modes, "rebuild_batch", lambda: bench.mode_rebuild_batch(device, smoke=True))
+    check(rb["ok"] and "when" not in rb and rb["fused"]["dispatch_groups"] == 1
+          and rb["unfused"]["dispatch_groups"] == rb["storm"]["signatures"] > 1
+          and rb["homogeneous_fused"]["dispatch_groups"] == 1
+          and rb["homogeneous_unfused"]["dispatch_groups"] == 1
+          and rb["verify"]["fused_bytes_match"] and rb["verify"]["unfused_bytes_match"]
+          and rb["rebuilt_bytes"] > 0, f"bench rebuild_batch: {rb}")
+    rr = _bench_mode(modes, "rebuild_remote", lambda: bench._measure_rebuild_remote(
+        sub("rebuild_remote"), **bench.SMOKE_REMOTE, device=device))
+    check(rr["ok"] and rr["match"] and rr["rebuilt_shard_ids"] == [10, 11, 12, 13]
+          and rr["remote_survivors"] == list(range(10))
+          and all(isinstance(rr.get(k), float) for k in (
+              "remote_rebuild_gbps", "local_rebuild_gbps", "overlap_efficiency",
+              "pipelined_vs_serial_fetch_then_decode")), f"bench rebuild_remote: {rr}")
+    rt = _bench_mode(modes, "rebuild_trace", lambda: bench._measure_rebuild_trace(
+        sub("rebuild_trace"), **bench.SMOKE_REMOTE, device=device))
+    check(rt["ok"] and rt["trace"]["match"] and rt["slab"]["match"]
+          and rt["trace"]["mode_reported"] == "trace" and rt["wire_ratio"] <= 0.6
+          and rt["trace"]["wire_bytes"] == 2 * rt["slab"]["wire_bytes"] // 10
+          and rt["trace"]["rebuilt_sha256"] == rt["slab"]["rebuilt_sha256"],
+          f"bench rebuild_trace: {rt}")
+    ing = _bench_mode(modes, "ingest", lambda: bench._measure_ingest(
+        sub("ingest"), **bench.SMOKE_INGEST, device=device))
+    check(ing["ok"] and ing["match"] and ing["delta"]["match"]
+          and ing["inline"]["rows_inline"] == ing["inline"]["rows_total"] > 0
+          and ing["delta"]["bytes_ratio"] < 0.5 and ing["delta"]["overwrite_fraction"] <= 0.011,
+          f"bench ingest: {ing}")
+    cv = _bench_mode(modes, "convert", lambda: bench._measure_convert(
+        sub("convert"), **bench.SMOKE_CONVERT, device=device))
+    check(cv["ok"] and all(p["match"] and p["moved_over_reencode"] <= 0.5
+                           and p["oracle_total_measured"] == p["oracle_total_bytes"]
+                           for p in cv["pairs"].values()) and len(cv["pairs"]) == 2,
+          f"bench convert: {cv}")
+    # --smoke: one (10, 4 MiB) batch, not the reference's eight
+    dv = _bench_mode(modes, "device", lambda: bench.mode_device(
+        device, smoke=True, trace_dir=sub("trace")))
+    check(dv["ok"], f"bench device: {dv}")
+    win_dir = sub("window")
+    with open(os.path.join(scratch, "window.log"), "w") as sink, \
+            contextlib.redirect_stdout(sink):
+        win = _bench_mode(modes, "window", lambda: device_window.window(
+            win_dir, budget=BENCH_WINDOW_BUDGET, device=device, remote_mib=BENCH_REMOTE_MIB))
+    check(win["ok"] and win["stages"]["sweep"] == "skipped: budget"
+          and isinstance(win["stages"]["e2e"], dict) and isinstance(win["stages"]["remote"], dict),
+          f"bench window: {win}")
+    check(set(win["files"]) <= {"GPU_MEASUREMENT_r00.json", "E2E_DEVICE.json",
+                                "REMOTE_REBUILD.json", "device_window.log",
+                                "GPU_MULTICHIP_r00.json"},
+          f"bench window wrote {win['files']}")
+    _variant, decision = rs_codec.pick_device_backend(art_dir=win_dir)
+    check(decision.get("evidence_file") == "GPU_MEASUREMENT_r00.json",
+          f"bench window: the factory read {decision}")
+    launches = {k: v - before.get(k, 0) for k, v in rs_cuda.launches_by_variant.items()
+                if v > before.get(k, 0)}
+    if on_card:
+        check(all(launches.get(v) for v in KERNELS), f"bench: launches {launches}")
+    e2e, remote = win["stages"]["e2e"], win["stages"]["remote"]
+    return {
+        "phase": "bench", "card": card, "seconds": time.perf_counter() - t_phase,
+        "modes": modes, "launches": launches,
+        "xor": {"verify": xor["verify"], "device_verify": xor["device_verify"],
+                "compile": xor["compile"], "native_level": xor["native_level"]},
+        "rebuild_batch": {k: rb[k] for k in ("storm", "fused", "unfused", "verify",
+                                             "rebuilt_bytes")},
+        "rebuild_remote": {k: rr.get(k) for k in (
+            "n_batches", "local_rebuild_gbps", "remote_rebuild_gbps", "overlap_efficiency",
+            "pipelined_vs_serial_fetch_then_decode", "serial_fetch_then_decode_s",
+            "remote_rebuild_wall_s", "match")},
+        "rebuild_trace": {"wire_ratio": rt["wire_ratio"], "wall_ratio": rt["wall_ratio"],
+                          **{m: {k: rt[m][k] for k in ("wall_s", "wire_bytes", "match")}
+                             for m in ("trace", "slab")}},
+        "ingest": {"amortized_over_warm": ing["amortized_over_warm"], "warm": ing["warm"],
+                   "inline": ing["inline"], "delta_bytes_ratio": ing["delta"]["bytes_ratio"]},
+        "convert": {f: {k: p[k] for k in ("convert_s", "oracle_s", "moved_over_reencode", "match")}
+                    for f, p in cv["pairs"].items()},
+        "device": {"shape": dv["shape"], "kernels": dv["kernels"],
+                   **{k: dv.get(k) for k in ("compile_check_secs", "best_gbps", "best_backend",
+                                             "rebuild_torch_steady_gbps",
+                                             "rebuild_cuda_steady_gbps", "trace")}},
+        "window": {"seconds": win["seconds"], "measure": win["stages"]["measure"],
+                   "e2e": {k: e2e.get(k) for k in (
+                       "e2e_seconds", "e2e_gbps", "rebuild_e2e_seconds", "rebuild_e2e_gbps",
+                       "rebuild_e2e_depth1_seconds", "rebuild_match")},
+                   "remote": {k: remote.get(k) for k in (
+                       "remote_rebuild_gbps", "local_rebuild_gbps", "overlap_efficiency",
+                       "pipelined_vs_serial_fetch_then_decode", "rpc_delay_ms", "match")},
+                   "launches_stage1": win["launches_stage1"], "files": win["files"],
+                   "decision": {k: decision.get(k) for k in ("variant", "tile", "reason")}},
+    }
+
+
 STORM_VOLUMES = 8
 STORM_NEEDLE = 1 << 20
 STORM_NEEDLES = 255  # per volume: 255 needles of 1 MiB fill a 256 MiB volume
@@ -5124,14 +5281,15 @@ def run_rack(scratch: str, card: str) -> dict:
         r = json.load(f)
     phases = {p: r.get(p, {}) for p in ("phase1_node", "phase2_rack")}
     gates = {name: {k: ph.get(k) for k in ("victims", "heal_seconds", "coverage_complete",
-                                            "priority_ok")}
+                                            "victims_expelled", "priority_ok")}
                     | {"block_missing": [b["block_missing"] for b in ph.get("batches", [])]}
              for name, ph in phases.items()}
     check(rc == 0 and r["ok"] and r["lost"] == [],
           f"rack: rc {rc}, ok {r['ok']}, lost {r['lost']}, phases {gates}, fusion "
           f"{r.get('fusion')}, violations {r.get('placement_violations')}")
     for name, ph in phases.items():
-        check(ph.get("priority_ok") and ph.get("coverage_complete"), f"rack {name}: {ph}")
+        check(ph.get("priority_ok") and ph.get("coverage_complete") and ph.get("victims_expelled"),
+              f"rack {name}: {ph}")
     check(r["placement_violations"] == [], f"rack: violations {r['placement_violations']}")
     check(r["fusion"]["collapsed"], f"rack: fusion {r['fusion']}")
     batches = [b for ph in phases.values() for b in ph["batches"]]
@@ -5293,6 +5451,10 @@ def main(argv=None) -> int:
         emit({"phase": "filer", **slice_lines["filer"]})
         emit({"phase": "s3", **slice_lines["s3"]})
         emit({"phase": "sync", **slice_lines["sync"]})
+        shutil.rmtree(SCRATCH)  # the bench phase starts on an empty directory
+        os.makedirs(SCRATCH)
+        slice_lines["bench"] = run_bench(SCRATCH, card)
+        emit(slice_lines["bench"])
         shutil.rmtree(SCRATCH)  # the storm starts on an empty directory
         os.makedirs(SCRATCH)
         slice_lines["shell"], slice_lines["fleet"] = run_storm(SCRATCH, args.seed, card,

@@ -287,14 +287,20 @@ def run_rack_mode(seconds: int, device: str = "cuda", out: str | None = None) ->
     `out` (default: SOAK_rack.json in the system temp directory)."""
     # scheduler + detection tuning must land BEFORE the master/server
     # processes exist (Node.start copies os.environ; the in-process
-    # master reads the registry at construction)
+    # master reads the registry at construction). No server names a peer
+    # unreachable here: a count left over from an earlier phase (two
+    # transient misses that no later call to that peer cleared) would
+    # confirm ONE victim of the rack at WEEDTPU_REPAIR_DEAD_S while its
+    # rack-mate waits for the reaper, and the scheduler would then see
+    # one rack failure as two. The fast path has its own scenario
+    # (chip_smoke.py's fleet phase).
     config.setdefault_env({
         "WEEDTPU_REPAIR": "on",
         "WEEDTPU_REPAIR_MAX_INFLIGHT": "1",
         "WEEDTPU_REPAIR_SETTLE_S": "6.0",
         "WEEDTPU_REPAIR_SCAN_S": "1.0",
         "WEEDTPU_REPAIR_DEAD_S": "8.0",
-        "WEEDTPU_REPAIR_REPORT_FAILURES": "2",
+        "WEEDTPU_REPAIR_REPORT_FAILURES": str(1 << 30),
     })
 
     from seaweedfs_tpu_torch.cluster import topology as topo_mod
@@ -515,13 +521,20 @@ def run_rack_mode(seconds: int, device: str = "cuda", out: str | None = None) ->
                 deadline = t0 + budget
                 # the registry keeps the dead holders until detection
                 # lands: coverage must first DROP (the loss is real and
-                # visible) before "complete again" means anything
+                # visible), and every victim must be out of the topology,
+                # before "complete again" means anything
                 saw_loss = False
+
+                def registered(v: Node) -> bool:
+                    with master.topology._lock:
+                        return any(n.grpc_port == v.grpc
+                                   for n in master.topology.nodes.values())
+
                 while time.monotonic() < deadline:
                     complete = all(coverage(v) == list(range(14)) for v in vids)
                     if not complete:
                         saw_loss = True
-                    elif saw_loss:
+                    elif saw_loss and not any(registered(v) for v in victims):
                         st = master.repair.status()
                         if st["queue_depth"] == 0 and st["inflight"] == 0:
                             break
@@ -540,6 +553,7 @@ def run_rack_mode(seconds: int, device: str = "cuda", out: str | None = None) ->
                     "coverage_complete": all(
                         coverage(v) == list(range(14)) for v in vids
                     ),
+                    "victims_expelled": not any(registered(v) for v in victims),
                     "priority_ok": priority_ok(batches),
                     # per-dispatch occupancy: wall_s is the scheduler's
                     # dispatch->mount wall (the RPC mounts rebuilt shards

@@ -10,10 +10,11 @@ renders the registry as the README's table."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tomllib
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterator, Optional
 
 SEARCH_PATHS = [".", "~/.seaweedfs_tpu", "/etc/seaweedfs_tpu"]
 
@@ -567,6 +568,62 @@ def setdefault_env(knobs: dict[str, str]) -> None:
             raise KeyError(f"{name} is not in the WEEDTPU env registry")
     for name, value in knobs.items():
         os.environ.setdefault(name, value)
+
+
+def set_env(name: str, value: Optional[str]) -> None:
+    """Set a registered knob for this process and the ones it starts
+    (None or "" unsets it). An unregistered name raises KeyError."""
+    if name not in ENV_REGISTRY and name not in HARNESS_REGISTRY:
+        raise KeyError(f"{name} is not in the WEEDTPU env registry")
+    if value is None or value == "":
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = str(value)
+
+
+@contextlib.contextmanager
+def override_env(name: str, value: Optional[str]) -> Iterator[None]:
+    """`set_env(name, value)` for the body, then the environment's own
+    value again (or none): a harness that models a knob in-process leaves
+    the next caller what it found, whatever the body set meanwhile."""
+    if name not in ENV_REGISTRY and name not in HARNESS_REGISTRY:
+        raise KeyError(f"{name} is not in the WEEDTPU env registry")
+    prev = os.environ.get(name)
+    set_env(name, value)
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+#: the measurement harness's knobs (`bench.py`, `scripts/device_window.py`),
+#: under the reference bench's names. They tune a measurement run, not a
+#: server, so they stay out of ENV_REGISTRY and the README's table.
+HARNESS_REGISTRY: dict[str, EnvVar] = {
+    v.name: v
+    for v in (
+        EnvVar("BENCH_MODE", "", "The mode `python -m seaweedfs_tpu_torch.bench` runs; "
+               "empty runs the staged main.", str),
+        EnvVar("BENCH_WATCHDOG_SECS", 900, "The staged main's whole budget, seconds."),
+        EnvVar("BENCH_PROBE_SECS", 75, "The device probe child's timeout, seconds."),
+        EnvVar("BENCH_CPU_SECS", 420, "The cpu suite child's timeout, seconds."),
+        EnvVar("BENCH_TRACE_DIR", "", "Where the device mode writes its torch.profiler "
+               "trace; empty: no trace.", str),
+        EnvVar("WINDOW_BUDGET_S", 1500.0, "The device window's budget, seconds: the sweep "
+               "runs only with more than 600 s of it left.", float),
+    )
+}
+
+
+def harness_env(name: str) -> Any:
+    """Parsed value of a registered harness knob (its default when unset)."""
+    var: Optional[EnvVar] = HARNESS_REGISTRY.get(name)
+    if var is None:
+        raise KeyError(f"{name} is not in the harness env registry")
+    return var.value()
 
 
 def env_table_markdown() -> str:

@@ -2342,3 +2342,21 @@ def test_lock_recorder_over_degraded_reads_on_the_card(card, tmp_path):
     assert out["launches"] > 0, out
     assert out["edges"], out
     assert out["cycles"] == [], out
+
+
+@pytest.mark.parametrize("mode", ["xor", "rebuild_batch"])
+def test_bench_smoke_on_the_card_equals_the_cpu_smoke(card, mode):
+    """The harness's deterministic smokes (`BENCH_MODE=<mode> --smoke`) on
+    the card give the JSON the same smokes give with `--device cpu` on
+    this host, but for the device, the card line and the launches, which
+    must show the int8 kernel."""
+    from seaweedfs_tpu_torch import bench
+
+    on_card = bench.run_mode(mode, "cuda", smoke=True)
+    on_cpu = bench.run_mode(mode, "cpu", smoke=True)
+    assert on_card["ok"] is True and on_cpu["ok"] is True, (on_card, on_cpu)
+    assert (on_card.pop("device"), on_cpu.pop("device")) == ("cuda", "cpu")
+    assert on_card.pop("card") and on_cpu.pop("card") is None
+    assert on_card.pop("launches").get("int8", 0) > 0 and on_cpu.pop("launches") == {}
+    assert "when" not in on_card
+    assert on_card == on_cpu

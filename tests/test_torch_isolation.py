@@ -88,7 +88,7 @@ def test_port_has_modules_for_every_layer():
                  "analysis/resources.py", "analysis/envreg.py", "analysis/durability.py",
                  "analysis/donation.py", "analysis/lock_order.py", "analysis/wire_drift.py",
                  "analysis/obs_drift.py", "analysis/lockrec.py", "analysis/fsrec.py",
-                 "ops/cuda_lowering.py", "ops/xorsched.py"):
+                 "ops/cuda_lowering.py", "ops/xorsched.py", "bench.py"):
         assert want in rel, want
     for src in ("gf_bitplane.cu", "gf_dma.cu", "gf_mma.cu", "gf_common.cuh", "crc32c.cc",
                 "gf_host.cc"):
