@@ -8,6 +8,16 @@ Phases, one JSON line each:
            versions, or null); exits 1 without CUDA
   build    compiles every kernel library from seaweedfs_tpu_torch/csrc/,
            and beside them the host codecs' library (csrc/gf_host.cc, g++)
+  sanitizer
+           while the kernels build: the host codecs' threaded entry points
+           under ThreadSanitizer and AddressSanitizer on the card's host
+           (`ops/host_sanitizer.py`: `csrc/xs_san_driver.cc` linked with
+           `csrc/gf_host.cc`, the XOR-schedule executor's tile pool,
+           `gf_matrix_apply_mt` and `gf_matrix_apply_batch` at 1 2 4 8
+           threads against their byte oracles); the host's fingerprint, the
+           XOR executor's SIMD level, each binary's compiler, build and run
+           seconds, exit code and last line, and the phase's seconds; exits
+           1 unless both print "all clean" and exit 0
   lowering the build proof (`ops/cuda_lowering.py`): every library again
            (now from the cache: its kept ptxas log must name as many
            kernels as the cold build's), each one's registers, spill bytes
@@ -425,6 +435,7 @@ those two lines report the servers' /metrics counts instead.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import hashlib
 import io
@@ -1095,6 +1106,28 @@ def run_volume(base: str, gib: float, large_block: int, seed: int, card: str,
         "verified": True, "crc_match": True, "decoded_sha256_match": True,
         "card": card, "degraded_read": degraded,
     }
+
+
+def run_sanitizer(card: str) -> dict:
+    """The host codecs' sanitizer driver, built with each sanitizer and
+    run at `host_sanitizer.THREADS` on this host. `ok` only where every
+    binary exits 0 with its all-clean line; a sanitizer's report goes to
+    stderr."""
+    from seaweedfs_tpu_torch.ops import host_sanitizer, rs_codec, xorsched
+
+    t0 = time.perf_counter()
+    binaries = {}
+    for kind, b in host_sanitizer.build().items():
+        r = host_sanitizer.run(b["path"])
+        binaries[kind] = {"compiler": b["compiler"], "build_s": b["seconds"],
+                          "run_s": r["seconds"], "rc": r["rc"], "clean": r["clean"],
+                          "lines": r["lines"], "last_line": r["last_line"]}
+        if not r["clean"]:
+            print(f"[sanitizer {kind}] {r['stderr']}", file=sys.stderr)
+    return {"phase": "sanitizer", "card": card, "host": rs_codec._host_fingerprint(),
+            "xor_simd": xorsched.native_level(), "threads": list(host_sanitizer.THREADS),
+            "binaries": binaries, "seconds": time.perf_counter() - t0,
+            "ok": all(b["clean"] for b in binaries.values())}
 
 
 def _host_gbps(fn, in_bytes: int, runs: int) -> tuple:
@@ -5345,14 +5378,20 @@ def main(argv=None) -> int:
     from seaweedfs_tpu_torch.utils import native
 
     t0 = time.perf_counter()
-    # the host codecs' library (g++) builds beside the kernels (nvcc)
-    host_lib = threading.Thread(target=native.load_gf)
-    host_lib.start()
-    built = _build.build()
-    host_lib.join()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {k: {"seconds": v["seconds"]} for k, v in built.items()},
-          "gf_host": native.load_gf() is not None})
+    # the host codecs' library (g++) builds beside the kernels (nvcc), and
+    # the host sanitizer phase runs meanwhile
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        host_lib = pool.submit(native.load_gf)
+        sanitizer = pool.submit(run_sanitizer, card)
+        built = _build.build()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "libraries": {k: {"seconds": v["seconds"]} for k, v in built.items()},
+              "gf_host": host_lib.result() is not None})
+        sanitizer = sanitizer.result()
+    emit(sanitizer)
+    if not sanitizer["ok"]:
+        print("chip_smoke: the host codecs are not sanitizer-clean", file=sys.stderr)
+        return 1
     check(set(built) == set(_build.SOURCES), f"built {sorted(built)}")
     for name, v in built.items():
         print(f"[{name}] {v['ptxas']}", file=sys.stderr)
